@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA card
+
+Phases, in order (any failure exits non-zero and prints no result line):
+ 1. card   — name, ``nvidia-smi`` name and power limit, TF32 off.
+ 2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
+             with ``-Xptxas -v`` (registers, shared memory, spills).
+ 3. sweep  — each kernel against its plain PyTorch version on the card over
+             dtypes, variants, head dims and shapes, and at every prompt
+             length the main path serves (elementwise tolerances of
+             tests/test_kernels.py, 2e-5 in f32 and 2e-2 in bf16, and a
+             relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16).
+ 4. timing — each kernel at the main path's shapes (CUDA events), beside its
+             plain version, a library yardstick and the card's bound.
+ 5. serve  — the deepseek-7b ServingEngine at full width (30 layers,
+             d_model 4096, 32x128 heads, d_ff 11008, vocab 102400; random
+             weights from a seeded generator) serves six requests over four
+             slots; kernel launch counts are read around this run.
+    logits — request 0's prefill last-logits through the kernel and the
+             plain attention, in the served bf16 model beside a witness (two
+             correct plain codes) and a control (a plain code with a fault),
+             and in an fp32 twin with the same weights.
+ 6. migrate — the same requests again with a mid-decode state_dict dump to
+             host memory and restore into a fresh engine; the streams must
+             equal phase 5's.
+ 7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
+             device time by kernel and the device's idle share.
+The line before the last holds the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from contextlib import contextmanager
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+PEAK_BYTES = 3.35e12           # H100 SXM HBM3
+TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
+LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
+PROMPT_LENS = (128, 333, 512, 1000, 1536, 2048)
+MAX_NEW = 16
+SLOTS, CAPACITY = 4, 2304
+DEVICE = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
+def time_ms(fn, iters, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dtype):
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE).to(dtype)
+    return mk(B, Sq, H, hd), mk(B, Sk, Kh, hd), mk(B, Sk, Kh, hd)
+
+
+VARIANTS = ("causal", "bidir", "window", "softcap")
+
+
+def variant_kw(name, Sk):
+    return {"causal": dict(causal=True), "bidir": dict(causal=False),
+            "window": dict(causal=True, window=Sk // 3),
+            "softcap": dict(causal=True, softcap=20.0)}[name]
+
+
+def _rel(a, b):
+    """Relative L2 error of ``a`` against ``b``."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    report = _build.build("flash_attention", verbose=True)
+    log(f"build: flash_attention.cu in {time.perf_counter() - t0:.1f} s "
+        f"-> {_build.library_path('flash_attention').relative_to(ROOT)}")
+    for line in report.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers",
+                                   "spill", "smem")):
+            log("  ptxas:", line.strip().replace("ptxas info    : ", ""))
+
+
+def phase_sweep():
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    shapes = [(1, 128, 128, 4, 4, hd) for hd in fa.HEAD_DIMS] + [
+        (2, 256, 256, 8, 2, 64),        # GQA
+        (1, 192, 192, 6, 1, 16),        # MQA
+        (1, 100, 333, 8, 2, 128),       # right-aligned Sq < Sk, ragged
+        (1, 333, 333, 4, 2, 64),        # ragged S
+        (2, 77, 77, 4, 4, 256)]         # ragged, tiny, largest head dim
+    cases = [(s, dt, v) for s in shapes
+             for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
+    cases += [((1, S, S, 32, 32, 128), torch.bfloat16, "causal")
+              for S in PROMPT_LENS]            # the main path's prefills
+    bad = []
+    worst = {}
+    for seed, (shape, dt, var) in enumerate(cases):
+        B, Sq, Sk, H, Kh, hd = shape
+        q, k, v = rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dt)
+        kw = variant_kw(var, Sk)
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa.attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        rtol, atol = TOL[str(dt).split(".")[-1]]
+        excess = (diff - atol - rtol * want.float().abs()).max().item()
+        err = diff.max().item()
+        name = str(dt).split(".")[-1]
+        rel = _rel(got, want)
+        ok = (excess <= 0 and rel <= REL_L2[name]
+              and torch.isfinite(got).all().item())
+        worst[name] = max(worst.get(name, 0.0), err)
+        worst[name + "_rel_l2"] = max(worst.get(name + "_rel_l2", 0.0), rel)
+        log(f"sweep {shape} {name:8s} {var:7s} max_abs_err={err:.3e} "
+            f"rel_l2={rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append((shape, name, var, err))
+    log(f"sweep: {len(cases) - len(bad)}/{len(cases)} cases within "
+        f"tolerance; worst errors {json.dumps(worst)}")
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+
+
+def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal):
+    pairs = Sq * Sk if not causal else sum(
+        min(Sk, Sk - Sq + i + 1) for i in range(Sq))
+    flops = 4 * B * H * hd * pairs
+    nbytes = elem_bytes * (2 * B * Sq * H * hd + 2 * B * Sk * H * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def phase_timing():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for S in (512, 2048):
+        B, H, hd = 1, 32, 128
+        q, k, v = rand_qkv(100 + S, B, S, S, H, H, hd, torch.bfloat16)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        plain = lambda: fa.attention_plain(q, k, v, causal=True)  # noqa: E731
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        err = (kern().float() - plain().float()).abs().max().item()
+        lib_err = (kern().float() - lib().transpose(1, 2).float()
+                   ).abs().max().item()
+        iters = 50 if S == 512 else 20
+        ms = time_ms(kern, iters)
+        plain_ms = time_ms(plain, max(iters // 4, 3))
+        lib_ms = time_ms(lib, iters)
+        ms2 = time_ms(kern, iters)
+        bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True)
+        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=err, library_max_abs_diff=lib_err,
+                   tflops=flops / (ms * 1e-3) / 1e12)
+        rows.append(row)
+        log(f"timing [1,{S},32,128] bf16 causal: kernel {ms:.4f} ms "
+            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA yardstick "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{row['tflops']:.2f} TFLOP/s, kernel-plain max abs err "
+            f"{err:.3e}, kernel-SDPA {lib_err:.3e}")
+    return rows
+
+
+def make_prompts(vocab):
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def serve(eng, reqs, timings=None, hand_off=None):
+    """Submit in order as slots free up; step until every request is done.
+    ``hand_off(eng)`` runs after the third step and returns the engine that
+    carries on."""
+    import torch
+    pending = list(reqs)
+    while pending or any(eng.active):
+        while pending:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not eng.submit(pending[0]):
+                break
+            torch.cuda.synchronize()
+            if timings is not None:
+                timings["prefill"].append(
+                    (len(pending[0].prompt), time.perf_counter() - t0))
+            pending.pop(0)
+        n_active = sum(r is not None for r in eng.active)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if timings is not None:
+            timings["decode"].append((n_active, time.perf_counter() - t0))
+        if hand_off is not None and eng.steps == 3:
+            eng, hand_off = hand_off(eng), None
+    return [list(r.out) for r in reqs]
+
+
+def build_lm():
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config("deepseek-7b")
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(0))
+    n_params = sum(p.numel() for p in lm.parameters())
+    # the reference casts each fp32 weight matrix to bf16 at every use; one
+    # cast at load gives the same numbers and halves the weights' bytes
+    lm.cast_weights()
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"serve: deepseek-7b at full width, {n_params / 1e9:.3f} B params "
+        f"(n_periods={lm.decoder.n_periods}), init+cast "
+        f"{time.perf_counter() - t0:.1f} s, weights held in "
+        f"{n_bytes / 2**30:.2f} GiB (matrices bf16, norms fp32)")
+    return lm
+
+
+def phase_serve(lm):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = lm.cfg
+    prompts = make_prompts(cfg.vocab_size)
+    # set-up, not request time: the first products pick their cuBLAS plans
+    t0 = time.perf_counter()
+    serve(ServingEngine(lm, slots=SLOTS, capacity=256, device=DEVICE),
+          [Request(0, prompts[0], max_new=2)])
+    log(f"serve: warm-up (one {len(prompts[0])}-token request, 2 tokens) "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
+    reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    timings = {"prefill": [], "decode": []}
+    fa.launches = 0
+    t0 = time.perf_counter()
+    streams = serve(eng, reqs, timings)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.launches}
+    peak = torch.cuda.max_memory_allocated()
+    assert all(len(s) == MAX_NEW for s in streams), [len(s) for s in streams]
+    want = cfg.num_layers * len(prompts)
+    assert launches["flash_attention_fwd"] == want, (launches, want)
+    for n, dt in timings["prefill"]:
+        log(f"serve: prefill S={n:5d} {dt * 1e3:.3f} ms")
+    dec = timings["decode"]
+    dec_s = sum(dt for _, dt in dec)
+    dec_tok = sum(n for n, _ in dec)
+    log(f"serve: {len(dec)} decode steps, {dec_s / len(dec) * 1e3:.3f} ms "
+        f"per step, {dec_tok / dec_s:.1f} tokens/s decoded; "
+        f"{len(prompts)} requests in {wall:.2f} s; peak allocated "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    for r in reqs:
+        log(f"serve: request {r.rid} (S={len(r.prompt)}) -> {r.out}")
+    summary = dict(
+        prefill_ms={str(n): dt * 1e3 for n, dt in timings["prefill"]},
+        decode_ms_per_step=dec_s / len(dec) * 1e3, decode_steps=len(dec),
+        decode_tokens_per_s=dec_tok / dec_s, wall_s=wall,
+        peak_allocated_gib=peak / 2**30, launches=launches)
+    return streams, launches, summary
+
+
+@contextmanager
+def plain_attention_as(fn):
+    """Route the port's ``impl="plain"`` attention through ``fn`` for the
+    duration of the block (a witness or a control for phase logits)."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.attention_plain
+    fa.attention_plain = lambda q, k, v, **kw: fn(orig, q, k, v, **kw)
+    try:
+        yield
+    finally:
+        fa.attention_plain = orig
+
+
+def _plain_small_chunks(orig, q, k, v, **kw):
+    """Witness: the plain code with 64-query, 64-key chunks instead of 512,
+    a second correct attention that sums in another order."""
+    return orig(q, k, v, chunk_q=64, chunk_k=64, **kw)
+
+
+def _plain_drops_diagonal(orig, q, k, v, **kw):
+    """Control: a causal mask off by one. Query row i >= 1 sees keys
+    0..i-1, missing its own key, as a kernel that mis-masks the diagonal
+    tile would."""
+    import torch
+    head = orig(q[:, :1], k[:, :1], v[:, :1], **kw)
+    rest = orig(q[:, 1:], k[:, :-1], v[:, :-1], **kw)
+    return torch.cat([head, rest], 1)
+
+
+def phase_logits(lm):
+    """Request 0's prefill last-logits through the kernel and through the
+    plain attention.
+
+    In the served bf16 model, any two correct attention codes differ in the
+    last bit of some outputs, and 30 random-init bf16 layers carry such a
+    flip far. So the kernel-vs-plain gap is read beside a witness, the plain
+    code against itself with other chunk sizes, and a control, the plain
+    code with an off-by-one causal mask. The limit must lie above the
+    witness and below the control, and the kernel must meet it. In an fp32
+    twin with the same weights (the same seeded draws before the bf16 cast)
+    kernel and plain must agree to 1e-2."""
+    import torch
+    from repro_torch.models.model import LM
+    cfg = lm.cfg
+    p0 = {"tokens": torch.as_tensor(make_prompts(cfg.vocab_size)[0],
+                                    device=DEVICE)[None]}
+    _, lk = lm.prefill(p0, CAPACITY)
+    _, lp = lm.prefill(p0, CAPACITY, impl="plain")
+    assert torch.isfinite(lk).all() and lk.shape == (1, cfg.padded_vocab)
+    with plain_attention_as(_plain_small_chunks):
+        _, lw = lm.prefill(p0, CAPACITY, impl="plain")
+    with plain_attention_as(_plain_drops_diagonal):
+        _, lc = lm.prefill(p0, CAPACITY, impl="plain")
+    lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
+              generator=torch.Generator(device=DEVICE).manual_seed(0))
+    _, lk32 = lm32.prefill(p0, CAPACITY)
+    _, lp32 = lm32.prefill(p0, CAPACITY, impl="plain")
+    del lm32
+    torch.cuda.empty_cache()
+    out = dict(bf16_kernel_vs_plain=_rel(lk, lp),
+               bf16_witness_plain_chunk64_vs_plain=_rel(lw, lp),
+               bf16_control_diagonal_dropped_vs_plain=_rel(lc, lp),
+               bf16_limit=LOGITS_REL_L2,
+               fp32_kernel_vs_plain=_rel(lk32, lp32),
+               bf16_kernel_vs_fp32=_rel(lk, lp32),
+               bf16_plain_vs_fp32=_rel(lp, lp32))
+    log("logits: request 0 prefill last-logits, relative L2 "
+        + json.dumps(out))
+    assert out["bf16_witness_plain_chunk64_vs_plain"] <= LOGITS_REL_L2, out
+    assert out["bf16_control_diagonal_dropped_vs_plain"] > LOGITS_REL_L2, out
+    assert out["bf16_kernel_vs_plain"] <= LOGITS_REL_L2, out
+    assert out["fp32_kernel_vs_plain"] <= 1e-2, out
+    return out
+
+
+def phase_profile(lm):
+    """Device time by kernel and the device's idle share under
+    ``torch.profiler``: one S=2048 prefill, then 8 decode steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Request, ServingEngine
+    eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
+    prompt = make_prompts(lm.cfg.vocab_size)[-1]
+    work = {"prefill": lambda: eng.submit(Request(0, prompt, max_new=64)),
+            "decode": lambda: [eng.step() for _ in range(8)]}
+    out = {}
+    for label, fn in work.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+        busy = sum(dev.values())
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                          idle_share=(1 - busy / wall_us) if busy else None,
+                          top=[(k[:80], t / 1e3) for k, t in top])
+        log(f"profile {label}: wall {wall_us / 1e3:.3f} ms under the "
+            f"profiler, device busy {busy / 1e3:.3f} ms, idle share "
+            f"{out[label]['idle_share']}")
+        for k, t in top:
+            log(f"  {t / 1e3:9.3f} ms  {k[:100]}")
+    return out
+
+
+def phase_migrate(lm, streams):
+    import torch
+    from repro_torch.models.layers import flatten_paths
+    from repro_torch.serving.engine import Request, ServingEngine, state_to
+    prompts = make_prompts(lm.cfg.vocab_size)
+    reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
+    info = {}
+
+    def hand_off(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = state_to(eng.state_dict(), "cpu")      # dump to host memory
+        fresh = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY,
+                              device=DEVICE)
+        fresh.load_state_dict(blob)                   # restore onto the card
+        fresh.active = eng.active
+        torch.cuda.synchronize()
+        info["s"] = time.perf_counter() - t0
+        info["bytes"] = sum(t.numel() * t.element_size() for _, t in
+                            flatten_paths(blob["cache"]))
+        return fresh
+
+    got = serve(ServingEngine(lm, slots=SLOTS, capacity=CAPACITY,
+                              device=DEVICE), reqs, hand_off=hand_off)
+    log(f"migrate: state of {info['bytes'] / 2**30:.3f} GiB dumped to host "
+        f"and restored in {info['s']:.3f} s; streams "
+        f"{'equal' if got == streams else 'DIFFER'}")
+    assert got == streams, (got, streams)
+    return info
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one "
+              "card", file=sys.stderr)
+        return 1
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"card: {name}; nvidia-smi: {smi}; python {sys.version.split()[0]}, "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    failed = []
+
+    def run(label, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            out = fn(*a)
+        except Exception:                       # report, then fail at exit
+            log(f"PHASE {label} FAILED:\n{traceback.format_exc()}")
+            failed.append(label)
+            return None
+        log(f"phase {label}: ok in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run("build", phase_build)
+    if failed:
+        return 1
+    run("sweep", phase_sweep)
+    timing = run("timing", phase_timing)
+    lm = run("load", build_lm)
+    served = run("serve", phase_serve, lm) if lm is not None else None
+    if served is not None:
+        logits = run("logits", phase_logits, lm)
+        run("migrate", phase_migrate, lm, served[0])
+        profiled = run("profile", phase_profile, lm)
+    if failed or timing is None or served is None:
+        log(f"chip_smoke: FAILED phases {failed}")
+        return 1
+    streams, launches, summary = served
+    summary.update(logits_rel_l2=logits, profile=profiled)
+    t2048 = next(r for r in timing if r["S"] == 2048)
+    kernels = [{
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": launches["flash_attention_fwd"],
+        "max_abs_err": t2048["max_abs_err"], "ms": t2048["ms"],
+        "plain_ms": t2048["plain_ms"], "bound_ms": t2048["bound_ms"],
+        "bound_by": t2048["bound_by"], "library_ms": t2048["library_ms"]}]
+    log(json.dumps({"timing": timing, "serving": summary}))
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the ``repro`` model substrate, for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference; this package imports nothing of
+it and never imports ``jax``. Layout mirrors ``repro``:
+
+* ``configs``  — own copy of the config dataclasses and the arch registry,
+* ``kernels``  — hand-written CUDA kernels (``csrc/``), their wrappers and
+                 plain PyTorch versions,
+* ``models``   — the dense decoder LM as an ``nn.Module``,
+* ``serving``  — the continuous-batching ``ServingEngine``,
+* ``bridge``   — load a JAX parameter tree (as numpy) into the port's LM.
+
+Every entry point takes an explicit ``device`` that defaults to ``"cuda"``.
+"""

@@ -1,0 +1,107 @@
+"""GQA/MQA global attention mixer (mirrors the GQA part of
+``repro/models/attention.py``; sliding-window layers, MLA and
+cross-attention come with the slices that run them).
+
+Full-sequence paths (prefill) route through ``repro_torch.kernels.ops``;
+decode writes the new token's k/v into the cache IN PLACE (the reference
+returns a new cache), which saves a copy of the whole KV cache per step.
+The reference's sharding ``constrain`` calls and ``qkv_constraint`` have no
+counterpart on one card and are left out.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import ParamDef, apply_rope
+
+
+def attn_def(cfg: ModelConfig):
+    D = cfg.d_model
+    d = {
+        "wq": ParamDef((D, cfg.q_dim), ("embed", "heads")),
+        "wk": ParamDef((D, cfg.kv_dim), ("embed", "heads")),
+        "wv": ParamDef((D, cfg.kv_dim), ("embed", "heads")),
+        "wo": ParamDef((cfg.q_dim, D), ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef((cfg.head_dim,), ("norm",), "zeros")
+        d["k_norm"] = ParamDef((cfg.head_dim,), ("norm",), "zeros")
+    return d
+
+
+def _rms_head(x, scale, eps):
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def _qkv(cfg: ModelConfig, p, x, positions, rope=True):
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, Kh, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, Kh, hd)
+    if cfg.qk_norm:
+        q = _rms_head(q, p["q_norm"], cfg.norm_eps)
+        k = _rms_head(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_core(cfg: ModelConfig, p, q, k, v, *, causal=True, impl=None):
+    """Attention over projected q/k/v and the output projection -> [B,S,D]."""
+    B, S = q.shape[:2]
+    o = ops.attention(q, k, v, causal=causal,
+                      softcap=cfg.attn_logit_softcap, impl=impl)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(q.dtype)
+
+
+def attn_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
+                 impl=None):
+    """x: [B,S,D]; positions: [B,S] absolute. Returns [B,S,D]."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    return attn_core(cfg, p, q, k, v, causal=causal, impl=impl)
+
+
+def attn_cache_def(cfg: ModelConfig, batch, capacity, dtype):
+    """One layer's cache as meta tensors (shape and dtype, no storage)."""
+    shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+
+def _write_at(cache, new, idx):
+    """cache: [B,S,...]; new: [B,1,...]; idx: [B]. Writes row b at
+    ``idx[b]`` in place. Like ``jax.lax.dynamic_update_slice`` the index is
+    clamped to [0, S-1]: an idle engine slot whose length has run past the
+    capacity writes its last row instead of raising."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx.long().clamp(0, cache.shape[1] - 1)] = new[:, 0].to(
+        cache.dtype)
+    return cache
+
+
+def attn_decode(cfg: ModelConfig, p, x, cache, positions):
+    """x: [B,1,D]; positions: [B] index of the new token. -> (y, cache)."""
+    B = x.shape[0]
+    q, k, v = _qkv(cfg, p, x, positions[:, None])
+    _write_at(cache["k"], k, positions)
+    _write_at(cache["v"], v, positions)
+    o = ops.attention_decode(q, cache["k"], cache["v"], positions + 1,
+                             softcap=cfg.attn_logit_softcap)
+    y = o.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
+    return y, cache
+
+
+def attn_prefill_cache(k, v, capacity):
+    """Build a decode cache from a full prefix's k/v [B,S,Kh,hd] (the
+    reference recomputes them from x; the port reuses the prefill's)."""
+    B, S, Kh, hd = k.shape
+    pad = torch.zeros((B, capacity - S, Kh, hd), dtype=k.dtype,
+                      device=k.device)
+    return {"k": torch.cat([k, pad], 1), "v": torch.cat([v, pad], 1)}

@@ -1,0 +1,382 @@
+"""Dense decoder LM as an ``nn.Module`` (mirrors ``repro/models/model.py``).
+
+Depth is organised as head (unrolled) + core (stacked over periods) + tail
+(unrolled), with the reference's split. Parameters are ``nn.Parameter``s
+registered under the JAX tree's paths (``decoder.core.0.mixer.wq``,
+``decoder.core.0.ln1.scale``, ``embed``, ``head``, ...); the core keeps its
+leading ``[n_periods, ...]`` dimension, and a Python loop over periods takes
+the place of ``lax.scan``.
+
+Public API:
+    LM(cfg, device=..., generator=...)
+    .forward(batch)                 -> (logits, aux, off)
+    .prefill(batch, capacity)       -> (cache, last_logits)
+    .decode_step(cache, tokens)     -> (cache, logits)   # cache updated in place
+    .init_cache(batch, capacity)    -> cache tree of meta tensors
+    .materialize_cache(batch, capacity)
+    .cast_weights()                 # matrices held in the compute dtype
+
+This slice runs ``("attn", "dense")`` layers (the deepseek-7b family). Other
+mixers, MoE, encoder-decoder and vision inputs raise ``NotImplementedError``
+naming their ROADMAP item. Remat and sharding constraints have no
+counterpart here (serving only, one card).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
+                                       flatten_paths, init_params, mlp_def,
+                                       norm_def, tree_map)
+
+_LATER = {
+    "local": "ROADMAP Queue 1, remaining attention-only architectures "
+             "(gemma3-1b local attention)",
+    "enc": "ROADMAP Queue 1, remaining attention-only architectures "
+           "(seamless-m4t encoder-decoder)",
+    "xdec": "ROADMAP Queue 1, remaining attention-only architectures "
+            "(seamless-m4t encoder-decoder)",
+    "mla": "ROADMAP Queue 1, MoE and MLA",
+    "moe": "ROADMAP Queue 1, MoE and MLA",
+    "ssm": "ROADMAP Queue 1, Mamba-2 SSM",
+    "rec": "ROADMAP Queue 1, RG-LRU hybrid",
+    "none": "ROADMAP Queue 1, Mamba-2 SSM (layers without an MLP)",
+}
+
+
+def _supported(kind: Tuple[str, str]):
+    for part in kind:
+        if part in _LATER:
+            raise NotImplementedError(f"layer kind {kind}: not ported yet, "
+                                      f"see {_LATER[part]}")
+    if kind != ("attn", "dense"):
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees as modules
+# ---------------------------------------------------------------------------
+
+
+class _Node(nn.Module):
+    """A dict node of the parameter tree; ``node["key"]`` reads a child."""
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+
+def _to_module(tree):
+    if isinstance(tree, list):
+        return nn.ModuleList([_to_module(t) for t in tree])
+    node = _Node()
+    _fill(node, tree)
+    return node
+
+
+def _fill(module: nn.Module, tree: dict):
+    for key, val in tree.items():
+        if isinstance(val, torch.Tensor):
+            module.register_parameter(key, nn.Parameter(val))
+        else:
+            module.add_module(key, _to_module(val))
+
+
+def params_tree(module: nn.Module):
+    """The module's parameters as the JAX-shaped tree of dicts and lists."""
+    if isinstance(module, nn.ModuleList):
+        return [params_tree(m) for m in module]
+    d = dict(module._parameters)
+    d.update({k: params_tree(m) for k, m in module._modules.items()})
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
+    _supported(kind)
+    return {"ln1": norm_def(cfg), "mixer": A.attn_def(cfg),
+            "ln2": norm_def(cfg), "mlp": mlp_def(cfg, cfg.d_ff)}
+
+
+def _mlp_residual(cfg, p, x):
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
+    """Full-sequence layer -> (x, cache, aux). With ``capacity`` it also
+    emits this layer's decode cache; q/k/v are projected once and shared by
+    cache and attention (the reference projects them twice)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
+    cache = None
+    if capacity is not None:
+        cache = A.attn_prefill_cache(k, v, capacity)
+    x = x + A.attn_core(cfg, p["mixer"], q, k, v, impl=ctx.get("impl"))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp_residual(cfg, p, x), cache, aux
+
+
+def layer_apply(cfg, kind, p, x, ctx):
+    """Full-sequence layer. Returns (x, aux)."""
+    x, _, aux = layer_prefill(cfg, kind, p, x, ctx)
+    return x, aux
+
+
+def layer_cache_def(cfg, kind, batch, capacity, dtype):
+    return A.attn_cache_def(cfg, batch, capacity, dtype)
+
+
+def layer_decode(cfg, kind, p, x, cache, ctx):
+    h = apply_norm(cfg, p["ln1"], x)
+    mx, cache = A.attn_decode(cfg, p["mixer"], h, cache, ctx["positions"])
+    return _mlp_residual(cfg, p, x + mx), cache
+
+
+# ---------------------------------------------------------------------------
+# Depth segmentation + stacks
+# ---------------------------------------------------------------------------
+
+
+def _period(tree, i):
+    return tree_map(lambda t: t[i], tree)
+
+
+class Stack(nn.Module):
+    """head (unrolled) + core (stacked over periods) + tail (unrolled)."""
+
+    def __init__(self, cfg: ModelConfig, kinds: Sequence[Tuple[str, str]],
+                 period: int, head_n: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.kinds = list(kinds)
+        L = len(kinds)
+        if not cfg.scan_layers:
+            head_n, period = 0, max(L, 1)
+        self.head_kinds = self.kinds[:head_n]
+        rest = L - head_n
+        self.n_periods = rest // period if cfg.scan_layers else 0
+        if self.n_periods <= 1:   # the reference does not scan one period
+            self.n_periods = 0
+        core_n = self.n_periods * period
+        self.period_kinds = self.kinds[head_n:head_n + period] \
+            if self.n_periods else []
+        for i in range(core_n):
+            assert self.kinds[head_n + i] == self.period_kinds[i % period]
+        self.tail_kinds = self.kinds[head_n + core_n:]
+
+    def defs(self):
+        cfg = self.cfg
+
+        def stacked(d: ParamDef) -> ParamDef:
+            return ParamDef((self.n_periods,) + d.shape,
+                            ("layers",) + d.axes, d.init, d.scale)
+
+        return {
+            "head": [layer_def(cfg, k) for k in self.head_kinds],
+            "core": [tree_map(stacked, layer_def(cfg, k))
+                     for k in self.period_kinds],
+            "tail": [layer_def(cfg, k) for k in self.tail_kinds],
+        }
+
+    def cache_defs(self, batch, capacity, dtype):
+        cfg = self.cfg
+
+        def stacked(t):
+            return torch.empty((self.n_periods,) + tuple(t.shape),
+                               dtype=t.dtype, device="meta")
+
+        return {
+            "head": [layer_cache_def(cfg, k, batch, capacity, dtype)
+                     for k in self.head_kinds],
+            "core": [tree_map(stacked, layer_cache_def(cfg, k, batch,
+                                                       capacity, dtype))
+                     for k in self.period_kinds],
+            "tail": [layer_cache_def(cfg, k, batch, capacity, dtype)
+                     for k in self.tail_kinds],
+        }
+
+    def forward(self, x, ctx):
+        """Full sequence (the reference's ``Stack.apply``) -> (x, aux)."""
+        x, _, aux = self._full(x, ctx, None)
+        return x, aux
+
+    def prefill(self, x, ctx, capacity):
+        return self._full(x, ctx, capacity)
+
+    def _full(self, x, ctx, capacity):
+        cfg, params = self.cfg, params_tree(self)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches = {"head": [], "core": [], "tail": []}
+        for k, p in zip(self.head_kinds, params["head"]):
+            x, c, a = layer_prefill(cfg, k, p, x, ctx, capacity)
+            caches["head"].append(c)
+            aux = aux + a
+        per_period = []
+        for i in range(self.n_periods):
+            cs = []
+            for k, p in zip(self.period_kinds, _period(params["core"], i)):
+                x, c, a = layer_prefill(cfg, k, p, x, ctx, capacity)
+                cs.append(c)
+                aux = aux + a
+            per_period.append(cs)
+        if per_period and capacity is not None:
+            caches["core"] = [
+                {key: torch.stack([cs[j][key] for cs in per_period])
+                 for key in per_period[0][j]}
+                for j in range(len(self.period_kinds))]
+        for k, p in zip(self.tail_kinds, params["tail"]):
+            x, c, a = layer_prefill(cfg, k, p, x, ctx, capacity)
+            caches["tail"].append(c)
+            aux = aux + a
+        return x, caches, aux
+
+    def decode(self, x, cache, ctx):
+        """One token for every row; cache leaves are updated in place."""
+        cfg, params = self.cfg, params_tree(self)
+        for k, p, c in zip(self.head_kinds, params["head"], cache["head"]):
+            x, _ = layer_decode(cfg, k, p, x, c, ctx)
+        for i in range(self.n_periods):
+            for k, p, c in zip(self.period_kinds, _period(params["core"], i),
+                               _period(cache["core"], i)):
+                x, _ = layer_decode(cfg, k, p, x, c, ctx)
+        for k, p, c in zip(self.tail_kinds, params["tail"], cache["tail"]):
+            x, _ = layer_decode(cfg, k, p, x, c, ctx)
+        return x, cache
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LM(device='cuda') but no CUDA device is "
+                               "available; pass device='cpu' to run on the "
+                               "CPU")
+        if cfg.encoder_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder not ported yet, see "
+                f"{_LATER['enc']}")
+        if cfg.frontend != "none":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.frontend} inputs not ported yet, see "
+                f"ROADMAP Queue 1, remaining attention-only architectures")
+        self.cfg = cfg
+        mixers = cfg.layer_kinds
+        kinds = [(mixers[i], "none" if (cfg.d_ff == 0 and cfg.moe is None)
+                  else cfg.mlp_kind_at(i)) for i in range(cfg.num_layers)]
+        head_n = cfg.moe.first_k_dense if cfg.moe is not None else 0
+        self.compute_dtype = getattr(torch, cfg.dtype)
+        self.param_dtype = getattr(torch, cfg.param_dtype)
+        self.decoder = Stack(cfg, kinds, period=len(cfg.layer_pattern),
+                             head_n=head_n)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        params = init_params(self.defs(), generator, self.param_dtype,
+                             self.device)
+        decoder = params.pop("decoder")
+        _fill(self, params)
+        _fill(self.decoder, decoder)
+
+    # -- params -----------------------------------------------------------------
+    def defs(self):
+        cfg = self.cfg
+        D, V = cfg.d_model, cfg.padded_vocab
+        d = {
+            "embed": ParamDef((V, D), ("vocab", "embed"), "fixed",
+                              scale=0.02),
+            "final_norm": norm_def(cfg),
+            "decoder": self.decoder.defs(),
+        }
+        if not cfg.tie_embeddings:
+            d["head"] = ParamDef((D, V), ("embed", "vocab"))
+        return d
+
+    @torch.no_grad()
+    def cast_weights(self):
+        """Hold every weight matrix in the compute dtype instead of the param
+        dtype. The reference casts each matrix to the compute dtype at every
+        use, so the numbers do not change; norm parameters, which it reads in
+        fp32, stay as they are. Halves the bytes of an fp32-param model held
+        in bf16."""
+        defs = dict(flatten_paths(self.defs()))
+        for name, p in self.named_parameters():
+            if "norm" not in defs[name].axes:
+                p.data = p.data.to(self.compute_dtype)
+        return self
+
+    # -- embedding / logits -------------------------------------------------------
+    def _embed(self, tokens):
+        x = self.embed[tokens.long()].to(self.compute_dtype)
+        if self.cfg.scale_embeddings:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5,
+                                 dtype=self.compute_dtype)
+        return x
+
+    def _logits(self, x):
+        cfg = self.cfg
+        x = apply_norm(cfg, params_tree(self.final_norm), x)
+        w = self.embed.T if cfg.tie_embeddings else self.head
+        logits = x @ w.to(self.compute_dtype)
+        if cfg.logits_softcap > 0:
+            logits = torch.tanh(logits / cfg.logits_softcap) * \
+                cfg.logits_softcap
+        return logits
+
+    def _positions(self, B, S):
+        return torch.arange(S, device=self.device)[None].expand(B, S)
+
+    # -- full-sequence forward ------------------------------------------------------
+    def forward(self, batch, *, impl=None):
+        """batch["tokens"]: [B,S] -> (logits [B,S,V], aux, loss offset)."""
+        x = self._embed(batch["tokens"])
+        B, S, _ = x.shape
+        ctx = {"positions": self._positions(B, S), "impl": impl}
+        x, aux = self.decoder(x, ctx)
+        return self._logits(x), aux, 0
+
+    # -- serving ---------------------------------------------------------------------
+    def init_cache(self, batch, capacity):
+        return {"lengths": torch.empty((batch,), dtype=torch.int32,
+                                       device="meta"),
+                "layers": self.decoder.cache_defs(batch, capacity,
+                                                  self.compute_dtype)}
+
+    def materialize_cache(self, batch, capacity):
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                              device=self.device),
+                        self.init_cache(batch, capacity))
+
+    @torch.no_grad()
+    def prefill(self, batch, capacity, *, impl=None):
+        x = self._embed(batch["tokens"])
+        B, S, _ = x.shape
+        ctx = {"positions": self._positions(B, S), "impl": impl}
+        x, layer_cache, _ = self.decoder.prefill(x, ctx, capacity)
+        cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
+                                       device=self.device),
+                 "layers": layer_cache}
+        return cache, self._logits(x[:, -1:])[:, 0]
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens):
+        """tokens: [B,1] -> (cache, logits [B,V]). The cache's k/v leaves
+        are written in place; ``lengths`` is a new tensor."""
+        x = self._embed(tokens)
+        ctx = {"positions": cache["lengths"]}
+        x, layers = self.decoder.decode(x, cache["layers"], ctx)
+        new = {"lengths": cache["lengths"] + 1, "layers": layers}
+        return new, self._logits(x)[:, 0]
