@@ -6,32 +6,46 @@
 Phases, in order (any failure exits non-zero and prints no result line):
  1. card   — name, ``nvidia-smi`` name and power limit, TF32 off.
  2. build  — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
-             with ``-Xptxas -v`` (registers, shared memory, spills).
+             (one nvcc per source, all started together) with
+             ``-Xptxas -v`` (registers, shared memory, spills).
  3. sweep  — each kernel against its plain PyTorch version on the card over
-             dtypes, variants, head dims and shapes, and at every prompt
-             length the main path serves (elementwise tolerances of
-             tests/test_kernels.py, 2e-5 in f32 and 2e-2 in bf16, and a
-             relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16).
- 4. timing — each kernel at the main path's shapes (CUDA events), beside its
-             plain version, a library yardstick and the card's bound.
- 5. serve  — the deepseek-7b ServingEngine at full width (30 layers,
-             d_model 4096, 32x128 heads, d_ff 11008, vocab 102400; random
-             weights from a seeded generator) serves six requests over four
-             slots; kernel launch counts are read around this run.
+             dtypes, variants, shapes, and at every prompt length the main
+             path serves; elementwise tolerances of tests/test_kernels.py
+             and a relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16
+             per case. ``sweep`` is the flash attention, ``sweep-ssd`` the
+             SSD scan (y and h_final, with and without D and h0, a
+             two-halves state carry).
+ 4. timing — each kernel at the main paths' shapes (CUDA events), beside its
+             plain version, a library yardstick where one PyTorch call
+             computes the same function, and the card's bound (``timing``,
+             ``timing-ssd``).
+ 5. serve  — a ServingEngine at full width serves six requests over four
+             slots; kernel launch counts are set to 0 just before and read
+             just after: deepseek-7b (30 layers, d_model 4096, 32x128 heads,
+             d_ff 11008, vocab 102400) through the flash attention, then
+             ``serve-mamba``: mamba2-2.7b (64 Mamba-2 layers, d_model 2560,
+             80x64 SSD heads, d_state 128, vocab 50280) through the SSD
+             scan. Random weights from a seeded generator.
     logits — request 0's prefill last-logits through the kernel and the
-             plain attention, in the served bf16 model beside a witness (two
+             plain version, in the served bf16 model beside a witness (two
              correct plain codes) and a control (a plain code with a fault),
-             and in an fp32 twin with the same weights.
+             and in an fp32 twin with the same weights. ``logits-mamba``
+             holds the bf16 model on its hidden state after 4 layers (its
+             last-logits are reported), and checks that the kernel's final
+             state carries: a prefill plus decode steps gives a forward's
+             next-token logits.
  6. migrate — the same requests again with a mid-decode state_dict dump to
              host memory and restore into a fresh engine; the streams must
-             equal phase 5's.
+             equal phase 5's (``migrate``, ``migrate-mamba``).
  7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
-             device time by kernel and the device's idle share.
+             device time by kernel and the device's idle share
+             (``profile``, ``profile-mamba``).
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -48,6 +62,15 @@ PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
 LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
+LOGITS_REL_L2_FP32 = 1e-2   # fp32 twin, kernel vs plain
+# mamba2-2.7b in bf16: 64 random-init layers decorrelate the last-logits
+# after any last-bit flip (on an H100 a correct witness reads 0.52), so the
+# served bf16 model is held at LOGITS_REL_L2 on its hidden state after its
+# first layers, before the flips are amplified; its logits are reported
+GATE_LAYERS_MAMBA = 4
+CARRY_REL_L2 = 1e-3      # fp32 twin: prefill + decode steps vs a forward
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+KERNEL_SOURCES = ("flash_attention", "ssd")
 PROMPT_LENS = (128, 333, 512, 1000, 1536, 2048)
 MAX_NEW = 16
 SLOTS, CAPACITY = 4, 2304
@@ -112,15 +135,22 @@ def _rel(a, b):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    report = _build.build("flash_attention", verbose=True)
-    log(f"build: flash_attention.cu in {time.perf_counter() - t0:.1f} s "
-        f"-> {_build.library_path('flash_attention').relative_to(ROOT)}")
-    for line in report.splitlines():
-        if any(w in line for w in ("Compiling entry", "registers",
-                                   "spill", "smem")):
-            log("  ptxas:", line.strip().replace("ptxas info    : ", ""))
+
+    def one(name):
+        t0 = time.perf_counter()
+        return _build.build(name, verbose=True), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        done = list(pool.map(one, KERNEL_SOURCES))
+    for name, (report, secs) in zip(KERNEL_SOURCES, done):
+        log(f"build: {name}.cu in {secs:.1f} s (nvcc runs in parallel) -> "
+            f"{_build.library_path(name).relative_to(ROOT)}")
+        for line in report.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                log("  ptxas:", line.strip().replace("ptxas info    : ", ""))
 
 
 def phase_sweep():
@@ -212,16 +242,167 @@ def phase_timing():
     return rows
 
 
+def rand_ssd(seed, B, S, H, P, G, N, dtype):
+    """x, dt (softplus'd, fp32), A_log, B, C, D, h0 on the card."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEVICE) * scale
+    return (mk(B, S, H, P).to(dtype), F.softplus(mk(B, S, H)),
+            mk(H, scale=0.5), mk(B, S, G, N, scale=0.3).to(dtype),
+            mk(B, S, G, N, scale=0.3).to(dtype), mk(H), mk(B, H, P, N))
+
+
+def _ssd_case_ok(name, got, want):
+    """Elementwise and relative-L2 agreement of (y, h_final) pairs."""
+    import torch
+    rtol, atol = SSD_TOL[name]
+    out = {}
+    ok = True
+    for label, a, b in (("y", got[0], want[0]), ("h", got[1], want[1])):
+        diff = (a.float() - b.float()).abs()
+        excess = (diff - atol - rtol * b.float().abs()).max().item()
+        rel = _rel(a, b)
+        out[label] = (diff.max().item(), rel)
+        ok = ok and excess <= 0 and rel <= REL_L2[name] and \
+            bool(torch.isfinite(a).all())
+    return ok, out
+
+
+def phase_sweep_ssd():
+    import torch
+    from repro_torch.kernels import ssd
+    shapes = [(1, 64, 2, 8, 1, 8), (2, 128, 4, 16, 2, 8),   # test shapes
+              (1, 72, 2, 8, 1, 8),                           # ragged S
+              (2, 100, 4, 32, 2, 16),                        # ragged, G=2
+              (3, 1, 4, 16, 1, 16),                          # one token
+              (1, 333, 8, 64, 1, 128)]                       # ragged, N=128
+    variants = {"none": (), "D": ("D",), "h0": ("h0",), "D+h0": ("D", "h0")}
+    cases = [(s, dt, v) for s in shapes
+             for dt in (torch.float32, torch.bfloat16) for v in variants]
+    cases += [((1, S, 80, 64, 1, 128), torch.bfloat16, "D")
+              for S in PROMPT_LENS]            # the main path's prefills
+    bad, worst = [], {}
+    for seed, (shape, dt, var) in enumerate(cases):
+        x, dtv, al, bm, cm, d, h0 = rand_ssd(seed, *shape, dt)
+        kw = {k: {"D": d, "h0": h0}[k] for k in variants[var]}
+        got = ssd.ssd_scan(x, dtv, al, bm, cm, **kw)
+        torch.cuda.synchronize()
+        want = ssd.ssd_plain(x, dtv, al, bm, cm, **kw)
+        name = str(dt).split(".")[-1]
+        ok, errs = _ssd_case_ok(name, got, want)
+        for label, (err, rel) in errs.items():
+            worst[f"{name}_{label}"] = max(worst.get(f"{name}_{label}", 0.0),
+                                           err)
+            worst[f"{name}_{label}_rel_l2"] = max(
+                worst.get(f"{name}_{label}_rel_l2", 0.0), rel)
+        log(f"sweep-ssd {shape} {name:8s} {var:5s} y max_abs_err="
+            f"{errs['y'][0]:.3e} rel_l2={errs['y'][1]:.3e}, h max_abs_err="
+            f"{errs['h'][0]:.3e} rel_l2={errs['h'][1]:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append((shape, name, var))
+    # two halves, the state carried by the kernel across a ragged split
+    halves = (torch.float32, torch.bfloat16)
+    for dt in halves:
+        name = str(dt).split(".")[-1]
+        x, dtv, al, bm, cm, d, _ = rand_ssd(99, 1, 333, 80, 64, 1, 128, dt)
+        h, ys = None, []
+        for lo, hi in ((0, 166), (166, 333)):
+            y, h = ssd.ssd_scan(x[:, lo:hi], dtv[:, lo:hi], al, bm[:, lo:hi],
+                                cm[:, lo:hi], D=d, h0=h)
+            ys.append(y)
+        want = ssd.ssd_plain(x, dtv, al, bm, cm, D=d)
+        ok, errs = _ssd_case_ok(name, (torch.cat(ys, 1), h), want)
+        log(f"sweep-ssd two halves (166+167 of [1,333,80,64]) {name}: y "
+            f"rel_l2={errs['y'][1]:.3e}, h rel_l2={errs['h'][1]:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(("two halves", name))
+    n = len(cases) + len(halves)
+    log(f"sweep-ssd: {n - len(bad)}/{n} cases within "
+        f"tolerance; worst errors {json.dumps(worst)}")
+    if bad:
+        raise AssertionError(f"SSD kernel disagrees with its plain version: "
+                             f"{bad}")
+
+
+def ssd_bound(B, S, H, P, G, N, elem_bytes):
+    """Least time for the SSD scan plus D skip. FLOP: the least arithmetic
+    the function needs, which does not depend on the blocking. Chunked by Q
+    rows with the masked upper triangle left out, a row of a head costs
+    (Q+1)(N+P) for C.B^T and its product with x, and 4NP for C.h_in and the
+    state update; Q = 1, the plain recurrence, needs least: 2(N+P) + 4NP,
+    plus 2P for the D skip; at the bf16 peak. Bytes: x and y once, B and C
+    once per group, dt, A_log, D and h_final."""
+    flops = B * S * H * (2 * (N + P) + 4 * N * P + 2 * P)
+    nbytes = (2 * elem_bytes * B * S * H * P + 2 * elem_bytes * B * S * G * N
+              + 4 * B * S * H + 4 * 2 * H + 4 * B * H * P * N)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_timing_ssd():
+    import torch
+    from repro_torch.kernels import ssd
+    rows = []
+    for S in (512, 2048):
+        shape = (1, S, 80, 64, 1, 128)
+        x, dtv, al, bm, cm, d, _ = rand_ssd(200 + S, *shape, torch.bfloat16)
+        kern = lambda: ssd.ssd_scan(x, dtv, al, bm, cm, D=d)  # noqa: E731
+        plain = lambda: ssd.ssd_plain(x, dtv, al, bm, cm, D=d)  # noqa: E731
+        err = (kern()[0].float() - plain()[0].float()).abs().max().item()
+        iters = 50 if S == 512 else 20
+        ms = time_ms(kern, iters)
+        plain_ms = time_ms(plain, max(iters // 4, 3))
+        ms2 = time_ms(kern, iters)
+        bound_ms, bound_by, flops, nbytes = ssd_bound(*shape, 2)
+        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=flops, bytes=nbytes, max_abs_err=err,
+                   tflops=flops / (ms * 1e-3) / 1e12)
+        rows.append(row)
+        log(f"timing-ssd [1,{S},80,64] bf16 N=128 with D: kernel {ms:.4f} ms "
+            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, no library call "
+            f"computes SSD, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{row['tflops']:.2f} TFLOP/s, kernel-plain y max abs err "
+            f"{err:.3e}")
+    return rows
+
+
 def make_prompts(vocab):
     import numpy as np
     rng = np.random.RandomState(0)
     return [rng.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
 
 
+# the served paths: chip_smoke phase label and the kernel each path runs
+PATHS = {"deepseek-7b": ("serve", "flash_attention_fwd"),
+         "mamba2-2.7b": ("serve-mamba", "ssd_scan")}
+
+
+def kernel_counts():
+    """Launches counted by each kernel's wrapper since its last reset."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    return {"flash_attention_fwd": fa.launches, "ssd_scan": ssd.launches}
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    fa.launches = ssd.launches = 0
+
+
 def serve(eng, reqs, timings=None, hand_off=None):
     """Submit in order as slots free up; step until every request is done.
     ``hand_off(eng)`` runs after the third step and returns the engine that
-    carries on."""
+    carries on. ``timings`` collects prefill and decode times and the
+    kernel launches made inside decode steps."""
     import torch
     pending = list(reqs)
     while pending or any(eng.active):
@@ -236,22 +417,26 @@ def serve(eng, reqs, timings=None, hand_off=None):
                     (len(pending[0].prompt), time.perf_counter() - t0))
             pending.pop(0)
         n_active = sum(r is not None for r in eng.active)
+        before = sum(kernel_counts().values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         if timings is not None:
             timings["decode"].append((n_active, time.perf_counter() - t0))
+            timings["decode_launches"] = timings.get("decode_launches", 0) \
+                + sum(kernel_counts().values()) - before
         if hand_off is not None and eng.steps == 3:
             eng, hand_off = hand_off(eng), None
     return [list(r.out) for r in reqs]
 
 
-def build_lm():
+def build_lm(arch):
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import LM
-    cfg = get_config("deepseek-7b")
+    label = PATHS[arch][0]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     lm = LM(cfg, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
@@ -261,49 +446,55 @@ def build_lm():
     lm.cast_weights()
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    log(f"serve: deepseek-7b at full width, {n_params / 1e9:.3f} B params "
+    log(f"{label}: {arch} at full width, {n_params / 1e9:.3f} B params "
         f"(n_periods={lm.decoder.n_periods}), init+cast "
         f"{time.perf_counter() - t0:.1f} s, weights held in "
-        f"{n_bytes / 2**30:.2f} GiB (matrices bf16, norms fp32)")
+        f"{n_bytes / 2**30:.2f} GiB (matrices bf16, 1-D params fp32)")
     return lm
 
 
 def phase_serve(lm):
+    """Six requests over four slots. The counts are set to 0 just before the
+    run and read just after: the path's kernel launches once per layer and
+    prefill, no other kernel launches, and decode launches none."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = lm.cfg
+    label, kernel = PATHS[cfg.name]
     prompts = make_prompts(cfg.vocab_size)
     # set-up, not request time: the first products pick their cuBLAS plans
     t0 = time.perf_counter()
     serve(ServingEngine(lm, slots=SLOTS, capacity=256, device=DEVICE),
           [Request(0, prompts[0], max_new=2)])
-    log(f"serve: warm-up (one {len(prompts[0])}-token request, 2 tokens) "
+    log(f"{label}: warm-up (one {len(prompts[0])}-token request, 2 tokens) "
         f"{time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
     reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
     timings = {"prefill": [], "decode": []}
-    fa.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     streams = serve(eng, reqs, timings)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": fa.launches}
+    launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     assert all(len(s) == MAX_NEW for s in streams), [len(s) for s in streams]
-    want = cfg.num_layers * len(prompts)
-    assert launches["flash_attention_fwd"] == want, (launches, want)
+    want = {k: cfg.num_layers * len(prompts) if k == kernel else 0
+            for k in launches}
+    assert launches == want, (launches, want)
+    assert timings["decode_launches"] == 0, timings["decode_launches"]
     for n, dt in timings["prefill"]:
-        log(f"serve: prefill S={n:5d} {dt * 1e3:.3f} ms")
+        log(f"{label}: prefill S={n:5d} {dt * 1e3:.3f} ms")
     dec = timings["decode"]
     dec_s = sum(dt for _, dt in dec)
     dec_tok = sum(n for n, _ in dec)
-    log(f"serve: {len(dec)} decode steps, {dec_s / len(dec) * 1e3:.3f} ms "
+    log(f"{label}: {len(dec)} decode steps, {dec_s / len(dec) * 1e3:.3f} ms "
         f"per step, {dec_tok / dec_s:.1f} tokens/s decoded; "
         f"{len(prompts)} requests in {wall:.2f} s; peak allocated "
-        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} "
+        f"({timings['decode_launches']} in decode steps)")
     for r in reqs:
-        log(f"serve: request {r.rid} (S={len(r.prompt)}) -> {r.out}")
+        log(f"{label}: request {r.rid} (S={len(r.prompt)}) -> {r.out}")
     summary = dict(
         prefill_ms={str(n): dt * 1e3 for n, dt in timings["prefill"]},
         decode_ms_per_step=dec_s / len(dec) * 1e3, decode_steps=len(dec),
@@ -383,7 +574,133 @@ def phase_logits(lm):
     assert out["bf16_witness_plain_chunk64_vs_plain"] <= LOGITS_REL_L2, out
     assert out["bf16_control_diagonal_dropped_vs_plain"] > LOGITS_REL_L2, out
     assert out["bf16_kernel_vs_plain"] <= LOGITS_REL_L2, out
-    assert out["fp32_kernel_vs_plain"] <= 1e-2, out
+    assert out["fp32_kernel_vs_plain"] <= LOGITS_REL_L2_FP32, out
+    return out
+
+
+@contextmanager
+def plain_ssd_as(fn):
+    """Route the port's ``impl="plain"`` SSD through ``fn`` for the duration
+    of the block (a witness or a control for phase logits-mamba)."""
+    from repro_torch.kernels import ssd
+    orig = ssd.ssd_plain
+    ssd.ssd_plain = lambda *a, **kw: fn(orig, *a, **kw)
+    try:
+        yield
+    finally:
+        ssd.ssd_plain = orig
+
+
+def _ssd_other_chunks(orig, *a, **kw):
+    """Witness: the plain code blocked by 64 rows instead of 256, a second
+    correct SSD that sums in another order."""
+    return orig(*a, **dict(kw, chunk=64))
+
+
+def _ssd_drops_carry(orig, x, dt, A_log, B, C, *, D=None, h0=None,
+                     chunk=256):
+    """Control: the state carried into each 32-row chunk is dropped (no
+    inter-chunk C.h_in term), as a kernel that loses its carry would."""
+    import torch
+    S = x.shape[1]
+    ys = [orig(x[:, i:i + 32], dt[:, i:i + 32], A_log, B[:, i:i + 32],
+               C[:, i:i + 32], D=D, chunk=32)[0] for i in range(0, S, 32)]
+    _, hT = orig(x, dt, A_log, B, C, D=D, h0=h0, chunk=chunk)
+    return torch.cat(ys, 1), hT
+
+
+def _kernel_witness_control(run):
+    """``run(impl)`` -> a tensor, through the kernel (``impl=None``) and the
+    plain code, then the plain code as witness and as control. Returns their
+    relative L2 errors against the plain code's output, and the kernel's and
+    the plain code's outputs."""
+    k, p = run(None), run("plain")
+    assert k.isfinite().all() and k.shape == p.shape
+    with plain_ssd_as(_ssd_other_chunks):
+        w = run("plain")
+    with plain_ssd_as(_ssd_drops_carry):
+        c = run("plain")
+    return (dict(kernel_vs_plain=_rel(k, p),
+                 witness_plain_chunk64_vs_plain=_rel(w, p),
+                 control_carry_dropped_vs_plain=_rel(c, p)), k, p)
+
+
+def _hidden_after(lm, batch, n_layers, impl):
+    """The residual stream after the first ``n_layers`` layers of a prefill
+    (mamba2-2.7b's layers are all in the stacked core, one per period)."""
+    import torch
+    from repro_torch.models.model import _period, layer_prefill, params_tree
+    x = lm._embed(batch["tokens"])
+    ctx = {"positions": lm._positions(*x.shape[:2]), "impl": impl}
+    core = params_tree(lm.decoder)["core"]
+    with torch.no_grad():
+        for i in range(n_layers):
+            for k, p in zip(lm.decoder.period_kinds, _period(core, i)):
+                x, _, _ = layer_prefill(lm.cfg, k, p, x, ctx)
+    return x
+
+
+def phase_logits_mamba(lm):
+    """Request 0's prefill through the SSD kernel and through the plain
+    version. Beside them run a witness (the plain code blocked by 64 rows,
+    a correct code) and a control (the carried state dropped between 32-row
+    chunks, a fault): the witness must lie under the limit, the control over
+    it, and the kernel under it. In the served bf16 model the gate is the
+    hidden state after its first GATE_LAYERS_MAMBA layers at LOGITS_REL_L2,
+    since 64 random-init bf16 layers carry any last-bit flip far; its
+    last-logits are reported. In an fp32 twin with the same weights (the
+    same seeded draws before the bf16 cast) the gate is the last-logits at
+    LOGITS_REL_L2_FP32.
+
+    In the fp32 twin the kernel's final state must also carry: request 1's
+    prompt prefilled, then 4 decode steps, gives the next-token logits of
+    a forward over all S+4 tokens within a relative L2 error of 1e-3."""
+    import torch
+    from repro_torch.models.model import LM
+    cfg = lm.cfg
+    prompts = make_prompts(cfg.vocab_size)
+    p0 = {"tokens": torch.as_tensor(prompts[0], device=DEVICE)[None]}
+
+    def logits(model):
+        return lambda impl: model.prefill(p0, CAPACITY, impl=impl)[1]
+    hidden, _, _ = _kernel_witness_control(
+        lambda impl: _hidden_after(lm, p0, GATE_LAYERS_MAMBA, impl))
+    bf16, lk, lp = _kernel_witness_control(logits(lm))
+    assert lk.shape == (1, cfg.padded_vocab)
+    lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
+              generator=torch.Generator(device=DEVICE).manual_seed(0))
+    fp32, _, lp32 = _kernel_witness_control(logits(lm32))
+    # the kernel's h_final carries into decode
+    rng = torch.Generator().manual_seed(7)
+    extra = torch.randint(0, cfg.vocab_size, (1, 4), generator=rng)
+    seq = torch.cat([torch.as_tensor(prompts[1])[None].long(), extra], 1) \
+        .to(DEVICE)
+    S = len(prompts[1])
+    cache, _ = lm32.prefill({"tokens": seq[:, :S]}, CAPACITY)
+    for t in range(S, S + 4):
+        cache, dec = lm32.decode_step(cache, seq[:, t:t + 1])
+    with torch.no_grad():
+        full, _, _ = lm32({"tokens": seq})
+    carry = _rel(dec, full[:, -1])
+    del lm32, cache, full
+    torch.cuda.empty_cache()
+    gate = f"bf16_hidden{GATE_LAYERS_MAMBA}"
+    out = {**{f"{gate}_{k}": v for k, v in hidden.items()},
+           f"{gate}_limit": LOGITS_REL_L2,
+           **{f"bf16_logits_{k}": v for k, v in bf16.items()},
+           **{f"fp32_logits_{k}": v for k, v in fp32.items()},
+           "fp32_logits_limit": LOGITS_REL_L2_FP32,
+           "bf16_logits_kernel_vs_fp32": _rel(lk, lp32),
+           "bf16_logits_plain_vs_fp32": _rel(lp, lp32),
+           f"fp32_prefill{S}_decode4_vs_forward{S + 4}": carry,
+           "carry_limit": CARRY_REL_L2}
+    log("logits-mamba: request 0 prefill, relative L2 " + json.dumps(out))
+    for pre, limit in ((gate, LOGITS_REL_L2),
+                       ("fp32_logits", LOGITS_REL_L2_FP32)):
+        assert out[f"{pre}_witness_plain_chunk64_vs_plain"] <= limit, out
+        assert out[f"{pre}_control_carry_dropped_vs_plain"] > limit, out
+        assert out[f"{pre}_kernel_vs_plain"] <= limit, out
+    assert carry <= CARRY_REL_L2, out
     return out
 
 
@@ -393,6 +710,7 @@ def phase_profile(lm):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingEngine
+    name = PATHS[lm.cfg.name][0].replace("serve", "profile")
     eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
     prompt = make_prompts(lm.cfg.vocab_size)[-1]
     work = {"prefill": lambda: eng.submit(Request(0, prompt, max_new=64)),
@@ -415,7 +733,7 @@ def phase_profile(lm):
         out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                           idle_share=(1 - busy / wall_us) if busy else None,
                           top=[(k[:80], t / 1e3) for k, t in top])
-        log(f"profile {label}: wall {wall_us / 1e3:.3f} ms under the "
+        log(f"{name} {label}: wall {wall_us / 1e3:.3f} ms under the "
             f"profiler, device busy {busy / 1e3:.3f} ms, idle share "
             f"{out[label]['idle_share']}")
         for k, t in top:
@@ -427,6 +745,7 @@ def phase_migrate(lm, streams):
     import torch
     from repro_torch.models.layers import flatten_paths
     from repro_torch.serving.engine import Request, ServingEngine, state_to
+    label = PATHS[lm.cfg.name][0].replace("serve", "migrate")
     prompts = make_prompts(lm.cfg.vocab_size)
     reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
     info = {}
@@ -447,7 +766,7 @@ def phase_migrate(lm, streams):
 
     got = serve(ServingEngine(lm, slots=SLOTS, capacity=CAPACITY,
                               device=DEVICE), reqs, hand_off=hand_off)
-    log(f"migrate: state of {info['bytes'] / 2**30:.3f} GiB dumped to host "
+    log(f"{label}: state of {info['bytes'] / 2**30:.3f} GiB dumped to host "
         f"and restored in {info['s']:.3f} s; streams "
         f"{'equal' if got == streams else 'DIFFER'}")
     assert got == streams, (got, streams)
@@ -485,27 +804,45 @@ def main():
         return 1
     run("sweep", phase_sweep)
     timing = run("timing", phase_timing)
-    lm = run("load", build_lm)
-    served = run("serve", phase_serve, lm) if lm is not None else None
-    if served is not None:
-        logits = run("logits", phase_logits, lm)
-        run("migrate", phase_migrate, lm, served[0])
-        profiled = run("profile", phase_profile, lm)
-    if failed or timing is None or served is None:
+    run("sweep-ssd", phase_sweep_ssd)
+    timing_ssd = run("timing-ssd", phase_timing_ssd)
+    paths = {}
+    for arch, logits_fn in (("deepseek-7b", phase_logits),
+                            ("mamba2-2.7b", phase_logits_mamba)):
+        label = PATHS[arch][0]
+        sfx = label[len("serve"):]
+        lm = run("load" + sfx, build_lm, arch)
+        served = run(label, phase_serve, lm) if lm is not None else None
+        if served is not None:
+            logits = run("logits" + sfx, logits_fn, lm)
+            run("migrate" + sfx, phase_migrate, lm, served[0])
+            profiled = run("profile" + sfx, phase_profile, lm)
+            served[2].update(logits_rel_l2=logits, profile=profiled)
+            paths[arch] = served
+        del lm                  # free the card for the next path
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed or timing is None or timing_ssd is None or len(paths) < 2:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
-    streams, launches, summary = served
-    summary.update(logits_rel_l2=logits, profile=profiled)
-    t2048 = next(r for r in timing if r["S"] == 2048)
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": launches["flash_attention_fwd"],
-        "max_abs_err": t2048["max_abs_err"], "ms": t2048["ms"],
-        "plain_ms": t2048["plain_ms"], "bound_ms": t2048["bound_ms"],
-        "bound_by": t2048["bound_by"], "library_ms": t2048["library_ms"]}]
-    log(json.dumps({"timing": timing, "serving": summary}))
+    rows = {"flash_attention_fwd": next(r for r in timing if r["S"] == 2048),
+            "ssd_scan": next(r for r in timing_ssd if r["S"] == 2048)}
+    meta = {"flash_attention_fwd": ("deepseek-7b", "flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:30"),
+            "ssd_scan": ("mamba2-2.7b", "ssd.cu",
+                         "src/repro/kernels/ssd.py:24")}
+    kernels = []
+    for kname, (arch, src, replaces) in meta.items():
+        row = rows[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": paths[arch][1][kname],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
+                    "serving": {a: p[2] for a, p in paths.items()}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

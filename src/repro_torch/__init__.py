@@ -6,7 +6,8 @@ it and never imports ``jax``. Layout mirrors ``repro``:
 * ``configs``  — own copy of the config dataclasses and the arch registry,
 * ``kernels``  — hand-written CUDA kernels (``csrc/``), their wrappers and
                  plain PyTorch versions,
-* ``models``   — the dense decoder LM as an ``nn.Module``,
+* ``models``   — the decoder LM (attention and Mamba-2 layers) as an
+                 ``nn.Module``,
 * ``serving``  — the continuous-batching ``ServingEngine``,
 * ``bridge``   — load a JAX parameter tree (as numpy) into the port's LM.
 

@@ -1,18 +1,21 @@
-"""Public attention entry points (mirrors ``repro/kernels/ops.py``).
+"""Public kernel entry points (mirror ``repro/kernels/ops.py``).
 
-``attention`` implementations:
-  * None     — ``flash_attention.flash_attention``: the CUDA kernel for CUDA
-               tensors, its plain blocked version for CPU tensors;
-  * "plain"  — the plain blocked online-softmax version on any device (the
-               card's comparison path).
+``attention`` and ``ssd`` implementations:
+  * None     — the CUDA kernel for CUDA tensors
+               (``flash_attention.flash_attention``, ``ssd.ssd_scan``), its
+               plain blocked version for CPU tensors;
+  * "plain"  — the plain blocked version on any device (the card's
+               comparison path).
 
-``attention_decode`` is plain PyTorch, as it is plain jnp in the reference.
+``attention_decode`` and ``ssd_decode`` are plain PyTorch, as they are plain
+jnp in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd as _ssd
 
 _NEG = -1e30
 
@@ -55,3 +58,31 @@ def attention_decode(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def ssd(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256, impl=None):
+    """Chunked Mamba-2 SSD. Shapes as in ``ref.ssd_ref``.
+    Returns (y [b,S,H,P], h_final [b,H,P,N] fp32)."""
+    kw = dict(D=D, h0=h0, chunk=chunk)
+    if impl is None:
+        return _ssd.ssd_scan(x, dt, A_log, B, C, **kw)
+    if impl == "plain":
+        return _ssd.ssd_plain(x, dt, A_log, B, C, **kw)
+    raise ValueError(f"unknown ssd impl {impl!r}")
+
+
+def ssd_decode(h, x, dt, A_log, B, C, *, D=None):
+    """One SSD step. h: [b,H,P,N] fp32; x: [b,H,P]; dt: [b,H]; B, C:
+    [b,G,N]. Returns (y [b,H,P] in x's dtype, new h fp32)."""
+    H = h.shape[1]
+    rep = H // B.shape[1]
+    xf, dtf = x.float(), dt.float()
+    a = torch.exp(-torch.exp(A_log.float())[None] * dtf)          # [b,H]
+    Bf = B.float().repeat_interleave(rep, 1)                      # [b,H,N]
+    Cf = C.float().repeat_interleave(rep, 1)
+    h = a[..., None, None] * h + \
+        (dtf[..., None] * xf)[..., None] * Bf[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", h, Cf)
+    if D is not None:
+        y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), h

@@ -1,7 +1,8 @@
-"""Naive attention oracle in PyTorch (mirrors ``repro/kernels/ref.py``).
+"""Naive oracles in PyTorch (mirror ``repro/kernels/ref.py``).
 
-O(S^2) memory, small shapes only: ground truth for the kernel and for the
-plain blocked version in ``flash_attention.py``.
+Small shapes only: ``attention_ref`` (O(S^2) memory) is ground truth for
+the flash kernel and the plain blocked version in ``flash_attention.py``;
+``ssd_ref`` (a loop over time) is ground truth for ``ssd.py``.
 """
 from __future__ import annotations
 
@@ -36,3 +37,36 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ssd_ref(x, dt, A_log, B, C, *, D=None, h0=None):
+    """Mamba-2 SSD, sequential-over-time oracle.
+
+    x:  [b, S, H, P]   inputs (already post-conv/activation)
+    dt: [b, S, H]      softplus'd step sizes (> 0)
+    A_log: [H]         per-head decay (a_t = exp(-exp(A_log) * dt))
+    B:  [b, S, G, N]   input projections (G groups, H % G == 0)
+    C:  [b, S, G, N]   output projections
+    D:  [H] or None    skip connection
+    h0: [b, H, P, N]   initial state
+    Returns (y [b,S,H,P] in x's dtype, h_final [b,H,P,N] fp32).
+    """
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep = H // G
+    xf, dtf = x.float(), dt.float()
+    a = torch.exp(-torch.exp(A_log.float())[None, None] * dtf)     # [b,S,H]
+    Bf = B.float().repeat_interleave(rep, dim=2)                    # [b,S,H,N]
+    Cf = C.float().repeat_interleave(rep, dim=2)
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = a[:, t, :, None, None] * h + \
+            (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) * \
+            Bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, 1)
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), h

@@ -16,7 +16,8 @@ Public API:
     .materialize_cache(batch, capacity)
     .cast_weights()                 # matrices held in the compute dtype
 
-This slice runs ``("attn", "dense")`` layers (the deepseek-7b family). Other
+The port runs ``("attn", "dense")`` layers (the deepseek-7b family) and
+``("ssm", "none")`` layers (mamba2-2.7b: a Mamba-2 mixer, no MLP). Other
 mixers, MoE, encoder-decoder and vision inputs raise ``NotImplementedError``
 naming their ROADMAP item. Remat and sharding constraints have no
 counterpart here (serving only, one card).
@@ -30,6 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        flatten_paths, init_params, mlp_def,
                                        norm_def, tree_map)
@@ -43,10 +45,9 @@ _LATER = {
             "(seamless-m4t encoder-decoder)",
     "mla": "ROADMAP Queue 1, MoE and MLA",
     "moe": "ROADMAP Queue 1, MoE and MLA",
-    "ssm": "ROADMAP Queue 1, Mamba-2 SSM",
     "rec": "ROADMAP Queue 1, RG-LRU hybrid",
-    "none": "ROADMAP Queue 1, Mamba-2 SSM (layers without an MLP)",
 }
+_KINDS = (("attn", "dense"), ("ssm", "none"))
 
 
 def _supported(kind: Tuple[str, str]):
@@ -54,7 +55,7 @@ def _supported(kind: Tuple[str, str]):
         if part in _LATER:
             raise NotImplementedError(f"layer kind {kind}: not ported yet, "
                                       f"see {_LATER[part]}")
-    if kind != ("attn", "dense"):
+    if kind not in _KINDS:
         raise ValueError(kind)
 
 
@@ -102,8 +103,13 @@ def params_tree(module: nn.Module):
 
 def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     _supported(kind)
-    return {"ln1": norm_def(cfg), "mixer": A.attn_def(cfg),
-            "ln2": norm_def(cfg), "mlp": mlp_def(cfg, cfg.d_ff)}
+    mixer, mlpk = kind
+    d = {"ln1": norm_def(cfg),
+         "mixer": SSM.ssm_def(cfg) if mixer == "ssm" else A.attn_def(cfg)}
+    if mlpk == "dense":
+        d["ln2"] = norm_def(cfg)
+        d["mlp"] = mlp_def(cfg, cfg.d_ff)
+    return d
 
 
 def _mlp_residual(cfg, p, x):
@@ -112,16 +118,26 @@ def _mlp_residual(cfg, p, x):
 
 def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     """Full-sequence layer -> (x, cache, aux). With ``capacity`` it also
-    emits this layer's decode cache; q/k/v are projected once and shared by
-    cache and attention (the reference projects them twice)."""
+    emits this layer's decode cache from the same pass: attention projects
+    q/k/v once and SSM layers run the SSD once (the reference computes
+    both twice)."""
+    mixer, mlpk = kind
     h = apply_norm(cfg, p["ln1"], x)
-    q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
     cache = None
-    if capacity is not None:
-        cache = A.attn_prefill_cache(k, v, capacity)
-    x = x + A.attn_core(cfg, p["mixer"], q, k, v, impl=ctx.get("impl"))
+    if mixer == "ssm":
+        mx, c = SSM.ssm_prefill(cfg, p["mixer"], h, impl=ctx.get("impl"))
+        if capacity is not None:
+            cache = c
+    else:
+        q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
+        if capacity is not None:
+            cache = A.attn_prefill_cache(k, v, capacity)
+        mx = A.attn_core(cfg, p["mixer"], q, k, v, impl=ctx.get("impl"))
+    x = x + mx
+    if mlpk == "dense":
+        x = _mlp_residual(cfg, p, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlp_residual(cfg, p, x), cache, aux
+    return x, cache, aux
 
 
 def layer_apply(cfg, kind, p, x, ctx):
@@ -131,13 +147,24 @@ def layer_apply(cfg, kind, p, x, ctx):
 
 
 def layer_cache_def(cfg, kind, batch, capacity, dtype):
+    if kind[0] == "ssm":
+        return SSM.ssm_cache_def(cfg, batch, dtype)
     return A.attn_cache_def(cfg, batch, capacity, dtype)
 
 
 def layer_decode(cfg, kind, p, x, cache, ctx):
+    """One token; the cache's leaves are written in place."""
+    mixer, mlpk = kind
     h = apply_norm(cfg, p["ln1"], x)
-    mx, cache = A.attn_decode(cfg, p["mixer"], h, cache, ctx["positions"])
-    return _mlp_residual(cfg, p, x + mx), cache
+    if mixer == "ssm":
+        mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache)
+    else:
+        mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
+                                  ctx["positions"])
+    x = x + mx
+    if mlpk == "dense":
+        x = _mlp_residual(cfg, p, x)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -309,12 +336,13 @@ class LM(nn.Module):
     def cast_weights(self):
         """Hold every weight matrix in the compute dtype instead of the param
         dtype. The reference casts each matrix to the compute dtype at every
-        use, so the numbers do not change; norm parameters, which it reads in
-        fp32, stay as they are. Halves the bytes of an fp32-param model held
-        in bf16."""
+        use, so the numbers do not change. One-dimensional parameters (per
+        layer, the stacked ``layers`` axis aside: norm scales, and Mamba's
+        ``dt_bias``, ``A_log`` and ``D``), which it reads in fp32, stay as
+        they are. Halves the bytes of an fp32-param model held in bf16."""
         defs = dict(flatten_paths(self.defs()))
         for name, p in self.named_parameters():
-            if "norm" not in defs[name].axes:
+            if sum(a != "layers" for a in defs[name].axes) >= 2:
                 p.data = p.data.to(self.compute_dtype)
         return self
 
@@ -373,8 +401,9 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens):
-        """tokens: [B,1] -> (cache, logits [B,V]). The cache's k/v leaves
-        are written in place; ``lengths`` is a new tensor."""
+        """tokens: [B,1] -> (cache, logits [B,V]). The cache's layer leaves
+        (k/v rows, SSM conv window and state) are written in place;
+        ``lengths`` is a new tensor."""
         x = self._embed(tokens)
         ctx = {"positions": cache["lengths"]}
         x, layers = self.decoder.decode(x, cache["layers"], ctx)

@@ -3,9 +3,10 @@
 
 Requests join free slots; every engine step decodes one token for all
 slots with one batched ``decode_step``. Prefill runs per request
-(right-sized, its cache written into the slot). Slot state (KV caches +
-lengths) is an explicit tree of tensors, so the whole engine is dumpable
-and migratable: ``state_dict`` / ``load_state_dict``.
+(right-sized, its cache written into the slot). Slot state (KV caches or
+SSM conv windows and states, + lengths) is an explicit tree of tensors, so
+the whole engine is dumpable and migratable: ``state_dict`` /
+``load_state_dict``.
 
 Unlike the reference's ``_write_slot_cache``, which tells stacked-core
 leaves from per-slot leaves by ``shape[0] != slots`` (and writes into the

@@ -174,7 +174,7 @@ def test_cast_weights_keeps_bf16_numbers():
 
 
 def test_unported_layer_kinds_raise():
-    for arch in ("mamba2-2.7b", "deepseek-moe-16b", "gemma3-1b",
+    for arch in ("deepseek-moe-16b", "gemma3-1b",
                  "recurrentgemma-9b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(get_smoke_config(arch), device="cpu")
