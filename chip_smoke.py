@@ -12,20 +12,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
              dtypes, variants, shapes, and at every prompt length the main
              path serves; elementwise tolerances of tests/test_kernels.py
              and a relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16
-             per case. ``sweep`` is the flash attention, ``sweep-ssd`` the
-             SSD scan (y and h_final, with and without D and h0, a
-             two-halves state carry).
+             per case. ``sweep`` is the flash attention (recurrentgemma's
+             windowed MQA head-dim-256 prefills among its cases),
+             ``sweep-ssd`` the SSD scan (y and h_final, with and without D
+             and h0, a two-halves state carry), ``sweep-rglru`` the RG-LRU
+             scan (the same, ragged D and S among its shapes).
  4. timing — each kernel at the main paths' shapes (CUDA events), beside its
              plain version, a library yardstick where one PyTorch call
              computes the same function, and the card's bound (``timing``,
-             ``timing-ssd``).
- 5. serve  — a ServingEngine at full width serves six requests over four
-             slots; kernel launch counts are set to 0 just before and read
-             just after: deepseek-7b (30 layers, d_model 4096, 32x128 heads,
-             d_ff 11008, vocab 102400) through the flash attention, then
+             ``timing-ssd``, ``timing-rglru``).
+ 5. serve  — a ServingEngine at full width serves six requests (seven for
+             recurrentgemma-9b) over four slots; kernel launch counts are
+             set to 0 just before and read just after, and must equal one
+             launch per layer and prefill of each layer's kernel:
+             deepseek-7b (30 layers, d_model 4096, 32x128 heads, d_ff
+             11008, vocab 102400) through the flash attention, then
              ``serve-mamba``: mamba2-2.7b (64 Mamba-2 layers, d_model 2560,
              80x64 SSD heads, d_state 128, vocab 50280) through the SSD
-             scan. Random weights from a seeded generator.
+             scan, then ``serve-rg``:
+             recurrentgemma-9b (38 layers, 12 x (rec, rec, local) + 2 rec,
+             d_model 4096, RG-LRU width 4096, 16x256 MQA heads with a
+             2048-token window, d_ff 12288, vocab 256000) through the RG-LRU
+             scan and the windowed flash attention, with a seventh,
+             2176-token prompt that makes the window bind in prefill.
+             Random weights from a seeded generator.
     logits — request 0's prefill last-logits through the kernel and the
              plain version, in the served bf16 model beside a witness (two
              correct plain codes) and a control (a plain code with a fault),
@@ -33,13 +43,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
              holds the bf16 model on its hidden state after 4 layers (its
              last-logits are reported), and checks that the kernel's final
              state carries: a prefill plus decode steps gives a forward's
-             next-token logits.
+             next-token logits. ``logits-rg`` does the same for the RG-LRU
+             scan (witness: the plain scan in 64-row pieces carried through
+             h0; control: the carry dropped at every step).
  6. migrate — the same requests again with a mid-decode state_dict dump to
              host memory and restore into a fresh engine; the streams must
-             equal phase 5's (``migrate``, ``migrate-mamba``).
+             equal phase 5's (``migrate``, ``migrate-mamba``,
+             ``migrate-rg``).
  7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
              device time by kernel and the device's idle share
-             (``profile``, ``profile-mamba``).
+             (``profile``, ``profile-mamba``, ``profile-rg``).
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -59,19 +72,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
+PEAK_F32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
 LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
 LOGITS_REL_L2_FP32 = 1e-2   # fp32 twin, kernel vs plain
-# mamba2-2.7b in bf16: 64 random-init layers decorrelate the last-logits
-# after any last-bit flip (on an H100 a correct witness reads 0.52), so the
-# served bf16 model is held at LOGITS_REL_L2 on its hidden state after its
-# first layers, before the flips are amplified; its logits are reported
-GATE_LAYERS_MAMBA = 4
+# mamba2-2.7b and recurrentgemma-9b in bf16: random-init layers decorrelate
+# the last-logits after any last-bit flip (on an H100 a correct mamba
+# witness reads 0.52), so the served bf16 model is held at LOGITS_REL_L2 on
+# its hidden state after its first layers, before the flips are amplified;
+# its logits are reported. recurrentgemma's first 4 are rec, rec, local,
+# rec: both of its kernels run before the gate
+GATE_LAYERS = 4
 CARRY_REL_L2 = 1e-3      # fp32 twin: prefill + decode steps vs a forward
 SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
-KERNEL_SOURCES = ("flash_attention", "ssd")
+KERNEL_SOURCES = ("flash_attention", "ssd", "rglru")
 PROMPT_LENS = (128, 333, 512, 1000, 1536, 2048)
+# recurrentgemma-9b also serves a prompt longer than its 2048-token window
+RG_PROMPT_LENS = PROMPT_LENS + (2176,)
 MAX_NEW = 16
 SLOTS, CAPACITY = 4, 2304
 DEVICE = "cuda"
@@ -116,11 +134,13 @@ def rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dtype):
 
 
 VARIANTS = ("causal", "bidir", "window", "softcap")
+RG_WINDOW = 2048       # recurrentgemma-9b's local_window
 
 
 def variant_kw(name, Sk):
     return {"causal": dict(causal=True), "bidir": dict(causal=False),
             "window": dict(causal=True, window=Sk // 3),
+            "window2048": dict(causal=True, window=RG_WINDOW),
             "softcap": dict(causal=True, softcap=20.0)}[name]
 
 
@@ -165,7 +185,9 @@ def phase_sweep():
     cases = [(s, dt, v) for s in shapes
              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
     cases += [((1, S, S, 32, 32, 128), torch.bfloat16, "causal")
-              for S in PROMPT_LENS]            # the main path's prefills
+              for S in PROMPT_LENS]            # deepseek-7b's prefills
+    cases += [((1, S, S, 16, 1, 256), torch.bfloat16, "window2048")
+              for S in RG_PROMPT_LENS]         # recurrentgemma-9b's prefills
     bad = []
     worst = {}
     for seed, (shape, dt, var) in enumerate(cases):
@@ -186,7 +208,7 @@ def phase_sweep():
               and torch.isfinite(got).all().item())
         worst[name] = max(worst.get(name, 0.0), err)
         worst[name + "_rel_l2"] = max(worst.get(name + "_rel_l2", 0.0), rel)
-        log(f"sweep {shape} {name:8s} {var:7s} max_abs_err={err:.3e} "
+        log(f"sweep {shape} {name:8s} {var:10s} max_abs_err={err:.3e} "
             f"rel_l2={rel:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append((shape, name, var, err))
@@ -197,14 +219,29 @@ def phase_sweep():
                              f"{bad}")
 
 
-def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal):
-    pairs = Sq * Sk if not causal else sum(
-        min(Sk, Sk - Sq + i + 1) for i in range(Sq))
+def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0):
+    """FLOP: 4 B H hd per unmasked query-key pair, at the bf16 peak. Bytes:
+    q and o [B,Sq,H,hd], k and v [B,Sk,Kh,hd] once each."""
+    Kh = H if Kh is None else Kh
+
+    def keys(i):                      # keys query i sees
+        hi = Sk - Sq + i + 1 if causal else Sk
+        lo = max(0, Sk - Sq + i - window + 1) if window > 0 else 0
+        return min(hi, Sk) - lo
+    pairs = sum(keys(i) for i in range(Sq))
     flops = 4 * B * H * hd * pairs
-    nbytes = elem_bytes * (2 * B * Sq * H * hd + 2 * B * Sk * H * hd)
+    nbytes = elem_bytes * (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+# flash timing shapes: (label, S, H, Kh, hd, window); the first two are
+# deepseek-7b's prefills, the last recurrentgemma-9b's windowed MQA one (at
+# S = window the window does not bind, so causal SDPA is a fair yardstick)
+FLASH_TIMING = (("deepseek", 512, 32, 32, 128, 0),
+                ("deepseek", 2048, 32, 32, 128, 0),
+                ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
 
 
 def phase_timing():
@@ -212,14 +249,15 @@ def phase_timing():
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
-    for S in (512, 2048):
-        B, H, hd = 1, 32, 128
-        q, k, v = rand_qkv(100 + S, B, S, S, H, H, hd, torch.bfloat16)
-        kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-        plain = lambda: fa.attention_plain(q, k, v, causal=True)  # noqa: E731
+    for label, S, H, Kh, hd, window in FLASH_TIMING:
+        B = 1
+        q, k, v = rand_qkv(100 + S + hd, B, S, S, H, Kh, hd, torch.bfloat16)
+        kw = dict(causal=True, window=window)
+        kern = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fa.attention_plain(q, k, v, **kw)  # noqa: E731
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=True, enable_gqa=Kh != H)
         err = (kern().float() - plain().float()).abs().max().item()
         lib_err = (kern().float() - lib().transpose(1, 2).float()
                    ).abs().max().item()
@@ -228,15 +266,18 @@ def phase_timing():
         plain_ms = time_ms(plain, max(iters // 4, 3))
         lib_ms = time_ms(lib, iters)
         ms2 = time_ms(kern, iters)
-        bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True)
-        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   max_abs_err=err, library_max_abs_diff=lib_err,
+        bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True,
+                                                    Kh=Kh, window=window)
+        shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
+        row = dict(path=label, S=S, shape=shape, window=window, ms=ms,
+                   ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   library_max_abs_diff=lib_err,
                    tflops=flops / (ms * 1e-3) / 1e12)
         rows.append(row)
-        log(f"timing [1,{S},32,128] bf16 causal: kernel {ms:.4f} ms "
-            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA yardstick "
-            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        log(f"timing {shape} bf16 causal window={window}: kernel {ms:.4f} "
+            f"ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA yardstick "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
             f"{row['tflops']:.2f} TFLOP/s, kernel-plain max abs err "
             f"{err:.3e}, kernel-SDPA {lib_err:.3e}")
     return rows
@@ -255,10 +296,10 @@ def rand_ssd(seed, B, S, H, P, G, N, dtype):
             mk(B, S, G, N, scale=0.3).to(dtype), mk(H), mk(B, H, P, N))
 
 
-def _ssd_case_ok(name, got, want):
+def _pair_ok(name, got, want, tol):
     """Elementwise and relative-L2 agreement of (y, h_final) pairs."""
     import torch
-    rtol, atol = SSD_TOL[name]
+    rtol, atol = tol[name]
     out = {}
     ok = True
     for label, a, b in (("y", got[0], want[0]), ("h", got[1], want[1])):
@@ -292,7 +333,7 @@ def phase_sweep_ssd():
         torch.cuda.synchronize()
         want = ssd.ssd_plain(x, dtv, al, bm, cm, **kw)
         name = str(dt).split(".")[-1]
-        ok, errs = _ssd_case_ok(name, got, want)
+        ok, errs = _pair_ok(name, got, want, SSD_TOL)
         for label, (err, rel) in errs.items():
             worst[f"{name}_{label}"] = max(worst.get(f"{name}_{label}", 0.0),
                                            err)
@@ -315,7 +356,8 @@ def phase_sweep_ssd():
                                 cm[:, lo:hi], D=d, h0=h)
             ys.append(y)
         want = ssd.ssd_plain(x, dtv, al, bm, cm, D=d)
-        ok, errs = _ssd_case_ok(name, (torch.cat(ys, 1), h), want)
+        ok, errs = _pair_ok(name, (torch.cat(ys, 1), h), want,
+                             SSD_TOL)
         log(f"sweep-ssd two halves (166+167 of [1,333,80,64]) {name}: y "
             f"rel_l2={errs['y'][1]:.3e}, h rel_l2={errs['h'][1]:.3e} "
             f"{'ok' if ok else 'FAIL'}")
@@ -374,28 +416,154 @@ def phase_timing_ssd():
     return rows
 
 
-def make_prompts(vocab):
+def rand_rglru(seed, B, S, D, dtype):
+    """x, a_log, gate_a, gate_x, h0 on the card (x and gates in dtype)."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+    return (mk(B, S, D).to(dtype), mk(D), mk(B, S, D).to(dtype),
+            mk(B, S, D).to(dtype), mk(B, D))
+
+
+def phase_sweep_rglru():
+    import torch
+    from repro_torch.kernels import rglru
+    shapes = [(1, 64, 16), (2, 128, 48),          # tests/test_kernels.py
+              (2, 100, 24), (1, 333, 100),         # ragged S and D
+              (3, 1, 48), (1, 2, 4096)]            # one and two steps
+    cases = [(s, dt, v) for s in shapes
+             for dt in (torch.float32, torch.bfloat16) for v in ("none",
+                                                                 "h0")]
+    cases += [((1, S, 4096), torch.bfloat16, "none")
+              for S in RG_PROMPT_LENS]     # recurrentgemma-9b's prefills
+    bad, worst = [], {}
+    for seed, (shape, dt, var) in enumerate(cases):
+        x, al, ga, gx, h0 = rand_rglru(seed, *shape, dt)
+        kw = {"h0": h0} if var == "h0" else {}
+        got = rglru.rglru_scan(x, al, ga, gx, **kw)
+        torch.cuda.synchronize()
+        want = rglru.rglru_plain(x, al, ga, gx, **kw)
+        name = str(dt).split(".")[-1]
+        ok, errs = _pair_ok(name, got, want, TOL)
+        for label, (err, rel) in errs.items():
+            worst[f"{name}_{label}"] = max(worst.get(f"{name}_{label}", 0.0),
+                                           err)
+            worst[f"{name}_{label}_rel_l2"] = max(
+                worst.get(f"{name}_{label}_rel_l2", 0.0), rel)
+        log(f"sweep-rglru {shape} {name:8s} {var:4s} y max_abs_err="
+            f"{errs['y'][0]:.3e} rel_l2={errs['y'][1]:.3e}, h max_abs_err="
+            f"{errs['h'][0]:.3e} rel_l2={errs['h'][1]:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append((shape, name, var))
+    # two halves, the state carried by the kernel across a ragged split
+    halves = (torch.float32, torch.bfloat16)
+    for dt in halves:
+        name = str(dt).split(".")[-1]
+        x, al, ga, gx, _ = rand_rglru(99, 1, 333, 4096, dt)
+        h, ys = None, []
+        for lo, hi in ((0, 166), (166, 333)):
+            y, h = rglru.rglru_scan(x[:, lo:hi], al, ga[:, lo:hi],
+                                    gx[:, lo:hi], h0=h)
+            ys.append(y)
+        want = rglru.rglru_plain(x, al, ga, gx)
+        ok, errs = _pair_ok(name, (torch.cat(ys, 1), h), want, TOL)
+        log(f"sweep-rglru two halves (166+167 of [1,333,4096]) {name}: y "
+            f"rel_l2={errs['y'][1]:.3e}, h rel_l2={errs['h'][1]:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(("two halves", name))
+    n = len(cases) + len(halves)
+    log(f"sweep-rglru: {n - len(bad)}/{n} cases within tolerance; worst "
+        f"errors {json.dumps(worst)}")
+    if bad:
+        raise AssertionError(f"RG-LRU kernel disagrees with its plain "
+                             f"version: {bad}")
+
+
+RGLRU_OPS = 24     # fp32 operations per lane and step, exp/sqrt as one
+
+
+def rglru_bound(B, S, D, elem_bytes):
+    """Least time for the RG-LRU scan. Bytes: x, gate_a and gate_x read once
+    and y written once in their dtype, a_log and h_final in fp32. Operations:
+    the gates and the step in fp32 (two sigmoids, two exps, a softplus read
+    once per lane, sqrt, max, the products and the FMA: RGLRU_OPS per lane
+    and step) at the card's fp32 rate outside the tensor cores."""
+    ops = RGLRU_OPS * B * S * D
+    nbytes = 4 * elem_bytes * B * S * D + 4 * D + 4 * B * D
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def phase_timing_rglru():
+    import torch
+    from repro_torch.kernels import rglru
+    rows = []
+    for S in (512, 2048):
+        x, al, ga, gx, _ = rand_rglru(300 + S, 1, S, 4096, torch.bfloat16)
+        kern = lambda: rglru.rglru_scan(x, al, ga, gx)  # noqa: E731
+        plain = lambda: rglru.rglru_plain(x, al, ga, gx)  # noqa: E731
+        err = (kern()[0].float() - plain()[0].float()).abs().max().item()
+        iters = 50 if S == 512 else 20
+        ms = time_ms(kern, iters)
+        plain_ms = time_ms(plain, max(iters // 4, 3))
+        ms2 = time_ms(kern, iters)
+        bound_ms, bound_by, ops, nbytes = rglru_bound(1, S, 4096, 2)
+        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   ops=ops, bytes=nbytes, max_abs_err=err,
+                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+        rows.append(row)
+        log(f"timing-rglru [1,{S},4096] bf16: kernel {ms:.4f} ms (again "
+            f"{ms2:.4f}), plain {plain_ms:.4f} ms, no library call computes "
+            f"RG-LRU, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.2f}"
+            f" MB, {ops / 1e9:.3f} G fp32 ops), {row['gb_per_s']:.1f} GB/s, "
+            f"kernel-plain y max abs err {err:.3e}")
+    return rows
+
+
+# the served paths and their phase labels
+PATHS = {"deepseek-7b": "serve", "mamba2-2.7b": "serve-mamba",
+         "recurrentgemma-9b": "serve-rg"}
+# the kernel each layer's mixer launches once per prefill
+KERNEL_OF_MIXER = {"attn": "flash_attention_fwd",
+                   "local": "flash_attention_fwd", "ssm": "ssd_scan",
+                   "rec": "rglru_scan"}
+
+
+def make_prompts(cfg):
     import numpy as np
     rng = np.random.RandomState(0)
-    return [rng.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+    lens = RG_PROMPT_LENS if cfg.name == "recurrentgemma-9b" else \
+        PROMPT_LENS
+    return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
 
 
-# the served paths: chip_smoke phase label and the kernel each path runs
-PATHS = {"deepseek-7b": ("serve", "flash_attention_fwd"),
-         "mamba2-2.7b": ("serve-mamba", "ssd_scan")}
+def expected_launches(cfg, n_prefills):
+    """One launch of each layer's kernel per layer and prefill."""
+    want = dict.fromkeys(kernel_counts(), 0)
+    for mixer in cfg.layer_kinds:
+        want[KERNEL_OF_MIXER[mixer]] += n_prefills
+    return want
 
 
 def kernel_counts():
     """Launches counted by each kernel's wrapper since its last reset."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
-    return {"flash_attention_fwd": fa.launches, "ssd_scan": ssd.launches}
+    from repro_torch.kernels import rglru, ssd
+    return {"flash_attention_fwd": fa.launches, "ssd_scan": ssd.launches,
+            "rglru_scan": rglru.launches}
 
 
 def reset_kernel_counts():
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd
-    fa.launches = ssd.launches = 0
+    from repro_torch.kernels import rglru, ssd
+    fa.launches = ssd.launches = rglru.launches = 0
 
 
 def serve(eng, reqs, timings=None, hand_off=None):
@@ -435,7 +603,7 @@ def build_lm(arch):
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import LM
-    label = PATHS[arch][0]
+    label = PATHS[arch]
     cfg = get_config(arch)
     t0 = time.perf_counter()
     lm = LM(cfg, device=DEVICE,
@@ -454,14 +622,15 @@ def build_lm(arch):
 
 
 def phase_serve(lm):
-    """Six requests over four slots. The counts are set to 0 just before the
-    run and read just after: the path's kernel launches once per layer and
-    prefill, no other kernel launches, and decode launches none."""
+    """Six (recurrentgemma-9b: seven) requests over four slots. The counts
+    are set to 0 just before the run and read just after: each layer's
+    kernel launches once per layer and prefill, no other kernel launches,
+    and decode launches none."""
     import torch
     from repro_torch.serving.engine import Request, ServingEngine
     cfg = lm.cfg
-    label, kernel = PATHS[cfg.name]
-    prompts = make_prompts(cfg.vocab_size)
+    label = PATHS[cfg.name]
+    prompts = make_prompts(cfg)
     # set-up, not request time: the first products pick their cuBLAS plans
     t0 = time.perf_counter()
     serve(ServingEngine(lm, slots=SLOTS, capacity=256, device=DEVICE),
@@ -479,8 +648,7 @@ def phase_serve(lm):
     launches = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     assert all(len(s) == MAX_NEW for s in streams), [len(s) for s in streams]
-    want = {k: cfg.num_layers * len(prompts) if k == kernel else 0
-            for k in launches}
+    want = expected_launches(cfg, len(prompts))
     assert launches == want, (launches, want)
     assert timings["decode_launches"] == 0, timings["decode_launches"]
     for n, dt in timings["prefill"]:
@@ -547,7 +715,7 @@ def phase_logits(lm):
     import torch
     from repro_torch.models.model import LM
     cfg = lm.cfg
-    p0 = {"tokens": torch.as_tensor(make_prompts(cfg.vocab_size)[0],
+    p0 = {"tokens": torch.as_tensor(make_prompts(cfg)[0],
                                     device=DEVICE)[None]}
     _, lk = lm.prefill(p0, CAPACITY)
     _, lp = lm.prefill(p0, CAPACITY, impl="plain")
@@ -579,16 +747,19 @@ def phase_logits(lm):
 
 
 @contextmanager
-def plain_ssd_as(fn):
-    """Route the port's ``impl="plain"`` SSD through ``fn`` for the duration
-    of the block (a witness or a control for phase logits-mamba)."""
-    from repro_torch.kernels import ssd
-    orig = ssd.ssd_plain
-    ssd.ssd_plain = lambda *a, **kw: fn(orig, *a, **kw)
+def plain_scan_as(scan, fn):
+    """Route the port's ``impl="plain"`` SSD (``scan="ssd"``) or RG-LRU
+    (``"rglru"``) through ``fn`` for the duration of the block (a witness
+    or a control for phases logits-mamba and logits-rg)."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{scan}")
+    name = f"{scan}_plain"
+    orig = getattr(mod, name)
+    setattr(mod, name, lambda *a, **kw: fn(orig, *a, **kw))
     try:
         yield
     finally:
-        ssd.ssd_plain = orig
+        setattr(mod, name, orig)
 
 
 def _ssd_other_chunks(orig, *a, **kw):
@@ -609,48 +780,85 @@ def _ssd_drops_carry(orig, x, dt, A_log, B, C, *, D=None, h0=None,
     return torch.cat(ys, 1), hT
 
 
-def _kernel_witness_control(run):
-    """``run(impl)`` -> a tensor, through the kernel (``impl=None``) and the
-    plain code, then the plain code as witness and as control. Returns their
-    relative L2 errors against the plain code's output, and the kernel's and
-    the plain code's outputs."""
+def _rglru_pieces(orig, x, a_log, gate_a, gate_x, *, c=8.0, h0=None):
+    """Witness: the plain RG-LRU in 64-row pieces, each started from the
+    previous piece's final state, a second correct scan that combines in
+    another order."""
+    import torch
+    S, h, ys = x.shape[1], h0, []
+    for i in range(0, S, 64):
+        y, h = orig(x[:, i:i + 64], a_log, gate_a[:, i:i + 64],
+                    gate_x[:, i:i + 64], c=c, h0=h)
+        ys.append(y)
+    return torch.cat(ys, 1), h
+
+
+def _rglru_drops_carry(orig, x, a_log, gate_a, gate_x, *, c=8.0, h0=None):
+    """Control: the state carried into each step is dropped (h_t = b_t), as
+    a kernel that loses its carry would. (Dropping it only every 64 rows is
+    too weak a fault here: with the reference's init, a = exp(-8
+    softplus(1) sigmoid(r)) is about 0.005 in most lanes, so h forgets
+    within a few steps.) The final state is the whole scan's."""
+    from repro_torch.kernels.rglru import gates
+    _, b = gates(x, a_log, gate_a, gate_x, c)
+    return b.to(x.dtype), orig(x, a_log, gate_a, gate_x, c=c, h0=h0)[1]
+
+
+# per scan: (witness, control), both run in place of the plain version
+SCAN_CHECKS = {"ssd": (_ssd_other_chunks, _ssd_drops_carry),
+               "rglru": (_rglru_pieces, _rglru_drops_carry)}
+SCAN_OF_PATH = {"mamba2-2.7b": "ssd", "recurrentgemma-9b": "rglru"}
+
+
+def _kernel_witness_control(run, scan):
+    """``run(impl)`` -> a tensor, through the kernels (``impl=None``) and
+    the plain code, then the plain code with its ``scan`` as witness and as
+    control. Returns their relative L2 errors against the plain code's
+    output, and the kernels' and the plain code's outputs."""
     k, p = run(None), run("plain")
     assert k.isfinite().all() and k.shape == p.shape
-    with plain_ssd_as(_ssd_other_chunks):
+    witness, control = SCAN_CHECKS[scan]
+    with plain_scan_as(scan, witness):
         w = run("plain")
-    with plain_ssd_as(_ssd_drops_carry):
+    with plain_scan_as(scan, control):
         c = run("plain")
-    return (dict(kernel_vs_plain=_rel(k, p),
-                 witness_plain_chunk64_vs_plain=_rel(w, p),
-                 control_carry_dropped_vs_plain=_rel(c, p)), k, p)
+    return (dict(kernel_vs_plain=_rel(k, p), witness_vs_plain=_rel(w, p),
+                 control_vs_plain=_rel(c, p)), k, p)
 
 
 def _hidden_after(lm, batch, n_layers, impl):
-    """The residual stream after the first ``n_layers`` layers of a prefill
-    (mamba2-2.7b's layers are all in the stacked core, one per period)."""
+    """The residual stream after the first ``n_layers`` layers of a prefill,
+    walking head, stacked core periods and tail in order."""
     import torch
     from repro_torch.models.model import _period, layer_prefill, params_tree
+    dec = lm.decoder
+    params = params_tree(dec)
+    layers = list(zip(dec.head_kinds, params["head"]))
+    for i in range(dec.n_periods):
+        layers += list(zip(dec.period_kinds, _period(params["core"], i)))
+    layers += list(zip(dec.tail_kinds, params["tail"]))
     x = lm._embed(batch["tokens"])
     ctx = {"positions": lm._positions(*x.shape[:2]), "impl": impl}
-    core = params_tree(lm.decoder)["core"]
     with torch.no_grad():
-        for i in range(n_layers):
-            for k, p in zip(lm.decoder.period_kinds, _period(core, i)):
-                x, _, _ = layer_prefill(lm.cfg, k, p, x, ctx)
+        for k, p in layers[:n_layers]:
+            x, _, _ = layer_prefill(lm.cfg, k, p, x, ctx)
     return x
 
 
-def phase_logits_mamba(lm):
-    """Request 0's prefill through the SSD kernel and through the plain
-    version. Beside them run a witness (the plain code blocked by 64 rows,
-    a correct code) and a control (the carried state dropped between 32-row
-    chunks, a fault): the witness must lie under the limit, the control over
-    it, and the kernel under it. In the served bf16 model the gate is the
-    hidden state after its first GATE_LAYERS_MAMBA layers at LOGITS_REL_L2,
-    since 64 random-init bf16 layers carry any last-bit flip far; its
-    last-logits are reported. In an fp32 twin with the same weights (the
-    same seeded draws before the bf16 cast) the gate is the last-logits at
-    LOGITS_REL_L2_FP32.
+def phase_logits_scan(lm):
+    """Request 0's prefill through the kernels and through the plain code,
+    for a path whose state carries through a scan (mamba2-2.7b: the SSD;
+    recurrentgemma-9b: the RG-LRU, its local layers through the flash
+    attention or its plain version alike). Beside them run a witness (the
+    plain scan blocked by 64 rows, a correct code) and a control (the
+    carried state dropped, between 32-row chunks of the SSD or at every
+    step of the RG-LRU, a fault): the witness must lie
+    under the limit, the control over it, and the kernels under it. In the
+    served bf16 model the gate is the hidden state after its first
+    GATE_LAYERS layers at LOGITS_REL_L2, since random-init bf16 layers carry
+    any last-bit flip far; its last-logits are reported. In an fp32 twin
+    with the same weights (the same seeded draws before the bf16 cast) the
+    gate is the last-logits at LOGITS_REL_L2_FP32.
 
     In the fp32 twin the kernel's final state must also carry: request 1's
     prompt prefilled, then 4 decode steps, gives the next-token logits of
@@ -658,18 +866,20 @@ def phase_logits_mamba(lm):
     import torch
     from repro_torch.models.model import LM
     cfg = lm.cfg
-    prompts = make_prompts(cfg.vocab_size)
+    scan = SCAN_OF_PATH[cfg.name]
+    label = PATHS[cfg.name].replace("serve", "logits")
+    prompts = make_prompts(cfg)
     p0 = {"tokens": torch.as_tensor(prompts[0], device=DEVICE)[None]}
 
     def logits(model):
         return lambda impl: model.prefill(p0, CAPACITY, impl=impl)[1]
     hidden, _, _ = _kernel_witness_control(
-        lambda impl: _hidden_after(lm, p0, GATE_LAYERS_MAMBA, impl))
-    bf16, lk, lp = _kernel_witness_control(logits(lm))
+        lambda impl: _hidden_after(lm, p0, GATE_LAYERS, impl), scan)
+    bf16, lk, lp = _kernel_witness_control(logits(lm), scan)
     assert lk.shape == (1, cfg.padded_vocab)
     lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
               generator=torch.Generator(device=DEVICE).manual_seed(0))
-    fp32, _, lp32 = _kernel_witness_control(logits(lm32))
+    fp32, _, lp32 = _kernel_witness_control(logits(lm32), scan)
     # the kernel's h_final carries into decode
     rng = torch.Generator().manual_seed(7)
     extra = torch.randint(0, cfg.vocab_size, (1, 4), generator=rng)
@@ -684,7 +894,7 @@ def phase_logits_mamba(lm):
     carry = _rel(dec, full[:, -1])
     del lm32, cache, full
     torch.cuda.empty_cache()
-    gate = f"bf16_hidden{GATE_LAYERS_MAMBA}"
+    gate = f"bf16_hidden{GATE_LAYERS}"
     out = {**{f"{gate}_{k}": v for k, v in hidden.items()},
            f"{gate}_limit": LOGITS_REL_L2,
            **{f"bf16_logits_{k}": v for k, v in bf16.items()},
@@ -694,11 +904,11 @@ def phase_logits_mamba(lm):
            "bf16_logits_plain_vs_fp32": _rel(lp, lp32),
            f"fp32_prefill{S}_decode4_vs_forward{S + 4}": carry,
            "carry_limit": CARRY_REL_L2}
-    log("logits-mamba: request 0 prefill, relative L2 " + json.dumps(out))
+    log(f"{label}: request 0 prefill, relative L2 " + json.dumps(out))
     for pre, limit in ((gate, LOGITS_REL_L2),
                        ("fp32_logits", LOGITS_REL_L2_FP32)):
-        assert out[f"{pre}_witness_plain_chunk64_vs_plain"] <= limit, out
-        assert out[f"{pre}_control_carry_dropped_vs_plain"] > limit, out
+        assert out[f"{pre}_witness_vs_plain"] <= limit, out
+        assert out[f"{pre}_control_vs_plain"] > limit, out
         assert out[f"{pre}_kernel_vs_plain"] <= limit, out
     assert carry <= CARRY_REL_L2, out
     return out
@@ -710,9 +920,9 @@ def phase_profile(lm):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingEngine
-    name = PATHS[lm.cfg.name][0].replace("serve", "profile")
+    name = PATHS[lm.cfg.name].replace("serve", "profile")
     eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
-    prompt = make_prompts(lm.cfg.vocab_size)[-1]
+    prompt = make_prompts(lm.cfg)[len(PROMPT_LENS) - 1]     # S = 2048
     work = {"prefill": lambda: eng.submit(Request(0, prompt, max_new=64)),
             "decode": lambda: [eng.step() for _ in range(8)]}
     out = {}
@@ -745,8 +955,8 @@ def phase_migrate(lm, streams):
     import torch
     from repro_torch.models.layers import flatten_paths
     from repro_torch.serving.engine import Request, ServingEngine, state_to
-    label = PATHS[lm.cfg.name][0].replace("serve", "migrate")
-    prompts = make_prompts(lm.cfg.vocab_size)
+    label = PATHS[lm.cfg.name].replace("serve", "migrate")
+    prompts = make_prompts(lm.cfg)
     reqs = [Request(i, p, max_new=MAX_NEW) for i, p in enumerate(prompts)]
     info = {}
 
@@ -806,10 +1016,13 @@ def main():
     timing = run("timing", phase_timing)
     run("sweep-ssd", phase_sweep_ssd)
     timing_ssd = run("timing-ssd", phase_timing_ssd)
+    run("sweep-rglru", phase_sweep_rglru)
+    timing_rglru = run("timing-rglru", phase_timing_rglru)
     paths = {}
     for arch, logits_fn in (("deepseek-7b", phase_logits),
-                            ("mamba2-2.7b", phase_logits_mamba)):
-        label = PATHS[arch][0]
+                            ("mamba2-2.7b", phase_logits_scan),
+                            ("recurrentgemma-9b", phase_logits_scan)):
+        label = PATHS[arch]
         sfx = label[len("serve"):]
         lm = run("load" + sfx, build_lm, arch)
         served = run(label, phase_serve, lm) if lm is not None else None
@@ -822,26 +1035,38 @@ def main():
         del lm                  # free the card for the next path
         gc.collect()
         torch.cuda.empty_cache()
-    if failed or timing is None or timing_ssd is None or len(paths) < 2:
+    timings = (timing, timing_ssd, timing_rglru)
+    if failed or any(t is None for t in timings) or len(paths) < len(PATHS):
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
-    rows = {"flash_attention_fwd": next(r for r in timing if r["S"] == 2048),
-            "ssd_scan": next(r for r in timing_ssd if r["S"] == 2048)}
-    meta = {"flash_attention_fwd": ("deepseek-7b", "flash_attention.cu",
+    # each kernel's row at its first path's S=2048 shape
+    rows = {"flash_attention_fwd": timing[1], "ssd_scan": timing_ssd[1],
+            "rglru_scan": timing_rglru[1]}
+    meta = {"flash_attention_fwd": ("flash_attention.cu",
                                     "src/repro/kernels/flash_attention.py:30"),
-            "ssd_scan": ("mamba2-2.7b", "ssd.cu",
-                         "src/repro/kernels/ssd.py:24")}
+            "ssd_scan": ("ssd.cu", "src/repro/kernels/ssd.py:24"),
+            "rglru_scan": ("rglru.cu", "src/repro/kernels/rglru.py:26")}
     kernels = []
-    for kname, (arch, src, replaces) in meta.items():
+    for kname, (src, replaces) in meta.items():
         row = rows[kname]
-        kernels.append({
+        by_path = {a: p[1][kname] for a, p in paths.items() if p[1][kname]}
+        entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": paths[arch][1][kname],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if kname == "flash_attention_fwd":
+            entry["at_shapes"] = [
+                {k: r[k] for k in ("path", "shape", "window", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+                for r in timing]
+        kernels.append(entry)
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
+                    "timing_rglru": timing_rglru,
                     "serving": {a: p[2] for a, p in paths.items()}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,20 +1,22 @@
 """Public kernel entry points (mirror ``repro/kernels/ops.py``).
 
-``attention`` and ``ssd`` implementations:
+``attention``, ``ssd`` and ``rglru`` implementations:
   * None     — the CUDA kernel for CUDA tensors
-               (``flash_attention.flash_attention``, ``ssd.ssd_scan``), its
-               plain blocked version for CPU tensors;
+               (``flash_attention.flash_attention``, ``ssd.ssd_scan``,
+               ``rglru.rglru_scan``), its plain blocked version for CPU
+               tensors;
   * "plain"  — the plain blocked version on any device (the card's
                comparison path).
 
-``attention_decode`` and ``ssd_decode`` are plain PyTorch, as they are plain
-jnp in the reference.
+``attention_decode``, ``ssd_decode`` and ``rglru_decode`` are plain PyTorch,
+as they are plain jnp in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import ssd as _ssd
 
 _NEG = -1e30
@@ -58,6 +60,24 @@ def attention_decode(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def rglru(x, a_log, gate_a, gate_x, *, c=8.0, h0=None, impl=None):
+    """RG-LRU scan. Shapes as in ``ref.rglru_ref``; ``h0`` [B,D] or None.
+    Returns (y [B,S,D] in x's dtype, h_final [B,D] fp32)."""
+    if impl is None:
+        return _rglru.rglru_scan(x, a_log, gate_a, gate_x, c=c, h0=h0)
+    if impl == "plain":
+        return _rglru.rglru_plain(x, a_log, gate_a, gate_x, c=c, h0=h0)
+    raise ValueError(f"unknown rglru impl {impl!r}")
+
+
+def rglru_decode(h, x, a_log, gate_a, gate_x, *, c=8.0):
+    """One recurrence step. h: [B,D] fp32; x, gates: [B,D]. Returns
+    (y [B,D] in x's dtype, new h fp32)."""
+    a, b = _rglru.gates(x, a_log, gate_a, gate_x, c)
+    h = a * h.float() + b
+    return h.to(x.dtype), h
 
 
 def ssd(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256, impl=None):

@@ -2,11 +2,13 @@
 
 Small shapes only: ``attention_ref`` (O(S^2) memory) is ground truth for
 the flash kernel and the plain blocked version in ``flash_attention.py``;
-``ssd_ref`` (a loop over time) is ground truth for ``ssd.py``.
+``ssd_ref`` and ``rglru_ref`` (loops over time) are ground truth for
+``ssd.py`` and ``rglru.py``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG = -1e30
 
@@ -37,6 +39,33 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def rglru_ref(x, a_log, gate_a, gate_x, *, c: float = 8.0):
+    """RG-LRU (Griffin eq. 2-4), sequential over time.
+
+    x:       [B, S, D]  input
+    a_log:   [D]        learnable Lambda (pre-softplus)
+    gate_a:  [B, S, D]  recurrence gate pre-activation  r_t
+    gate_x:  [B, S, D]  input gate pre-activation       i_t
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    log a_t = -c * softplus(a_log) * sigmoid(r_t).
+    Returns (y [B,S,D] in x's dtype, h_final [B,D] fp32). Computation in
+    float32.
+    """
+    xf = x.float()
+    log_a = -c * F.softplus(a_log.float()) * torch.sigmoid(gate_a.float())
+    a = torch.exp(log_a)
+    gated_x = torch.sigmoid(gate_x.float()) * xf
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    bx = beta * gated_x
+    h = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        ys.append(h)
+    return torch.stack(ys, 1).to(x.dtype), h
 
 
 def ssd_ref(x, dt, A_log, B, C, *, D=None, h0=None):

@@ -1,10 +1,14 @@
-"""GQA/MQA global attention mixer (mirrors the GQA part of
-``repro/models/attention.py``; sliding-window layers, MLA and
-cross-attention come with the slices that run them).
+"""GQA/MQA attention mixers, global (``"attn"``) and sliding-window
+(``"local"``) (mirrors the GQA part of ``repro/models/attention.py``; MLA
+and cross-attention come with the slices that run them).
 
-Full-sequence paths (prefill) route through ``repro_torch.kernels.ops``;
-decode writes the new token's k/v into the cache IN PLACE (the reference
-returns a new cache), which saves a copy of the whole KV cache per step.
+Full-sequence paths (prefill) route through ``repro_torch.kernels.ops``,
+with ``cfg.local_window`` as the window of ``"local"`` layers; decode
+writes the new token's k/v into the cache IN PLACE (the reference returns
+a new cache), which saves a copy of the whole KV cache per step. A local
+layer's cache is a ring of ``W = min(local_window, capacity)`` slots:
+position p lives in slot ``p % W``, and ``slot_pos`` records which
+position each slot holds (-1 for none).
 The reference's sharding ``constrain`` calls and ``qkv_constraint`` have no
 counterpart on one card and are left out.
 """
@@ -53,26 +57,40 @@ def _qkv(cfg: ModelConfig, p, x, positions, rope=True):
     return q, k, v
 
 
-def attn_core(cfg: ModelConfig, p, q, k, v, *, causal=True, impl=None):
+def _window(cfg: ModelConfig, kind):
+    return cfg.local_window if kind == "local" else 0
+
+
+def attn_core(cfg: ModelConfig, p, q, k, v, *, kind="attn", causal=True,
+              impl=None):
     """Attention over projected q/k/v and the output projection -> [B,S,D]."""
     B, S = q.shape[:2]
-    o = ops.attention(q, k, v, causal=causal,
+    o = ops.attention(q, k, v, causal=causal, window=_window(cfg, kind),
                       softcap=cfg.attn_logit_softcap, impl=impl)
     return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(q.dtype)
 
 
-def attn_forward(cfg: ModelConfig, p, x, positions, *, causal=True,
-                 impl=None):
+def attn_forward(cfg: ModelConfig, p, x, positions, *, kind="attn",
+                 causal=True, impl=None):
     """x: [B,S,D]; positions: [B,S] absolute. Returns [B,S,D]."""
     q, k, v = _qkv(cfg, p, x, positions)
-    return attn_core(cfg, p, q, k, v, causal=causal, impl=impl)
+    return attn_core(cfg, p, q, k, v, kind=kind, causal=causal, impl=impl)
 
 
-def attn_cache_def(cfg: ModelConfig, batch, capacity, dtype):
+def _ring(cfg: ModelConfig, capacity):
+    return min(cfg.local_window, capacity)
+
+
+def attn_cache_def(cfg: ModelConfig, kind, batch, capacity, dtype):
     """One layer's cache as meta tensors (shape and dtype, no storage)."""
-    shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
-            "v": torch.empty(shape, dtype=dtype, device="meta")}
+    S = _ring(cfg, capacity) if kind == "local" else capacity
+    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
+    d = {"k": torch.empty(shape, dtype=dtype, device="meta"),
+         "v": torch.empty(shape, dtype=dtype, device="meta")}
+    if kind == "local":
+        d["slot_pos"] = torch.empty((batch, S), dtype=torch.int32,
+                                    device="meta")
+    return d
 
 
 def _write_at(cache, new, idx):
@@ -86,22 +104,47 @@ def _write_at(cache, new, idx):
     return cache
 
 
-def attn_decode(cfg: ModelConfig, p, x, cache, positions):
+def attn_decode(cfg: ModelConfig, p, x, cache, positions, *, kind="attn"):
     """x: [B,1,D]; positions: [B] index of the new token. -> (y, cache)."""
     B = x.shape[0]
     q, k, v = _qkv(cfg, p, x, positions[:, None])
-    _write_at(cache["k"], k, positions)
-    _write_at(cache["v"], v, positions)
+    slot_pos = None
+    if kind == "local":
+        slot = positions % cache["k"].shape[1]
+        _write_at(cache["slot_pos"], positions[:, None], slot)
+        slot_pos = cache["slot_pos"]
+    else:
+        slot = positions
+    _write_at(cache["k"], k, slot)
+    _write_at(cache["v"], v, slot)
     o = ops.attention_decode(q, cache["k"], cache["v"], positions + 1,
-                             softcap=cfg.attn_logit_softcap)
+                             window=_window(cfg, kind),
+                             softcap=cfg.attn_logit_softcap,
+                             slot_positions=slot_pos)
     y = o.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
     return y, cache
 
 
-def attn_prefill_cache(k, v, capacity):
-    """Build a decode cache from a full prefix's k/v [B,S,Kh,hd] (the
-    reference recomputes them from x; the port reuses the prefill's)."""
+def attn_prefill_cache(cfg: ModelConfig, k, v, capacity, *, kind="attn"):
+    """Build a decode cache from a full prefix's k/v [B,S,Kh,hd] at
+    positions 0..S-1 (the reference recomputes them from x; the port reuses
+    the prefill's). A local layer keeps the last W positions at their ring
+    slots: slot s holds the largest p <= S-1 with p % W == s, or zeros and
+    ``slot_pos`` -1 where that p would be negative."""
     B, S, Kh, hd = k.shape
+    if kind == "local":
+        W = _ring(cfg, capacity)
+        last = S - 1
+        s = torch.arange(W, device=k.device)
+        pos = last - torch.remainder(last - s, W)               # [W]
+        ok = pos >= 0
+        src = pos.clamp(0, S - 1)
+        keep = ok[None, :, None, None]
+        zero = torch.zeros((), dtype=k.dtype, device=k.device)
+        return {"k": torch.where(keep, k[:, src], zero),
+                "v": torch.where(keep, v[:, src], zero),
+                "slot_pos": torch.where(ok, pos, -1).to(torch.int32)
+                .expand(B, W).contiguous()}
     pad = torch.zeros((B, capacity - S, Kh, hd), dtype=k.dtype,
                       device=k.device)
     return {"k": torch.cat([k, pad], 1), "v": torch.cat([v, pad], 1)}

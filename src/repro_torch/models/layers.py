@@ -107,6 +107,17 @@ def apply_norm(cfg: ModelConfig, p, x, eps=None):
     return y.to(x.dtype)
 
 
+def conv_history(u, K):
+    """The last K-1 pre-conv rows of ``u`` [B,S,C] as a new tensor (not a
+    view that would keep the whole projection alive), with zero rows before
+    the prompt as a causal conv's padding has them: a decode cache's conv
+    window (Mamba-2's and the RG-LRU block's)."""
+    B, S, C = u.shape
+    pad = torch.zeros((B, max(K - 1 - S, 0), C), dtype=u.dtype,
+                      device=u.device)
+    return torch.cat([pad, u[:, max(S - (K - 1), 0):]], 1)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings (with partial-rotary support)
 # ---------------------------------------------------------------------------

@@ -16,10 +16,12 @@ Public API:
     .materialize_cache(batch, capacity)
     .cast_weights()                 # matrices held in the compute dtype
 
-The port runs ``("attn", "dense")`` layers (the deepseek-7b family) and
-``("ssm", "none")`` layers (mamba2-2.7b: a Mamba-2 mixer, no MLP). Other
-mixers, MoE, encoder-decoder and vision inputs raise ``NotImplementedError``
-naming their ROADMAP item. Remat and sharding constraints have no
+The port runs ``("attn", "dense")`` layers (the deepseek-7b family),
+``("ssm", "none")`` layers (mamba2-2.7b: a Mamba-2 mixer, no MLP),
+``("rec", "dense")`` layers (an RG-LRU mixer) and ``("local", "dense")``
+sliding-window attention layers (recurrentgemma-9b, gemma3-1b). MLA, MoE,
+encoder-decoder and vision inputs raise ``NotImplementedError`` naming
+their ROADMAP item. Remat and sharding constraints have no
 counterpart here (serving only, one card).
 """
 from __future__ import annotations
@@ -31,23 +33,24 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import rglru as REC
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        flatten_paths, init_params, mlp_def,
                                        norm_def, tree_map)
 
 _LATER = {
-    "local": "ROADMAP Queue 1, remaining attention-only architectures "
-             "(gemma3-1b local attention)",
     "enc": "ROADMAP Queue 1, remaining attention-only architectures "
            "(seamless-m4t encoder-decoder)",
     "xdec": "ROADMAP Queue 1, remaining attention-only architectures "
             "(seamless-m4t encoder-decoder)",
     "mla": "ROADMAP Queue 1, MoE and MLA",
     "moe": "ROADMAP Queue 1, MoE and MLA",
-    "rec": "ROADMAP Queue 1, RG-LRU hybrid",
 }
-_KINDS = (("attn", "dense"), ("ssm", "none"))
+_KINDS = (("attn", "dense"), ("local", "dense"), ("rec", "dense"),
+          ("ssm", "none"))
+_MIXER_DEF = {"attn": A.attn_def, "local": A.attn_def, "rec": REC.rec_def,
+              "ssm": SSM.ssm_def}
 
 
 def _supported(kind: Tuple[str, str]):
@@ -104,8 +107,7 @@ def params_tree(module: nn.Module):
 def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     _supported(kind)
     mixer, mlpk = kind
-    d = {"ln1": norm_def(cfg),
-         "mixer": SSM.ssm_def(cfg) if mixer == "ssm" else A.attn_def(cfg)}
+    d = {"ln1": norm_def(cfg), "mixer": _MIXER_DEF[mixer](cfg)}
     if mlpk == "dense":
         d["ln2"] = norm_def(cfg)
         d["mlp"] = mlp_def(cfg, cfg.d_ff)
@@ -119,20 +121,22 @@ def _mlp_residual(cfg, p, x):
 def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     """Full-sequence layer -> (x, cache, aux). With ``capacity`` it also
     emits this layer's decode cache from the same pass: attention projects
-    q/k/v once and SSM layers run the SSD once (the reference computes
-    both twice)."""
+    q/k/v once, SSM layers run the SSD once and RG-LRU layers the scan once
+    (the reference computes each twice)."""
     mixer, mlpk = kind
     h = apply_norm(cfg, p["ln1"], x)
     cache = None
-    if mixer == "ssm":
-        mx, c = SSM.ssm_prefill(cfg, p["mixer"], h, impl=ctx.get("impl"))
+    if mixer in ("ssm", "rec"):
+        prefill = SSM.ssm_prefill if mixer == "ssm" else REC.rec_prefill
+        mx, c = prefill(cfg, p["mixer"], h, impl=ctx.get("impl"))
         if capacity is not None:
             cache = c
     else:
         q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
         if capacity is not None:
-            cache = A.attn_prefill_cache(k, v, capacity)
-        mx = A.attn_core(cfg, p["mixer"], q, k, v, impl=ctx.get("impl"))
+            cache = A.attn_prefill_cache(cfg, k, v, capacity, kind=mixer)
+        mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=mixer,
+                         impl=ctx.get("impl"))
     x = x + mx
     if mlpk == "dense":
         x = _mlp_residual(cfg, p, x)
@@ -147,9 +151,12 @@ def layer_apply(cfg, kind, p, x, ctx):
 
 
 def layer_cache_def(cfg, kind, batch, capacity, dtype):
-    if kind[0] == "ssm":
+    mixer = kind[0]
+    if mixer == "ssm":
         return SSM.ssm_cache_def(cfg, batch, dtype)
-    return A.attn_cache_def(cfg, batch, capacity, dtype)
+    if mixer == "rec":
+        return REC.rec_cache_def(cfg, batch, dtype)
+    return A.attn_cache_def(cfg, mixer, batch, capacity, dtype)
 
 
 def layer_decode(cfg, kind, p, x, cache, ctx):
@@ -158,9 +165,11 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
     h = apply_norm(cfg, p["ln1"], x)
     if mixer == "ssm":
         mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache)
+    elif mixer == "rec":
+        mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache)
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
-                                  ctx["positions"])
+                                  ctx["positions"], kind=mixer)
     x = x + mx
     if mlpk == "dense":
         x = _mlp_residual(cfg, p, x)
@@ -337,9 +346,11 @@ class LM(nn.Module):
         """Hold every weight matrix in the compute dtype instead of the param
         dtype. The reference casts each matrix to the compute dtype at every
         use, so the numbers do not change. One-dimensional parameters (per
-        layer, the stacked ``layers`` axis aside: norm scales, and Mamba's
-        ``dt_bias``, ``A_log`` and ``D``), which it reads in fp32, stay as
-        they are. Halves the bytes of an fp32-param model held in bf16."""
+        layer, the stacked ``layers`` axis aside: norm scales, Mamba's
+        ``dt_bias``, ``A_log`` and ``D``, RG-LRU's ``a_log``), which it reads
+        in fp32, stay as they are. RG-LRU's gate biases ``b_ga``/``b_gx``
+        stay too; the reference casts them at each use, as the port does.
+        Halves the bytes of an fp32-param model held in bf16."""
         defs = dict(flatten_paths(self.defs()))
         for name, p in self.named_parameters():
             if sum(a != "layers" for a in defs[name].axes) >= 2:

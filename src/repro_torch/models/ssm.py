@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamDef
+from repro_torch.models.layers import ParamDef, conv_history
 
 
 def _dims(cfg: ModelConfig):
@@ -66,16 +66,6 @@ def _gated_norm(y, z, scale, eps):
     return (o * (1.0 + scale.float())).to(y.dtype)
 
 
-def _conv_history(xBC, K):
-    """The last K-1 pre-conv rows as a new tensor (not a view that would
-    keep the whole projection alive), with zero rows before the prompt as
-    ``_conv_full`` pads."""
-    B, S, C = xBC.shape
-    pad = torch.zeros((B, max(K - 1 - S, 0), C), dtype=xBC.dtype,
-                      device=xBC.device)
-    return torch.cat([pad, xBC[:, max(S - (K - 1), 0):]], 1)
-
-
 def ssm_prefill(cfg: ModelConfig, p, x, *, impl=None):
     """x: [B,S,D] -> (y [B,S,D], decode cache {"conv", "h"})."""
     B, S, _ = x.shape
@@ -90,7 +80,7 @@ def ssm_prefill(cfg: ModelConfig, p, x, *, impl=None):
     y, hT = ops.ssd(xs, dt, p["A_log"], Bm, Cm, D=p["D"],
                     chunk=s.chunk_size, impl=impl)
     y = _gated_norm(y.reshape(B, S, d_inner), z, p["norm"], cfg.norm_eps)
-    cache = {"conv": _conv_history(xBC, s.d_conv), "h": hT}
+    cache = {"conv": conv_history(xBC, s.d_conv), "h": hT}
     return y @ p["out_proj"].to(dt_), cache
 
 
