@@ -13,18 +13,26 @@ Phases, in order (any failure exits non-zero and prints no result line):
              path serves; elementwise tolerances of tests/test_kernels.py
              and a relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16
              per case. ``sweep`` is the flash attention (recurrentgemma's
-             windowed MQA head-dim-256 prefills among its cases),
+             windowed MQA head-dim-256 prefills among its cases); it logs
+             which of its two kernels ran each case (tensor-core ``tc`` or
+             FMA ``fma``) and fails if a bf16 case at head dim >= 64 ran
+             the FMA kernel,
              ``sweep-ssd`` the SSD scan (y and h_final, with and without D
              and h0, a two-halves state carry), ``sweep-rglru`` the RG-LRU
              scan (the same, ragged D and S among its shapes).
  4. timing — each kernel at the main paths' shapes (CUDA events), beside its
              plain version, a library yardstick where one PyTorch call
              computes the same function, and the card's bound (``timing``,
-             ``timing-ssd``, ``timing-rglru``).
+             ``timing-ssd``, ``timing-rglru``); ``timing`` also gives the
+             flash kernel's TFLOP/s, share of the bound, ratio to SDPA,
+             the host's time to issue a call beside the device's time
+             for it, and times the fp32 FMA flash kernel at deepseek-7b's
+             shape.
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
              set to 0 just before and read just after, and must equal one
-             launch per layer and prefill of each layer's kernel:
+             launch per layer and prefill of each layer's kernel (every
+             flash launch on the tensor-core kernel, none on the FMA one):
              deepseek-7b (30 layers, d_model 4096, 32x128 heads, d_ff
              11008, vocab 102400) through the flash attention, then
              ``serve-mamba``: mamba2-2.7b (64 Mamba-2 layers, d_model 2560,
@@ -36,16 +44,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
              scan and the windowed flash attention, with a seventh,
              2176-token prompt that makes the window bind in prefill.
              Random weights from a seeded generator.
-    logits — request 0's prefill last-logits through the kernel and the
-             plain version, in the served bf16 model beside a witness (two
-             correct plain codes) and a control (a plain code with a fault),
-             and in an fp32 twin with the same weights. ``logits-mamba``
-             holds the bf16 model on its hidden state after 4 layers (its
-             last-logits are reported), and checks that the kernel's final
-             state carries: a prefill plus decode steps gives a forward's
-             next-token logits. ``logits-rg`` does the same for the RG-LRU
-             scan (witness: the plain scan in 64-row pieces carried through
-             h0; control: the carry dropped at every step).
+    logits — request 0's prefill through the kernel and the plain version,
+             beside witnesses (correct codes: the plain code in other
+             chunks, and SDPA for the bf16 model) and a control (a plain
+             code with a fault): the served bf16 model's hidden state after
+             4 layers and its last-logits, an fp32 twin with the same
+             weights, and the fp32 twin with its attention on bf16 copies
+             of q, k, v (the tensor-core kernel at full depth).
+             ``logits-mamba`` holds the bf16 model on its hidden state
+             after 4 layers (its last-logits are reported), and checks that
+             the kernel's final state carries: a prefill plus decode
+             steps gives a forward's next-token logits. ``logits-rg`` does
+             the same for the RG-LRU scan (witness: the plain scan in
+             64-row pieces carried through h0; control: the carry dropped
+             at every step).
  6. migrate — the same requests again with a mid-decode state_dict dump to
              host memory and restore into a fresh engine; the streams must
              equal phase 5's (``migrate``, ``migrate-mamba``,
@@ -60,6 +72,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -77,13 +90,18 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
 LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
 LOGITS_REL_L2_FP32 = 1e-2   # fp32 twin, kernel vs plain
-# mamba2-2.7b and recurrentgemma-9b in bf16: random-init layers decorrelate
-# the last-logits after any last-bit flip (on an H100 a correct mamba
-# witness reads 0.52), so the served bf16 model is held at LOGITS_REL_L2 on
-# its hidden state after its first layers, before the flips are amplified;
-# its logits are reported. recurrentgemma's first 4 are rec, rec, local,
-# rec: both of its kernels run before the gate
+# the served bf16 models: random-init layers carry any last-bit flip of a
+# layer's output far (on an H100 a correct mamba witness reads 0.52 on the
+# last-logits), so each is held at LOGITS_REL_L2 on its hidden state after
+# its first layers, before the flips are amplified. recurrentgemma's first
+# 4 are rec, rec, local, rec: both of its kernels run before the gate
 GATE_LAYERS = 4
+# deepseek-7b's bf16 last-logits, kernel vs plain. A code that sums like
+# the plain one (the plain code in 64-wide chunks) reads 0.024 on an H100,
+# one that sums on the tensor cores 0.096 (SDPA, a second witness) and the
+# control 0.35: the limit lies between the tensor-core witness and the
+# control. LOGITS_REL_L2 would refuse every tensor-core attention code.
+LOGITS_REL_L2_BF16_DEPTH = 0.15
 CARRY_REL_L2 = 1e-3      # fp32 twin: prefill + decode steps vs a forward
 SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 KERNEL_SOURCES = ("flash_attention", "ssd", "rglru")
@@ -190,12 +208,18 @@ def phase_sweep():
               for S in RG_PROMPT_LENS]         # recurrentgemma-9b's prefills
     bad = []
     worst = {}
+    ran = {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
         B, Sq, Sk, H, Kh, hd = shape
         q, k, v = rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dt)
         kw = variant_kw(var, Sk)
+        before = flash_counts()
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        kern = [n for n, c in flash_counts().items() if c > before[n]]
+        assert len(kern) == 1, (before, flash_counts())
+        kern = kern[0]
+        ran[kern] += 1
         want = fa.attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -204,24 +228,32 @@ def phase_sweep():
         err = diff.max().item()
         name = str(dt).split(".")[-1]
         rel = _rel(got, want)
-        ok = (excess <= 0 and rel <= REL_L2[name]
+        # the tensor cores must run every bf16 case at head dim >= 64
+        right_kernel = kern == ("tc" if dt == torch.bfloat16 and hd >= 64
+                                else "fma")
+        ok = (excess <= 0 and rel <= REL_L2[name] and right_kernel
               and torch.isfinite(got).all().item())
-        worst[name] = max(worst.get(name, 0.0), err)
-        worst[name + "_rel_l2"] = max(worst.get(name + "_rel_l2", 0.0), rel)
-        log(f"sweep {shape} {name:8s} {var:10s} max_abs_err={err:.3e} "
-            f"rel_l2={rel:.3e} {'ok' if ok else 'FAIL'}")
+        key = f"{name}_{kern}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
+        log(f"sweep {shape} {name:8s} {var:10s} {kern:3s} max_abs_err="
+            f"{err:.3e} rel_l2={rel:.3e} {'ok' if ok else 'FAIL'}"
+            f"{'' if right_kernel else ' (wrong kernel)'}")
         if not ok:
-            bad.append((shape, name, var, err))
+            bad.append((shape, name, var, kern, err))
     log(f"sweep: {len(cases) - len(bad)}/{len(cases)} cases within "
-        f"tolerance; worst errors {json.dumps(worst)}")
+        f"tolerance; cases by kernel {json.dumps(ran)}; worst errors "
+        f"{json.dumps(worst)}")
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
 
 
-def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0):
-    """FLOP: 4 B H hd per unmasked query-key pair, at the bf16 peak. Bytes:
-    q and o [B,Sq,H,hd], k and v [B,Sk,Kh,hd] once each."""
+def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0,
+                    peak=PEAK_BF16_FLOPS):
+    """FLOP: 4 B H hd per unmasked query-key pair, at ``peak`` (bf16
+    tensor cores by default). Bytes: q and o [B,Sq,H,hd], k and v
+    [B,Sk,Kh,hd] once each."""
     Kh = H if Kh is None else Kh
 
     def keys(i):                      # keys query i sees
@@ -231,17 +263,42 @@ def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0):
     pairs = sum(keys(i) for i in range(Sq))
     flops = 4 * B * H * hd * pairs
     nbytes = elem_bytes * (2 * B * Sq * H * hd + 2 * B * Sk * Kh * hd)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-# flash timing shapes: (label, S, H, Kh, hd, window); the first two are
+# flash timing shapes: (label, S, H, Kh, hd, window); the first three are
 # deepseek-7b's prefills, the last recurrentgemma-9b's windowed MQA one (at
 # S = window the window does not bind, so causal SDPA is a fair yardstick)
-FLASH_TIMING = (("deepseek", 512, 32, 32, 128, 0),
+FLASH_TIMING = (("deepseek", 128, 32, 32, 128, 0),
+                ("deepseek", 512, 32, 32, 128, 0),
                 ("deepseek", 2048, 32, 32, 128, 0),
                 ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
+SPIN_CYCLES = 20_000_000        # about 10 ms of a spin kernel on an H100
+
+
+def host_device_ms(fn, iters):
+    """Per call of ``fn``: the host's time to issue it (wall time of
+    ``iters`` calls queued without a sync) and the device's time for it
+    (CUDA events around the same calls, queued behind a spin kernel so that
+    no host gap falls between them), and whether the spin outlasted the
+    issuing, which the device time needs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    h1 = time.perf_counter()
+    covered = not t0.query()
+    t1.record()
+    torch.cuda.synchronize()
+    return (h1 - h0) / iters * 1e3, t0.elapsed_time(t1) / iters, covered
 
 
 def phase_timing():
@@ -261,26 +318,70 @@ def phase_timing():
         err = (kern().float() - plain().float()).abs().max().item()
         lib_err = (kern().float() - lib().transpose(1, 2).float()
                    ).abs().max().item()
-        iters = 50 if S == 512 else 20
+        iters = 50 if S <= 512 else 20
         ms = time_ms(kern, iters)
         plain_ms = time_ms(plain, max(iters // 4, 3))
         lib_ms = time_ms(lib, iters)
         ms2 = time_ms(kern, iters)
+        host_ms, device_ms, covered = host_device_ms(kern, iters)
         bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True,
                                                     Kh=Kh, window=window)
         shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
-        row = dict(path=label, S=S, shape=shape, window=window, ms=ms,
+        row = dict(path=label, S=S, shape=shape, window=window,
+                   dtype="bfloat16", ms=ms,
                    ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                    library_max_abs_diff=lib_err,
                    tflops=flops / (ms * 1e-3) / 1e12)
+        row.update(kernel=fa.kernel_for(q.dtype, hd),
+                   share_of_bound=bound_ms / ms, vs_sdpa=ms / lib_ms,
+                   host_ms_per_call=host_ms, device_ms=device_ms,
+                   device_ms_queued=covered)
         rows.append(row)
-        log(f"timing {shape} bf16 causal window={window}: kernel {ms:.4f} "
-            f"ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA yardstick "
-            f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{row['tflops']:.2f} TFLOP/s, kernel-plain max abs err "
-            f"{err:.3e}, kernel-SDPA {lib_err:.3e}")
+        log(f"timing {shape} bf16 causal window={window} ({row['kernel']} "
+            f"kernel): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
+            f"ms, SDPA yardstick {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {row['tflops']:.2f} TFLOP/s, "
+            f"{100 * row['share_of_bound']:.2f}% of the bound, "
+            f"{row['vs_sdpa']:.3f}x SDPA's time, kernel-plain max abs err "
+            f"{err:.3e}, kernel-SDPA {lib_err:.3e}; host {host_ms:.4f} ms "
+            f"per call, device {device_ms:.4f} ms per call with the queue "
+            f"full ({'held' if covered else 'NOT held: the host was slower'})")
+    rows.append(timing_fma_fp32())
     return rows
+
+
+def timing_fma_fp32():
+    """The fp32 FMA kernel (the fp32 twin's flash kernel) once, at
+    deepseek-7b's S=2048 prefill shape; its bound takes the fp32 rate
+    outside the tensor cores, the rate its inputs ask for."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    S, H, hd = 2048, 32, 128
+    q, k, v = rand_qkv(7, 1, S, S, H, H, hd, torch.float32)
+    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: fa.attention_plain(q, k, v, causal=True)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    err = (kern() - plain()).abs().max().item()
+    ms, plain_ms, lib_ms = time_ms(kern, 5), time_ms(plain, 3), \
+        time_ms(lib, 5)
+    bound_ms, bound_by, flops = attention_bound(1, S, S, H, hd, 4, True,
+                                                peak=PEAK_F32_FLOPS)
+    row = dict(path="deepseek (fp32 twin)", S=S, shape=f"[1,{S},{H},{hd}]",
+               window=0, dtype="float32", kernel=fa.kernel_for(q.dtype, hd),
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+               tflops=flops / (ms * 1e-3) / 1e12,
+               share_of_bound=bound_ms / ms)
+    log(f"timing [1,{S},{H},{hd}] fp32 causal ({row['kernel']} kernel): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA yardstick "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, fp32 at "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), {row['tflops']:.2f} "
+        f"TFLOP/s, kernel-plain max abs err {err:.3e}")
+    return row
 
 
 def rand_ssd(seed, B, S, H, P, G, N, dtype):
@@ -560,10 +661,17 @@ def kernel_counts():
             "rglru_scan": rglru.launches}
 
 
+def flash_counts():
+    """Flash launches by kernel: tensor-core and FMA."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"tc": fa.launches_tc, "fma": fa.launches_fma}
+
+
 def reset_kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, ssd
-    fa.launches = ssd.launches = rglru.launches = 0
+    fa.launches = fa.launches_tc = fa.launches_fma = 0
+    ssd.launches = rglru.launches = 0
 
 
 def serve(eng, reqs, timings=None, hand_off=None):
@@ -646,10 +754,13 @@ def phase_serve(lm):
     streams = serve(eng, reqs, timings)
     wall = time.perf_counter() - t0
     launches = kernel_counts()
+    flash = flash_counts()
     peak = torch.cuda.max_memory_allocated()
     assert all(len(s) == MAX_NEW for s in streams), [len(s) for s in streams]
     want = expected_launches(cfg, len(prompts))
     assert launches == want, (launches, want)
+    # every served flash launch ran on the tensor cores
+    assert flash == {"tc": want["flash_attention_fwd"], "fma": 0}, flash
     assert timings["decode_launches"] == 0, timings["decode_launches"]
     for n, dt in timings["prefill"]:
         log(f"{label}: prefill S={n:5d} {dt * 1e3:.3f} ms")
@@ -659,15 +770,17 @@ def phase_serve(lm):
     log(f"{label}: {len(dec)} decode steps, {dec_s / len(dec) * 1e3:.3f} ms "
         f"per step, {dec_tok / dec_s:.1f} tokens/s decoded; "
         f"{len(prompts)} requests in {wall:.2f} s; peak allocated "
-        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)} "
-        f"({timings['decode_launches']} in decode steps)")
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}, flash "
+        f"by kernel {json.dumps(flash)} ({timings['decode_launches']} in "
+        f"decode steps)")
     for r in reqs:
         log(f"{label}: request {r.rid} (S={len(r.prompt)}) -> {r.out}")
     summary = dict(
         prefill_ms={str(n): dt * 1e3 for n, dt in timings["prefill"]},
         decode_ms_per_step=dec_s / len(dec) * 1e3, decode_steps=len(dec),
         decode_tokens_per_s=dec_tok / dec_s, wall_s=wall,
-        peak_allocated_gib=peak / 2**30, launches=launches)
+        peak_allocated_gib=peak / 2**30, launches=launches,
+        flash_launches_by_kernel=flash)
     return streams, launches, summary
 
 
@@ -690,6 +803,22 @@ def _plain_small_chunks(orig, q, k, v, **kw):
     return orig(q, k, v, chunk_q=64, chunk_k=64, **kw)
 
 
+def _sdpa_witness(orig, q, k, v, *, causal=True, window=0, softcap=0.0,
+                  scale=None):
+    """Witness: PyTorch's own attention (SDPA), a correct code that sums on
+    the tensor cores and rounds P to bf16, as the tensor-core kernel does.
+    Only for what deepseek-7b's prefill asks: right-aligned queries as long
+    as the keys, no window, no softcap."""
+    import torch.nn.functional as F
+    if q.shape[1] != k.shape[1] or window or softcap:
+        raise ValueError("the SDPA witness takes Sq == Sk, no window, no "
+                         "softcap")
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, scale=scale,
+        enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
+
+
 def _plain_drops_diagonal(orig, q, k, v, **kw):
     """Control: a causal mask off by one. Query row i >= 1 sees keys
     0..i-1, missing its own key, as a kernel that mis-masks the diagonal
@@ -700,49 +829,91 @@ def _plain_drops_diagonal(orig, q, k, v, **kw):
     return torch.cat([head, rest], 1)
 
 
-def phase_logits(lm):
-    """Request 0's prefill last-logits through the kernel and through the
-    plain attention.
+@contextmanager
+def attention_in_bf16():
+    """Both attention codes (kernel and plain, witness and control too) run
+    on bf16 copies of their q, k, v and hand back q's dtype: in the fp32
+    twin this puts the bf16 tensor-core kernel inside an fp32 model."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.flash_attention, fa.attention_plain
 
-    In the served bf16 model, any two correct attention codes differ in the
-    last bit of some outputs, and 30 random-init bf16 layers carry such a
-    flip far. So the kernel-vs-plain gap is read beside a witness, the plain
-    code against itself with other chunk sizes, and a control, the plain
-    code with an off-by-one causal mask. The limit must lie above the
-    witness and below the control, and the kernel must meet it. In an fp32
-    twin with the same weights (the same seeded draws before the bf16 cast)
-    kernel and plain must agree to 1e-2."""
+    def cast(fn):
+        return lambda q, k, v, **kw: fn(q.bfloat16(), k.bfloat16(),
+                                        v.bfloat16(), **kw).to(q.dtype)
+    fa.flash_attention, fa.attention_plain = cast(orig[0]), cast(orig[1])
+    try:
+        yield
+    finally:
+        fa.flash_attention, fa.attention_plain = orig
+
+
+def phase_logits(lm):
+    """Request 0's prefill through the flash kernel and through the plain
+    attention, each beside a witness (the plain code with 64-query, 64-key
+    chunks instead of 512, a correct code that sums in another order) and
+    a control (the plain code with an off-by-one causal mask, a fault):
+    every witness must lie under the limit, the control over it, and the
+    kernel under it. The bf16 model's checks add a second witness, SDPA,
+    a correct code that sums on the tensor cores as the kernel does. Four
+    gates:
+      * the served bf16 model's hidden state after its first GATE_LAYERS
+        layers, at LOGITS_REL_L2;
+      * the served bf16 model's last-logits at LOGITS_REL_L2_BF16_DEPTH:
+        30 random-init bf16 layers carry a last-bit flip of an attention
+        output to some 0.09-0.1 of the last-logits for a code that sums on
+        the tensor cores (SDPA read 0.0956 on an H100), against 0.024 for
+        the chunked plain code and 0.35 for the control;
+      * an fp32 twin with the same weights (the same seeded draws before
+        the bf16 cast), last-logits at LOGITS_REL_L2_FP32: fp32 attention
+        runs the FMA kernel;
+      * the same fp32 twin with its attention on bf16 copies of q, k, v,
+        last-logits at LOGITS_REL_L2: the bf16 tensor-core kernel at full
+        depth. The bf16 attention outputs still flip last bits, and 30 fp32
+        layers carry the flips of any tensor-core code to some 0.016-0.028
+        (SDPA 0.0276), against the witness's 0.0011 and the control's
+        0.355, so the limit is the bf16 one."""
     import torch
     from repro_torch.models.model import LM
     cfg = lm.cfg
     p0 = {"tokens": torch.as_tensor(make_prompts(cfg)[0],
                                     device=DEVICE)[None]}
-    _, lk = lm.prefill(p0, CAPACITY)
-    _, lp = lm.prefill(p0, CAPACITY, impl="plain")
-    assert torch.isfinite(lk).all() and lk.shape == (1, cfg.padded_vocab)
-    with plain_attention_as(_plain_small_chunks):
-        _, lw = lm.prefill(p0, CAPACITY, impl="plain")
-    with plain_attention_as(_plain_drops_diagonal):
-        _, lc = lm.prefill(p0, CAPACITY, impl="plain")
+
+    def logits(model):
+        return lambda impl: model.prefill(p0, CAPACITY, impl=impl)[1]
+    def checks():
+        return (plain_attention_as(_plain_small_chunks),
+                plain_attention_as(_plain_drops_diagonal))
+    def sdpa():
+        return {"sdpa": plain_attention_as(_sdpa_witness)}
+    hidden, _, _ = _kernel_witness_control(
+        lambda impl: _hidden_after(lm, p0, GATE_LAYERS, impl), *checks(),
+        **sdpa())
+    bf16, lk, lp = _kernel_witness_control(logits(lm), *checks(), **sdpa())
+    assert lk.shape == (1, cfg.padded_vocab)
     lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
               generator=torch.Generator(device=DEVICE).manual_seed(0))
-    _, lk32 = lm32.prefill(p0, CAPACITY)
-    _, lp32 = lm32.prefill(p0, CAPACITY, impl="plain")
+    fp32, _, lp32 = _kernel_witness_control(logits(lm32), *checks())
+    with attention_in_bf16():
+        before = flash_counts()
+        fp32_bf16, _, _ = _kernel_witness_control(logits(lm32), *checks())
+        after = flash_counts()
     del lm32
     torch.cuda.empty_cache()
-    out = dict(bf16_kernel_vs_plain=_rel(lk, lp),
-               bf16_witness_plain_chunk64_vs_plain=_rel(lw, lp),
-               bf16_control_diagonal_dropped_vs_plain=_rel(lc, lp),
-               bf16_limit=LOGITS_REL_L2,
-               fp32_kernel_vs_plain=_rel(lk32, lp32),
-               bf16_kernel_vs_fp32=_rel(lk, lp32),
-               bf16_plain_vs_fp32=_rel(lp, lp32))
-    log("logits: request 0 prefill last-logits, relative L2 "
-        + json.dumps(out))
-    assert out["bf16_witness_plain_chunk64_vs_plain"] <= LOGITS_REL_L2, out
-    assert out["bf16_control_diagonal_dropped_vs_plain"] > LOGITS_REL_L2, out
-    assert out["bf16_kernel_vs_plain"] <= LOGITS_REL_L2, out
-    assert out["fp32_kernel_vs_plain"] <= LOGITS_REL_L2_FP32, out
+    gate = f"bf16_hidden{GATE_LAYERS}"
+    gates = ((gate, LOGITS_REL_L2), ("bf16_logits", LOGITS_REL_L2_BF16_DEPTH),
+             ("fp32_logits", LOGITS_REL_L2_FP32),
+             ("fp32_bf16attn_logits", LOGITS_REL_L2))
+    out = {**{f"{gate}_{k}": v for k, v in hidden.items()},
+           **{f"bf16_logits_{k}": v for k, v in bf16.items()},
+           **{f"fp32_logits_{k}": v for k, v in fp32.items()},
+           **{f"fp32_bf16attn_logits_{k}": v for k, v in fp32_bf16.items()},
+           **{f"{pre}_limit": limit for pre, limit in gates},
+           "bf16_logits_kernel_vs_fp32": _rel(lk, lp32),
+           "bf16_logits_plain_vs_fp32": _rel(lp, lp32)}
+    log("logits: request 0 prefill, relative L2 " + json.dumps(out))
+    _assert_gates(out, gates)
+    # the bf16-attention twin went through the tensor-core kernel
+    assert after["tc"] - before["tc"] == cfg.num_layers, (before, after)
     return out
 
 
@@ -810,20 +981,38 @@ SCAN_CHECKS = {"ssd": (_ssd_other_chunks, _ssd_drops_carry),
 SCAN_OF_PATH = {"mamba2-2.7b": "ssd", "recurrentgemma-9b": "rglru"}
 
 
-def _kernel_witness_control(run, scan):
+def _kernel_witness_control(run, as_witness, as_control, **more):
     """``run(impl)`` -> a tensor, through the kernels (``impl=None``) and
-    the plain code, then the plain code with its ``scan`` as witness and as
-    control. Returns their relative L2 errors against the plain code's
-    output, and the kernels' and the plain code's outputs."""
+    the plain code, then the plain code inside the ``as_witness`` and the
+    ``as_control`` context (a second correct code, a fault) and inside
+    each further witness context of ``more``. Returns their relative L2
+    errors against the plain code's output (``witness_<name>_vs_plain``
+    for those of ``more``), and the kernels' and the plain code's
+    outputs."""
     k, p = run(None), run("plain")
     assert k.isfinite().all() and k.shape == p.shape
-    witness, control = SCAN_CHECKS[scan]
-    with plain_scan_as(scan, witness):
+    with as_witness:
         w = run("plain")
-    with plain_scan_as(scan, control):
+    with as_control:
         c = run("plain")
-    return (dict(kernel_vs_plain=_rel(k, p), witness_vs_plain=_rel(w, p),
-                 control_vs_plain=_rel(c, p)), k, p)
+    errs = dict(kernel_vs_plain=_rel(k, p), witness_vs_plain=_rel(w, p),
+                control_vs_plain=_rel(c, p))
+    for name, ctx in more.items():
+        with ctx:
+            errs[f"witness_{name}_vs_plain"] = _rel(run("plain"), p)
+    return errs, k, p
+
+
+def _assert_gates(out, gates):
+    """For each (prefix, limit): every witness under the limit, the control
+    over it, the kernel under it."""
+    for pre, limit in gates:
+        witnesses = [k for k in out if k.startswith(f"{pre}_witness")]
+        assert witnesses, (pre, out)
+        for key in witnesses:
+            assert out[key] <= limit, (key, out)
+        assert out[f"{pre}_control_vs_plain"] > limit, out
+        assert out[f"{pre}_kernel_vs_plain"] <= limit, out
 
 
 def _hidden_after(lm, batch, n_layers, impl):
@@ -873,13 +1062,16 @@ def phase_logits_scan(lm):
 
     def logits(model):
         return lambda impl: model.prefill(p0, CAPACITY, impl=impl)[1]
+
+    def checks():
+        return tuple(plain_scan_as(scan, fn) for fn in SCAN_CHECKS[scan])
     hidden, _, _ = _kernel_witness_control(
-        lambda impl: _hidden_after(lm, p0, GATE_LAYERS, impl), scan)
-    bf16, lk, lp = _kernel_witness_control(logits(lm), scan)
+        lambda impl: _hidden_after(lm, p0, GATE_LAYERS, impl), *checks())
+    bf16, lk, lp = _kernel_witness_control(logits(lm), *checks())
     assert lk.shape == (1, cfg.padded_vocab)
     lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
               generator=torch.Generator(device=DEVICE).manual_seed(0))
-    fp32, _, lp32 = _kernel_witness_control(logits(lm32), scan)
+    fp32, _, lp32 = _kernel_witness_control(logits(lm32), *checks())
     # the kernel's h_final carries into decode
     rng = torch.Generator().manual_seed(7)
     extra = torch.randint(0, cfg.vocab_size, (1, 4), generator=rng)
@@ -905,13 +1097,13 @@ def phase_logits_scan(lm):
            f"fp32_prefill{S}_decode4_vs_forward{S + 4}": carry,
            "carry_limit": CARRY_REL_L2}
     log(f"{label}: request 0 prefill, relative L2 " + json.dumps(out))
-    for pre, limit in ((gate, LOGITS_REL_L2),
-                       ("fp32_logits", LOGITS_REL_L2_FP32)):
-        assert out[f"{pre}_witness_vs_plain"] <= limit, out
-        assert out[f"{pre}_control_vs_plain"] > limit, out
-        assert out[f"{pre}_kernel_vs_plain"] <= limit, out
+    _assert_gates(out, ((gate, LOGITS_REL_L2),
+                        ("fp32_logits", LOGITS_REL_L2_FP32)))
     assert carry <= CARRY_REL_L2, out
     return out
+
+
+PORT_KERNELS = re.compile(r"(flash_fwd|ssd_fwd|rglru_fwd)\w*kernel<[^>]*>")
 
 
 def phase_profile(lm):
@@ -940,12 +1132,17 @@ def phase_profile(lm):
                 dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
         busy = sum(dev.values())
         top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        # the port's own kernels, in or out of the top 8
+        ours = {PORT_KERNELS.search(k).group(0): t / 1e3
+                for k, t in dev.items() if PORT_KERNELS.search(k)}
         out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                           idle_share=(1 - busy / wall_us) if busy else None,
-                          top=[(k[:80], t / 1e3) for k, t in top])
+                          top=[(k[:80], t / 1e3) for k, t in top],
+                          port_kernels_ms=ours)
         log(f"{name} {label}: wall {wall_us / 1e3:.3f} ms under the "
             f"profiler, device busy {busy / 1e3:.3f} ms, idle share "
-            f"{out[label]['idle_share']}")
+            f"{out[label]['idle_share']}; the port's kernels "
+            f"{json.dumps(ours)}")
         for k, t in top:
             log(f"  {t / 1e3:9.3f} ms  {k[:100]}")
     return out
@@ -1040,7 +1237,10 @@ def main():
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
-    rows = {"flash_attention_fwd": timing[1], "ssd_scan": timing_ssd[1],
+    rows = {"flash_attention_fwd": next(
+                r for r in timing if r["path"] == "deepseek"
+                and r["S"] == 2048 and r["dtype"] == "bfloat16"),
+            "ssd_scan": timing_ssd[1],
             "rglru_scan": timing_rglru[1]}
     meta = {"flash_attention_fwd": ("flash_attention.cu",
                                     "src/repro/kernels/flash_attention.py:30"),
@@ -1059,9 +1259,17 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         if kname == "flash_attention_fwd":
+            entry["design"] = (
+                "bf16 at head dims 64/128/256: flash_fwd_tc_kernel, wgmma "
+                "for q.k^T and P.v, TMA into a two-stage k/v ring, online "
+                "softmax in registers; fp32 and bf16 at 16/32: "
+                "flash_fwd_kernel, fp32 FMA")
+            entry["launches_by_kernel"] = {
+                k: sum(p[2]["flash_launches_by_kernel"][k]
+                       for p in paths.values()) for k in ("tc", "fma")}
             entry["at_shapes"] = [
-                {k: r[k] for k in ("path", "shape", "window", "ms",
-                                   "plain_ms", "bound_ms", "bound_by",
+                {k: r[k] for k in ("path", "shape", "window", "kernel",
+                                   "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
                 for r in timing]
         kernels.append(entry)

@@ -2,15 +2,17 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled at first
 use into ``build/repro_torch_kernels/`` at the root of the checkout, under a
-file name that carries a hash of the source and the flags, so an edited
-source rebuilds. There is no fallback: a missing ``nvcc`` or a failed build
-raises.
+file name that carries a hash of the source, of every ``csrc/`` header it
+includes (``#include "name.cuh"``, followed recursively) and of the flags,
+so an edited source, header or flag rebuilds. There is no fallback: a
+missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,10 +35,28 @@ def nvcc_path() -> str:
                        "kernels of repro_torch are built from source")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, in the
+    order first met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, *, verbose: bool = False) -> str:

@@ -1,44 +1,72 @@
-// Flash-attention forward for Hopper (sm_90a), plain CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), plain CUDA C++: two kernels.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_kernel
 // (Pallas; grid (B, H, q-blocks, kv-blocks) with the kv dimension run in
 // order and the online-softmax state in VMEM scratch).
 //
-// Computes softmax(q.k^T * scale) . v with an fp32 online softmax:
+// Both compute softmax(q.k^T * scale) . v with an fp32 online softmax:
 //   q [B,Sq,H,hd], k/v [B,Sk,Kh,hd] -> o [B,Sq,H,hd] in q's dtype;
 //   GQA (kv head h / (H/Kh)); queries right-aligned in the keys
 //   (q_off = Sk - Sq); causal and sliding-window masks; tanh softcap.
 //   Masked scores take the finite NEG = -1e30 of the TPU kernel, so a row
 //   that one tile masks completely gets exp(NEG - NEG) = 1 there and is
 //   wiped by the next tile's alpha = 0, exactly as in the reference.
-//   Keys past Sk (the ragged edge of the last tile) contribute nothing.
+//   Keys past Sk (the ragged edge of the last tile) contribute nothing;
+//   l is clamped at 1e-30 before the division.
 //
 // What bounds it on an H100: at long prefill the work is compute,
 // 4*B*H*Sq*Sk*hd FLOP (about half of it under the causal mask) against the
 // bytes of q, k, v and o read or written once, far above the card's
-// ~295 FLOP/byte ridge. The tensor cores (wgmma/mma.sync) would be the way
-// to that rate; this first kernel is the simple correct design instead:
-//   * one CTA of 256 threads per (b, h, 64-query tile); a loop over kv
-//     tiles inside the CTA replaces the sequential kv grid dimension;
-//   * the q tile stays in shared memory for the whole loop, k and v tiles
-//     are staged there per step, converted to fp32 on load; strides are
-//     passed in, so the [B,S,H,hd] layout is read without transposes;
-//   * scores and p.v are fp32 FMA loops out of shared memory (float4 reads,
-//     rows padded against bank conflicts); m and l live in registers of the
-//     four threads that own a row, acc in registers of the output threads;
-//   * kv tiles that the causal/window mask rules out for the whole q tile
-//     are never visited, and q tiles run latest-first so the long causal
-//     rows start early.
-// Known cost: FMA instead of tensor cores, and shared-memory load
-// bandwidth in the score loop. Moving to mma/wgmma is later work.
+// ~295 FLOP/byte ridge, so the bf16 tensor cores (989 TFLOP/s) set the
+// bound.
 //
-// Entry point: flash_attention_fwd (plain C, loaded with ctypes). It
-// launches on the given stream, allocates nothing, does not synchronise,
-// and returns cudaGetLastError() after the launch.
+// flash_fwd_tc_kernel (bf16, head dims 64/128/256; entry
+// flash_attention_fwd_tc) does both products on the tensor cores:
+//   * one CTA of three warpgroups per (b, h, 128-query tile): warpgroup 0
+//     is the producer (one thread issues TMA loads, setmaxnreg gives its
+//     registers away), warpgroups 1 and 2 are consumers of 64 query rows
+//     each, with 240 registers per thread;
+//   * the q tile is loaded once; k and v tiles of BK keys (128 at head dim
+//     64/128, 64 at 256) come through a two-stage ring in shared memory,
+//     each stage with full (k, v) and empty mbarriers, so the next tile's
+//     loads overlap this tile's products;
+//   * S = q.k^T is wgmma m64nBKk16 with both operands in shared memory,
+//     summed in fp32 registers; scale, softcap and (only on tiles that
+//     the diagonal, the window edge or the ragged Sk edge cut) the masks
+//     are applied in registers; row max and row sum are reduced over the
+//     four lanes that hold a row, by shuffles, with no shared-memory
+//     round trip and no block-wide barrier in the kv loop;
+//   * P is rounded to bf16 in registers and O += P.v is wgmma with P as
+//     the register A operand and v read MN-major from shared memory
+//     (l sums the fp32 p). That moves an output by about 2e-3 relative
+//     to the plain version's fp32 P, inside the bf16 limits; holding P as
+//     two bf16 terms cut that 25-fold for 35% more time and changed the
+//     served model's checks little (PERF.md);
+//   * the epilogue divides by max(l, 1e-30), rounds once to bf16 and
+//     stores the rows below Sq.
+// Inputs come in through TMA tensor maps over the [B,S,H,hd] view, so the
+// base must be 16-byte aligned and every stride a multiple of 16 bytes.
+//
+// flash_fwd_kernel (fp32 at every head dim, bf16 at head dims 16/32;
+// entry flash_attention_fwd) is the first, simple design: fp32 FMA loops
+// out of shared memory, one CTA of 256 threads per (b, h, 64-query tile),
+// k and v converted to fp32 on load. On the tensor cores fp32 would run as
+// TF32 (about three decimal digits), so fp32 stays here.
+//
+// In both, kv tiles that the causal/window mask rules out for the whole q
+// tile are never visited, and q tiles run latest-first so the long causal
+// rows start early.
+//
+// Entry points: plain C, loaded with ctypes. They launch on the given
+// stream, allocate nothing, do not synchronise, and return
+// cudaGetLastError() after the launch (flash_attention_fwd_tc returns
+// 10000 + the CUresult when a tensor map cannot be encoded).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -302,6 +330,281 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;          // queries per CTA: 64 per consumer warpgroup
+constexpr int NT = 384;          // producer warpgroup + two consumer warpgroups
+constexpr int STAGES = 2;        // k/v ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD == 256 ? 64 : 128;   // keys per tile
+  static constexpr int CHUNKS = HD / 64;            // 64-wide columns of a row
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;      // one k or one v tile
+  static constexpr int TILE_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // barriers: q, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + TILE_BYTES + 8 * (1 + 3 * STAGES);
+  static_assert(TILE_BYTES <= 227 * 1024 - 2048, "q plus the ring must fit");
+};
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    sm90::wgmma_ss_n64(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+    sm90::wgmma_rs_n64(d, a, b, 1);
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    sm90::wgmma_ss_n128(d, a, b, acc);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a, uint64_t b) {
+    sm90::wgmma_rs_n128(d, a, b, 1);
+  }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t* a, uint64_t b) {
+    sm90::wgmma_rs_n256(d, a, b, 1);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int G,
+                    int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                    int causal, int window, float softcap, float scale) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms need 1024-byte alignment
+  const uint32_t sQ = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::Q_BYTES;                // stage s at + s * KV_BYTES
+  const uint32_t sV = sK + STAGES * C::KV_BYTES;
+  const uint32_t bar_q = sV + STAGES * C::KV_BYTES;
+  const uint32_t full_k = bar_q + 8;                  // + 8 s
+  const uint32_t full_v = full_k + 8 * STAGES;
+  const uint32_t empty = full_v + 8 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;          // latest q tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * BQ;
+  const int q_off = Sk - Sq;
+
+  // kv tiles that some query of this tile can see
+  const int q_first = q_off + q0;
+  const int q_last = q_off + min(q0 + BQ, Sq) - 1;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full_k + 8 * s, 1);
+      sm90::mbar_init(full_v + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, 2 * 128);   // every consumer thread
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const int kvh = h / G;
+      sm90::mbar_arrive_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::CHUNKS; ++c)
+        sm90::tma_load_4d(sQ + c * BQ * 128, &tm_q, bar_q, 64 * c, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t phase = (it / STAGES) & 1;
+        const int k0 = k_begin + it * BK;
+        sm90::mbar_wait(empty + 8 * s, phase ^ 1);
+        sm90::mbar_arrive_expect_tx(full_k + 8 * s, C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c)
+          sm90::tma_load_4d(sK + s * C::KV_BYTES + c * BK * 128, &tm_k, full_k + 8 * s,
+                            64 * c, kvh, k0, b);
+        sm90::mbar_arrive_expect_tx(full_v + 8 * s, C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::CHUNKS; ++c)
+          sm90::tma_load_4d(sV + s * C::KV_BYTES + c * BK * 128, &tm_v, full_v + 8 * s,
+                            64 * c, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    sm90::setmaxnreg_inc<240>();
+    const int cw = tid / 128 - 1;
+    const int warp = (tid / 32) % 4;
+    const int lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int row0 = 64 * cw + 16 * warp + g;     // this thread's rows: row0, row0 + 8
+    const int qpos0 = q_off + q0 + row0;
+    const int wg_qlo = q_off + q0 + 64 * cw;      // the warpgroup's query positions
+    const int wg_qhi = wg_qlo + 63;
+    const float sl2 = scale * LOG2E;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};   // log2 domain; l per thread
+
+    const uint32_t q_rows = sQ + cw * 64 * 128;
+    sm90::mbar_wait(bar_q, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const uint32_t phase = (it / STAGES) & 1;
+      const int k0 = k_begin + it * BK;
+      const uint32_t k_tile = sK + s * C::KV_BYTES;
+      const uint32_t v_tile = sV + s * C::KV_BYTES;
+
+      // S = q . k^T over this tile, fp32 in registers
+      float sc[BK / 2];
+      sm90::mbar_wait(full_k + 8 * s, phase);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        const uint64_t da = sm90::desc_sw128(q_rows + c * BQ * 128 + 32 * w, 16, 1024);
+        const uint64_t db = sm90::desc_sw128(k_tile + c * BK * 128 + 32 * w, 16, 1024);
+        Wgmma<BK>::ss(sc, da, db, kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // scores in the log2 domain: x = s * scale * log2(e), or the softcap's
+      if (softcap > 0.f) {
+        const float inv_cap = 1.f / softcap;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          sc[i] = tanhf(sc[i] * scale * inv_cap) * softcap * LOG2E;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= sl2;
+      }
+      // masks only where the tile crosses the diagonal, the window's edge or Sk
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_qlo) ||
+                          (window > 0 && wg_qhi - k0 >= window);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+          bool keep = kpos < Sk;
+          if (causal) keep = keep && qpos >= kpos;
+          if (window > 0) keep = keep && (qpos - kpos) < window;
+          sc[i] = keep ? sc[i] : NEG;
+        }
+      }
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2f(sc[i] - m_run[r]);
+        if (masked && k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= Sk) p = 0.f;
+        l_run[r] += p;
+        sc[i] = p;
+      }
+      uint32_t pf[BK / 4];                        // P in bf16, the A operand of P.v
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) pf[i] = sm90::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P . v
+      sm90::mbar_wait(full_v + 8 * s, phase);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = sm90::desc_sw128(v_tile + kk * 16 * 128, BK * 128, 1024);
+        Wgmma<HD>::rs(acc, &pf[4 * kk], db);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(empty + 8 * s);
+    }
+
+    // epilogue: o = acc / max(l, 1e-30), one rounding to bf16
+    __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int qi = q0 + row0 + 8 * r;
+      if (qi >= Sq) continue;
+      const float den = fmaxf(l, 1e-30f);
+      __nv_bfloat16* orow = ob + qi * o_ss + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                   void* o, int B, int Sq, int Sk, int H, int G, long long o_sb,
+                   long long o_ss, long long o_sh, int causal, int window, float softcap,
+                   float scale, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  // the shared-memory opt-in, once per instantiation and device
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_tc_kernel<HD><<<grid, NT, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, G, o_sb, o_ss, o_sh,
+      causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
@@ -327,5 +630,36 @@ extern "C" int flash_attention_fwd(
     err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, s);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// bf16 only, head dim 64, 128 or 256. Strides are in elements; the last
+// dimension of every tensor must have stride 1, q, k and v must start on
+// 16 bytes and their other strides be multiples of 8 elements (TMA).
+extern "C" int flash_attention_fwd_tc(
+    const void* q, const void* k, const void* v, void* o,
+    int B, int Sq, int Sk, int H, int Kh, int hd,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    int causal, int window, float softcap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  const int bk = hd == 256 ? 64 : 128;
+  CUtensorMap tq, tk, tv;
+  int res = sm90::encode_bf16_4d(&tq, q, hd, H, Sq, B, q_sh, q_ss, q_sb, tc::BQ);
+  if (res == 0) res = sm90::encode_bf16_4d(&tk, k, hd, Kh, Sk, B, k_sh, k_ss, k_sb, bk);
+  if (res == 0) res = sm90::encode_bf16_4d(&tv, v, hd, Kh, Sk, B, v_sh, v_ss, v_sb, bk);
+  if (res != 0) return 10000 + res;
+  const int G = H / Kh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (hd) {
+    case 64: err = tc::launch<64>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    case 128: err = tc::launch<128>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    default: err = tc::launch<256>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+  }
   return static_cast<int>(err);
 }

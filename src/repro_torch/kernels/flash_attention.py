@@ -1,20 +1,31 @@
-"""Flash-attention forward: wrapper of the CUDA kernel and its plain version.
+"""Flash-attention forward: wrapper of two CUDA kernels, and its plain version.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::_kernel``
-(Pallas). The kernel is ``csrc/flash_attention.cu``: one CTA per
-(batch, head, 64-query tile), a loop over kv tiles inside it, k/v staged in
-shared memory, fp32 online softmax with m, l and acc in registers.
+(Pallas). ``csrc/flash_attention.cu`` holds two kernels of the same
+function, chosen by dtype and head dim alone (``kernel_for``):
+
+* ``"tc"`` — bf16 at head dims 64, 128, 256 (every full-width config with
+  attention): both products on the tensor cores (``wgmma``), k/v fed by TMA
+  into a two-stage shared-memory ring, the online softmax in registers,
+  P rounded to bf16 for P.v (outputs within about 2e-3, relative L2, of
+  the plain version's fp32 P).
+  TMA reads q, k and v in place, so each must start on 16 bytes and have
+  strides that are multiples of 16 bytes (``check_tma``); the wrapper
+  raises otherwise and never copies.
+* ``"fma"`` — fp32 at every head dim (the tensor cores would round it to
+  TF32) and bf16 at head dims 16 and 32 (only the smoke configs): the
+  first design, fp32 FMA loops out of shared memory.
 
 What bounds it on an H100: at long prefill, compute — ``4*B*H*Sq*Sk*hd``
 FLOP, about halved under the causal mask — against the bytes of q, k, v
-and o read or written once (a few hundred FLOP per byte at S=2048). This
-first kernel does that work as fp32 FMA loops out of shared memory, not on
-the tensor cores; it skips every kv tile that the mask rules out for a
-whole q tile. Its times against that bound are in PERF.md.
+and o read or written once (a few hundred FLOP per byte at S=2048). Both
+kernels skip every kv tile that the mask rules out for a whole q tile.
+Their times against that bound are in PERF.md.
 
-``flash_attention`` launches the kernel for CUDA tensors and counts the
-launch in the module-level integer ``launches``. For CPU tensors it runs
-``attention_plain``, a blocked online-softmax loop in fp32 that mirrors
+``flash_attention`` launches a kernel for CUDA tensors and counts the
+launch in the module-level integers ``launches_tc`` or ``launches_fma``
+and in ``launches``, their sum. For CPU tensors it runs ``attention_plain``,
+a blocked online-softmax loop in fp32 that mirrors
 ``repro/kernels/ops.py::_block``; nothing else chooses between the two.
 """
 from __future__ import annotations
@@ -25,10 +36,14 @@ import torch
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0          # kernel launches since the last reset by the caller
-_fn = None
+# kernel launches since the last reset by the caller; launches is the sum
+launches = 0
+launches_tc = 0
+launches_fma = 0
+_fns: dict = {}
 
 
 def _check(q, k, v):
@@ -50,6 +65,44 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def kernel_for(dtype, hd):
+    """The kernel that runs a CUDA call: "tc" or "fma"."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not among the kernel's {HEAD_DIMS}")
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+
+
+def tma_strides(t):
+    """Element strides of [B,S,H,hd] for a tensor map: a dimension of size 1
+    is never stepped, so its stride is taken as if the tensor were
+    contiguous there."""
+    out, inner = [], 1
+    for size, stride in zip(reversed(t.shape), reversed(t.stride())):
+        out.append(stride if size > 1 else inner)
+        inner *= size
+    return tuple(reversed(out))
+
+
+def check_tma(**tensors):
+    """Raise ValueError unless TMA can read every named [B,S,H,hd] tensor
+    in place: a 16-byte aligned start and strides that are multiples of 16
+    bytes, the last one 1."""
+    bad = []
+    for name, t in tensors.items():
+        eb = t.element_size()
+        if t.data_ptr() % 16:
+            bad.append(f"{name} does not start on 16 bytes "
+                       f"(address {t.data_ptr():#x})")
+        st = tma_strides(t)
+        if st[-1] != 1:
+            bad.append(f"{name} needs a unit stride in its last dim")
+        bad += [f"{name}'s stride {st[d]} in dim {d} is not a multiple of "
+                f"16 bytes" for d in range(3) if (st[d] * eb) % 16]
+    if bad:
+        raise ValueError("flash_attention (tensor-core kernel): "
+                         + "; ".join(bad))
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """q: [B,Sq,H,hd]; k,v: [B,Sk,Kh,hd] -> [B,Sq,H,hd] in q's dtype."""
@@ -63,41 +116,61 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     return _launch(q, k, v, causal, window, softcap, scale)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(route):
+    fn = _fns.get(route)
+    if fn is None:
         from repro_torch.kernels import _build
-        fn = _build.load("flash_attention").flash_attention_fwd
+        lib = _build.load("flash_attention")
         P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float)
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + \
-            [I, I, F, F, P]
+        if route == "tc":
+            fn = lib.flash_attention_fwd_tc
+            fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + \
+                [I, I, F, F, P]
+        else:
+            fn = lib.flash_attention_fwd
+            fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + \
+                [I, I, F, F, P]
         fn.restype = I
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return fn
 
 
 def _launch(q, k, v, causal, window, softcap, scale):
-    global launches
+    global launches, launches_tc, launches_fma
     B, Sq, H, hd = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not among the kernel's {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a unit stride in its last dim")
-    fn = _kernel()
+    route = kernel_for(q.dtype, hd)
+    if route == "tc":
+        check_tma(q=q, k=k, v=v)
+        strides = [s for t in (q, k, v) for s in tma_strides(t)[:3]]
+    else:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name} needs a unit stride in its last "
+                                 f"dim")
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    fn = _kernel(route)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    args = (*strides, *o.stride()[:3], int(bool(causal)), int(window),
+            float(softcap), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Kh, hd,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *o.stride()[:3], int(bool(causal)), int(window),
-                 float(softcap), float(scale), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        if route == "tc":
+            err = fn(*ptrs, B, Sq, Sk, H, Kh, hd, *args, stream)
+        else:
+            err = fn(*ptrs, _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Kh, hd,
+                     *args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        what = (f"tensor map error {err - 10000}" if err >= 10000 else
+                f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({route} kernel) launch "
+                           f"failed: {what}")
+    if route == "tc":
+        launches_tc += 1
+    else:
+        launches_fma += 1
     launches += 1
     return o
 

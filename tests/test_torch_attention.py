@@ -156,26 +156,47 @@ def test_attention_decode_vs_jax(J, case):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
+    """Each kernel against the plain version: the sweep's small shapes in
+    both dtypes and all variants, the two served prefill shapes in bf16
+    (deepseek-7b causal, recurrentgemma-9b MQA windowed at 2176 > 2048),
+    the kernel that ran each case counted by its own counter, and a q that
+    starts 2 bytes off 16 refused by the tensor-core kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = [(1, 128, 128, 4, 4, hd) for hd in fa.HEAD_DIMS] + \
-        [(2, 256, 256, 8, 2, 64), (1, 192, 192, 6, 1, 16),
-         (1, 100, 333, 8, 2, 128), (1, 333, 333, 4, 2, 64)]
-    for B, Sq, Sk, H, Kh, hd in cases:
+    cases = [((1, 128, 128, 4, 4, hd), d, v) for hd in fa.HEAD_DIMS
+             for d in ("f32", "bf16") for v in VARIANTS]
+    cases += [(s, d, v) for s in [(2, 256, 256, 8, 2, 64),
+                                  (1, 192, 192, 6, 1, 16),
+                                  (1, 100, 333, 8, 2, 128),
+                                  (1, 333, 333, 4, 2, 64)]
+              for d in ("f32", "bf16") for v in VARIANTS]
+    cases += [((1, 2048, 2048, 32, 32, 128), "bf16", "causal"),
+              ((1, 2176, 2176, 16, 1, 256), "bf16", "window2048")]
+    for (B, Sq, Sk, H, Kh, hd), dname, variant in cases:
         arrs = _qkv_np(7, B, Sq, Sk, H, Kh, hd)
-        for dname in ("f32", "bf16"):
-            tdt = DTYPES[dname][0]
-            q, k, v = [torch.from_numpy(a).to("cuda", tdt) for a in arrs]
-            for variant in VARIANTS:
-                kw = _kw(variant, Sk)
-                before = fa.launches
-                got = fa.flash_attention(q, k, v, **kw)
-                torch.cuda.synchronize()
-                assert fa.launches == before + 1
-                want = fa.attention_plain(q, k, v, **kw)
-                np.testing.assert_allclose(
-                    got.float().cpu().numpy(), want.float().cpu().numpy(),
-                    **_tol(dname),
-                    err_msg=f"{(B, Sq, Sk, H, Kh, hd)} {dname} {variant}")
+        tdt = DTYPES[dname][0]
+        q, k, v = [torch.from_numpy(a).to("cuda", tdt) for a in arrs]
+        kw = (dict(causal=True, window=2048) if variant == "window2048"
+              else _kw(variant, Sk))
+        route = fa.kernel_for(tdt, hd)
+        before = (fa.launches, fa.launches_tc, fa.launches_fma)
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.launches == before[0] + 1
+        assert (fa.launches_tc - before[1], fa.launches_fma - before[2]) \
+            == ((1, 0) if route == "tc" else (0, 1))
+        want = fa.attention_plain(q, k, v, **kw)
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want.float().cpu().numpy(),
+            **_tol(dname), err_msg=f"{(B, Sq, Sk, H, Kh, hd)} {dname} "
+            f"{variant} ({route})")
+    flat = torch.zeros(128 * 4 * 128 + 8, dtype=torch.bfloat16,
+                       device="cuda")
+    q = flat[1:1 + 128 * 4 * 128].view(1, 128, 4, 128)
+    k = torch.zeros((1, 128, 4, 128), dtype=torch.bfloat16, device="cuda")
+    before = fa.launches
+    with pytest.raises(ValueError, match="q does not start on 16 bytes"):
+        fa.flash_attention(q, k, k)
+    assert fa.launches == before
