@@ -18,21 +18,26 @@ Phases, in order (any failure exits non-zero and prints no result line):
              FMA ``fma``) and fails if a bf16 case at head dim >= 64 ran
              the FMA kernel,
              ``sweep-ssd`` the SSD scan (y and h_final, with and without D
-             and h0, a two-halves state carry), ``sweep-rglru`` the RG-LRU
-             scan (the same, ragged D and S among its shapes).
- 4. timing — each kernel at the main paths' shapes (CUDA events), beside its
-             plain version, a library yardstick where one PyTorch call
+             and h0, a two-halves state carry; its cases counted by kernel,
+             tensor-core ``tc`` or FMA ``fma``, and failing if a case ran
+             another kernel than ``ssd.kernel_for`` names, so the served
+             bf16 P=64, N=128 shape must run ``tc``), ``sweep-rglru`` the
+             RG-LRU scan (the same, ragged D and S among its shapes).
+ 4. timing — each kernel at the main paths' shapes (the device's time:
+             CUDA events around calls queued behind a spin kernel), beside
+             its plain version, a library yardstick where one PyTorch call
              computes the same function, and the card's bound (``timing``,
-             ``timing-ssd``, ``timing-rglru``); ``timing`` also gives the
-             flash kernel's TFLOP/s, share of the bound, ratio to SDPA,
-             the host's time to issue a call beside the device's time
-             for it, and times the fp32 FMA flash kernel at deepseek-7b's
-             shape.
+             ``timing-ssd``, ``timing-rglru``), with the share of the bound
+             and the host's time to issue a call beside the device's time
+             for it; ``timing`` also gives the flash kernel's TFLOP/s and
+             ratio to SDPA, and times the fp32 FMA flash kernel at
+             deepseek-7b's shape.
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
              set to 0 just before and read just after, and must equal one
              launch per layer and prefill of each layer's kernel (every
-             flash launch on the tensor-core kernel, none on the FMA one):
+             flash and SSD launch on the tensor-core kernel, none on the
+             FMA one):
              deepseek-7b (30 layers, d_model 4096, 32x128 heads, d_ff
              11008, vocab 102400) through the flash attention, then
              ``serve-mamba``: mamba2-2.7b (64 Mamba-2 layers, d_model 2560,
@@ -127,19 +132,47 @@ def nvidia_smi():
         return f"nvidia-smi unavailable: {e}"
 
 
+SPIN_CYCLES = 20_000_000        # about 10 ms of a spin kernel on an H100
+
+
 def time_ms(fn, iters, warmup=3):
+    """The device's time per call of ``fn``: CUDA events around ``iters``
+    calls queued behind a spin kernel, so that the host's time to issue
+    them does not enter (a host slower than the kernel would otherwise set
+    the reading). The spin doubles, up to 16 times, until it outlasts the
+    issuing."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    spin = SPIN_CYCLES
+    while True:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        covered = not t0.query()
+        t1.record()
+        torch.cuda.synchronize()
+        if covered or spin >= 16 * SPIN_CYCLES:
+            return t0.elapsed_time(t1) / iters
+        spin *= 2
+
+
+def host_ms(fn, iters):
+    """The host's time to issue one call of ``fn``: the wall time of
+    ``iters`` calls queued without a sync, per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    t1.record()
+    h1 = time.perf_counter()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return (h1 - h0) / iters * 1e3
 
 
 def rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dtype):
@@ -275,30 +308,6 @@ FLASH_TIMING = (("deepseek", 128, 32, 32, 128, 0),
                 ("deepseek", 512, 32, 32, 128, 0),
                 ("deepseek", 2048, 32, 32, 128, 0),
                 ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
-SPIN_CYCLES = 20_000_000        # about 10 ms of a spin kernel on an H100
-
-
-def host_device_ms(fn, iters):
-    """Per call of ``fn``: the host's time to issue it (wall time of
-    ``iters`` calls queued without a sync) and the device's time for it
-    (CUDA events around the same calls, queued behind a spin kernel so that
-    no host gap falls between them), and whether the spin outlasted the
-    issuing, which the device time needs."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    t0.record()
-    h0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    h1 = time.perf_counter()
-    covered = not t0.query()
-    t1.record()
-    torch.cuda.synchronize()
-    return (h1 - h0) / iters * 1e3, t0.elapsed_time(t1) / iters, covered
 
 
 def phase_timing():
@@ -323,7 +332,7 @@ def phase_timing():
         plain_ms = time_ms(plain, max(iters // 4, 3))
         lib_ms = time_ms(lib, iters)
         ms2 = time_ms(kern, iters)
-        host_ms, device_ms, covered = host_device_ms(kern, iters)
+        host = host_ms(kern, iters)
         bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True,
                                                     Kh=Kh, window=window)
         shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
@@ -335,8 +344,7 @@ def phase_timing():
                    tflops=flops / (ms * 1e-3) / 1e12)
         row.update(kernel=fa.kernel_for(q.dtype, hd),
                    share_of_bound=bound_ms / ms, vs_sdpa=ms / lib_ms,
-                   host_ms_per_call=host_ms, device_ms=device_ms,
-                   device_ms_queued=covered)
+                   host_ms_per_call=host)
         rows.append(row)
         log(f"timing {shape} bf16 causal window={window} ({row['kernel']} "
             f"kernel): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
@@ -344,9 +352,8 @@ def phase_timing():
             f"({bound_by}), {row['tflops']:.2f} TFLOP/s, "
             f"{100 * row['share_of_bound']:.2f}% of the bound, "
             f"{row['vs_sdpa']:.3f}x SDPA's time, kernel-plain max abs err "
-            f"{err:.3e}, kernel-SDPA {lib_err:.3e}; host {host_ms:.4f} ms "
-            f"per call, device {device_ms:.4f} ms per call with the queue "
-            f"full ({'held' if covered else 'NOT held: the host was slower'})")
+            f"{err:.3e}, kernel-SDPA {lib_err:.3e}; the host takes "
+            f"{host:.4f} ms to issue a call")
     rows.append(timing_fma_fp32())
     return rows
 
@@ -420,32 +427,44 @@ def phase_sweep_ssd():
               (1, 72, 2, 8, 1, 8),                           # ragged S
               (2, 100, 4, 32, 2, 16),                        # ragged, G=2
               (3, 1, 4, 16, 1, 16),                          # one token
-              (1, 333, 8, 64, 1, 128)]                       # ragged, N=128
+              (1, 333, 8, 64, 1, 128),                       # ragged, N=128
+              (2, 256, 6, 64, 3, 16),                        # G=3, N=16
+              (1, 129, 4, 16, 2, 128)]                       # one row past Q
     variants = {"none": (), "D": ("D",), "h0": ("h0",), "D+h0": ("D", "h0")}
     cases = [(s, dt, v) for s in shapes
              for dt in (torch.float32, torch.bfloat16) for v in variants]
     cases += [((1, S, 80, 64, 1, 128), torch.bfloat16, "D")
               for S in PROMPT_LENS]            # the main path's prefills
     bad, worst = [], {}
+    ran = {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
         x, dtv, al, bm, cm, d, h0 = rand_ssd(seed, *shape, dt)
         kw = {k: {"D": d, "h0": h0}[k] for k in variants[var]}
+        before = ssd_counts()
         got = ssd.ssd_scan(x, dtv, al, bm, cm, **kw)
         torch.cuda.synchronize()
+        kern = [n for n, c in ssd_counts().items() if c > before[n]]
+        assert len(kern) == 1, (before, ssd_counts())
+        kern = kern[0]
+        ran[kern] += 1
         want = ssd.ssd_plain(x, dtv, al, bm, cm, **kw)
         name = str(dt).split(".")[-1]
         ok, errs = _pair_ok(name, got, want, SSD_TOL)
+        # the tensor cores must run the served shape (P=64, N=128, bf16)
+        right_kernel = kern == ssd.kernel_for(dt, shape[3], shape[5]) and \
+            (kern == "tc" or shape[3:] != (64, 1, 128) or name != "bfloat16")
+        ok = ok and right_kernel
         for label, (err, rel) in errs.items():
-            worst[f"{name}_{label}"] = max(worst.get(f"{name}_{label}", 0.0),
-                                           err)
-            worst[f"{name}_{label}_rel_l2"] = max(
-                worst.get(f"{name}_{label}_rel_l2", 0.0), rel)
-        log(f"sweep-ssd {shape} {name:8s} {var:5s} y max_abs_err="
+            key = f"{name}_{kern}_{label}"
+            worst[key] = max(worst.get(key, 0.0), err)
+            worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
+        log(f"sweep-ssd {shape} {name:8s} {var:5s} {kern:3s} y max_abs_err="
             f"{errs['y'][0]:.3e} rel_l2={errs['y'][1]:.3e}, h max_abs_err="
             f"{errs['h'][0]:.3e} rel_l2={errs['h'][1]:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'ok' if ok else 'FAIL'}"
+            f"{'' if right_kernel else ' (wrong kernel)'}")
         if not ok:
-            bad.append((shape, name, var))
+            bad.append((shape, name, var, kern))
     # two halves, the state carried by the kernel across a ragged split
     halves = (torch.float32, torch.bfloat16)
     for dt in halves:
@@ -466,7 +485,8 @@ def phase_sweep_ssd():
             bad.append(("two halves", name))
     n = len(cases) + len(halves)
     log(f"sweep-ssd: {n - len(bad)}/{n} cases within "
-        f"tolerance; worst errors {json.dumps(worst)}")
+        f"tolerance; cases by kernel {json.dumps(ran)} (two halves not "
+        f"counted); worst errors {json.dumps(worst)}")
     if bad:
         raise AssertionError(f"SSD kernel disagrees with its plain version: "
                              f"{bad}")
@@ -502,18 +522,22 @@ def phase_timing_ssd():
         ms = time_ms(kern, iters)
         plain_ms = time_ms(plain, max(iters // 4, 3))
         ms2 = time_ms(kern, iters)
+        host = host_ms(kern, iters)
         bound_ms, bound_by, flops, nbytes = ssd_bound(*shape, 2)
-        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+        row = dict(S=S, kernel=ssd.kernel_for(x.dtype, 64, 128), ms=ms,
+                   ms_repeat=ms2, plain_ms=plain_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    flops=flops, bytes=nbytes, max_abs_err=err,
-                   tflops=flops / (ms * 1e-3) / 1e12)
+                   tflops=flops / (ms * 1e-3) / 1e12,
+                   share_of_bound=bound_ms / ms, host_ms_per_call=host)
         rows.append(row)
-        log(f"timing-ssd [1,{S},80,64] bf16 N=128 with D: kernel {ms:.4f} ms "
-            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, no library call "
-            f"computes SSD, bound {bound_ms:.5f} ms ({bound_by}; "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        log(f"timing-ssd [1,{S},80,64] bf16 N=128 with D ({row['kernel']} "
+            f"kernel): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
+            f"ms, no library call computes SSD, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+            f"{100 * row['share_of_bound']:.2f}% of the bound, "
             f"{row['tflops']:.2f} TFLOP/s, kernel-plain y max abs err "
-            f"{err:.3e}")
+            f"{err:.3e}; the host takes {host:.4f} ms to issue a call")
     return rows
 
 
@@ -613,17 +637,24 @@ def phase_timing_rglru():
         ms = time_ms(kern, iters)
         plain_ms = time_ms(plain, max(iters // 4, 3))
         ms2 = time_ms(kern, iters)
+        host = host_ms(kern, iters)
         bound_ms, bound_by, ops, nbytes = rglru_bound(1, S, 4096, 2)
-        row = dict(S=S, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+        T = rglru.CHUNK_STEPS
+        row = dict(S=S, chunk_steps=T, ms=ms, ms_repeat=ms2,
+                   plain_ms=plain_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    ops=ops, bytes=nbytes, max_abs_err=err,
-                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+                   gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+                   share_of_bound=bound_ms / ms, host_ms_per_call=host)
         rows.append(row)
-        log(f"timing-rglru [1,{S},4096] bf16: kernel {ms:.4f} ms (again "
-            f"{ms2:.4f}), plain {plain_ms:.4f} ms, no library call computes "
-            f"RG-LRU, bound {bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.2f}"
-            f" MB, {ops / 1e9:.3f} G fp32 ops), {row['gb_per_s']:.1f} GB/s, "
-            f"kernel-plain y max abs err {err:.3e}")
+        log(f"timing-rglru [1,{S},4096] bf16 (chunks of {T} steps): kernel "
+            f"{ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, no "
+            f"library call computes RG-LRU, bound {bound_ms:.5f} ms "
+            f"({bound_by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G fp32 "
+            f"ops), {row['gb_per_s']:.1f} GB/s, "
+            f"{100 * row['share_of_bound']:.2f}% of the bound, kernel-plain "
+            f"y max abs err {err:.3e}; the host takes {host:.4f} ms to issue "
+            f"a call")
     return rows
 
 
@@ -667,11 +698,18 @@ def flash_counts():
     return {"tc": fa.launches_tc, "fma": fa.launches_fma}
 
 
+def ssd_counts():
+    """SSD launches by kernel: tensor-core and FMA."""
+    from repro_torch.kernels import ssd
+    return {"tc": ssd.launches_tc, "fma": ssd.launches_fma}
+
+
 def reset_kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, ssd
     fa.launches = fa.launches_tc = fa.launches_fma = 0
-    ssd.launches = rglru.launches = 0
+    ssd.launches = ssd.launches_tc = ssd.launches_fma = 0
+    rglru.launches = 0
 
 
 def serve(eng, reqs, timings=None, hand_off=None):
@@ -755,12 +793,15 @@ def phase_serve(lm):
     wall = time.perf_counter() - t0
     launches = kernel_counts()
     flash = flash_counts()
+    ssd_by = ssd_counts()
     peak = torch.cuda.max_memory_allocated()
     assert all(len(s) == MAX_NEW for s in streams), [len(s) for s in streams]
     want = expected_launches(cfg, len(prompts))
     assert launches == want, (launches, want)
     # every served flash launch ran on the tensor cores
     assert flash == {"tc": want["flash_attention_fwd"], "fma": 0}, flash
+    # ... and every served SSD launch
+    assert ssd_by == {"tc": want["ssd_scan"], "fma": 0}, ssd_by
     assert timings["decode_launches"] == 0, timings["decode_launches"]
     for n, dt in timings["prefill"]:
         log(f"{label}: prefill S={n:5d} {dt * 1e3:.3f} ms")
@@ -771,8 +812,8 @@ def phase_serve(lm):
         f"per step, {dec_tok / dec_s:.1f} tokens/s decoded; "
         f"{len(prompts)} requests in {wall:.2f} s; peak allocated "
         f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}, flash "
-        f"by kernel {json.dumps(flash)} ({timings['decode_launches']} in "
-        f"decode steps)")
+        f"by kernel {json.dumps(flash)}, SSD by kernel {json.dumps(ssd_by)} "
+        f"({timings['decode_launches']} in decode steps)")
     for r in reqs:
         log(f"{label}: request {r.rid} (S={len(r.prompt)}) -> {r.out}")
     summary = dict(
@@ -780,7 +821,7 @@ def phase_serve(lm):
         decode_ms_per_step=dec_s / len(dec) * 1e3, decode_steps=len(dec),
         decode_tokens_per_s=dec_tok / dec_s, wall_s=wall,
         peak_allocated_gib=peak / 2**30, launches=launches,
-        flash_launches_by_kernel=flash)
+        flash_launches_by_kernel=flash, ssd_launches_by_kernel=ssd_by)
     return streams, launches, summary
 
 
@@ -1103,7 +1144,8 @@ def phase_logits_scan(lm):
     return out
 
 
-PORT_KERNELS = re.compile(r"(flash_fwd|ssd_fwd|rglru_fwd)\w*kernel<[^>]*>")
+PORT_KERNELS = re.compile(
+    r"(flash_fwd|ssd_fwd|rglru_fwd)\w*kernel(<[^>]*>)?")
 
 
 def phase_profile(lm):
@@ -1272,6 +1314,24 @@ def main():
                                    "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
                 for r in timing]
+        if kname == "ssd_scan":
+            entry["design"] = (
+                "bf16 at P 16/32/64, N 16/128: three tensor-core kernels "
+                "over 128-row chunks (chunk states (w o x)^T.B by wgmma, a "
+                "sequential fp32 state pass, outputs C.h_in and the "
+                "decay-masked C.B^T times x by wgmma, blocks above the "
+                "diagonal skipped), TMA tiles; fp32 and bf16 at P or N = 8: "
+                "ssd_fwd_kernel, fp32 FMA, chunks in order")
+            entry["launches_by_kernel"] = {
+                k: sum(p[2]["ssd_launches_by_kernel"][k]
+                       for p in paths.values()) for k in ("tc", "fma")}
+        if kname == "rglru_scan":
+            entry["design"] = (
+                "time split across CTAs in one pass: chunks of 32 steps "
+                "taken by ticket compute their gates once into shared "
+                "memory and their carry (prod a, h) from h=0, publish it, "
+                "fold the carries before them by a decoupled look-back and "
+                "rerun from shared memory, writing y; fp32 throughout")
         kernels.append(entry)
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
                     "timing_rglru": timing_rglru,

@@ -55,6 +55,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Named barriers (ids 1..15; 0 is __syncthreads): `threads` counts every
+// thread that arrives, those that wait included. The id is a constant, so
+// ptxas reserves only the barriers a kernel names.
+template <int ID>
+__device__ __forceinline__ void named_sync(uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "r"(threads) : "memory");
+}
+
+template <int ID>
+__device__ __forceinline__ void named_arrive(uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "r"(threads) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // Copy one box of a 4-D tensor map into shared memory at `dst`; completion
@@ -68,6 +81,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of contiguous global memory at `src` (on 16
+// bytes) into shared memory at `dst`; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

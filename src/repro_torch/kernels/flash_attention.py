@@ -73,9 +73,10 @@ def kernel_for(dtype, hd):
 
 
 def tma_strides(t):
-    """Element strides of [B,S,H,hd] for a tensor map: a dimension of size 1
-    is never stepped, so its stride is taken as if the tensor were
-    contiguous there."""
+    """Element strides of a 4-D tensor ([B,S,H,hd] here, [b,S,H,P] or
+    [b,S,G,N] in the SSD scan) for a tensor map: a dimension of size 1 is
+    never stepped, so its stride is taken as if the tensor were contiguous
+    there."""
     out, inner = [], 1
     for size, stride in zip(reversed(t.shape), reversed(t.stride())):
         out.append(stride if size > 1 else inner)
@@ -83,10 +84,10 @@ def tma_strides(t):
     return tuple(reversed(out))
 
 
-def check_tma(**tensors):
-    """Raise ValueError unless TMA can read every named [B,S,H,hd] tensor
-    in place: a 16-byte aligned start and strides that are multiples of 16
-    bytes, the last one 1."""
+def check_tma(who="flash_attention", /, **tensors):
+    """Raise ValueError unless TMA can read every named 4-D tensor in
+    place: a 16-byte aligned start and strides that are multiples of 16
+    bytes, the last one 1. ``who`` names the caller in the message."""
     bad = []
     for name, t in tensors.items():
         eb = t.element_size()
@@ -99,8 +100,7 @@ def check_tma(**tensors):
         bad += [f"{name}'s stride {st[d]} in dim {d} is not a multiple of "
                 f"16 bytes" for d in range(3) if (st[d] * eb) % 16]
     if bad:
-        raise ValueError("flash_attention (tensor-core kernel): "
-                         + "; ".join(bad))
+        raise ValueError(f"{who} (tensor-core kernel): " + "; ".join(bad))
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

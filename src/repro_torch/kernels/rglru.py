@@ -2,20 +2,26 @@
 
 Replaces the TPU kernel ``src/repro/kernels/rglru.py::_kernel`` (Pallas;
 grid (B, feature block, time chunk) with the time axis run in order and
-``h`` carried in VMEM scratch). The kernel is ``csrc/rglru.cu``: one thread
-per (b, feature lane) walks the whole sequence with ``h`` in a register,
-the gates fused into the walk, so the decay never goes to device memory.
+``h`` carried in VMEM scratch). The kernel is ``csrc/rglru.cu``: the
+recurrence is linear, so time is split into chunks of T steps across CTAs,
+in one pass with a decoupled look-back. Each CTA computes its chunk's gates
+once into shared memory and its carry ``(prod a_t, h)`` from ``h = 0``,
+publishes the carry, folds the carries of the chunks before it (from the
+nearest one whose end state is published, or from ``h0``), publishes its own
+end state and reruns the chunk from shared memory to write y (and, in the
+last chunk, ``h_final``). CTAs take their chunks by ticket, in order, so a
+wait is always on a CTA that already runs. This wrapper allocates the
+scratch: the zeroed tickets and flags, and the carries and end states.
 
 What bounds it on an H100: bytes. x, gate_a and gate_x are read once and y
 is written once (67 MB at ``[1,2048,4096]`` in bf16); the gate arithmetic
 is some tens of FLOP per lane and step, far below the card's ~295
-FLOP/byte ridge. This first kernel has only B*D threads (4096 at the
-recurrentgemma-9b prefill shape, 32 CTAs on 132 SMs), each walking S
-dependent steps; it keeps several time rows of loads in flight to hide
-their latency. Its times against the bound are in PERF.md.
+FLOP/byte ridge. The time split reads them once too, and runs
+``B * ceil(D/128) * ceil(S/T)`` CTAs instead of ``B * ceil(D/128)``
+(T = ``CHUNK_STEPS``). Its times against the bound are in PERF.md.
 
-``rglru_scan`` launches the kernel for CUDA tensors and counts the launch
-in the module-level integer ``launches``. For CPU tensors it runs
+``rglru_scan`` launches the kernel for CUDA tensors and counts the call in
+the module-level integer ``launches``. For CPU tensors it runs
 ``rglru_plain``, the reference's blocked path
 (``repro/kernels/ops.py::rglru``) in plain tensor ops; nothing else chooses
 between the two.
@@ -31,6 +37,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # kernel launches since the last reset by the caller
 _fn = None
+LANES = 128           # feature lanes per CTA (csrc/rglru.cu NT)
+# time steps per chunk: 2048 CTAs of LANES lanes at [1,2048,4096]; on an
+# H100, 16 read alike there and 64 slower (PERF.md)
+CHUNK_STEPS = 32
 
 
 def _check(x, a_log, gate_a, gate_x, h0):
@@ -69,7 +79,7 @@ def _kernel():
         from repro_torch.kernels import _build
         fn = _build.load("rglru").rglru_fwd
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 7 + [I] * 4 + [L] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 9 + [I] * 5 + [L] * 8 + [ctypes.c_float, P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -86,11 +96,20 @@ def _launch(x, a_log, gate_a, gate_x, c, h0):
     h0 = h0.float().contiguous() if h0 is not None else None
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     hT = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    T = CHUNK_STEPS
+    chunks = -(-S // T)
+    # the kernel's scratch: a ticket and a flag per CTA, zeroed; per chunk
+    # and lane its carry (prod a, h) and the state after it
+    sync = torch.zeros(1 + B * -(-D // LANES) * chunks, dtype=torch.int32,
+                       device=x.device)
+    carries = torch.empty(3 * B * chunks * D, dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), a_log.data_ptr(), gate_a.data_ptr(),
                  gate_x.data_ptr(), h0.data_ptr() if h0 is not None else None,
-                 y.data_ptr(), hT.data_ptr(), _DTYPE_CODE[x.dtype], B, S, D,
+                 y.data_ptr(), hT.data_ptr(), sync.data_ptr(),
+                 carries.data_ptr(), _DTYPE_CODE[x.dtype], B, S, D, T,
                  *x.stride()[:2], *gate_a.stride()[:2],
                  *gate_x.stride()[:2], *y.stride()[:2], c, stream)
     if err != 0:

@@ -1,26 +1,48 @@
-"""Mamba-2 chunked SSD scan: wrapper of the CUDA kernel and its plain version.
+"""Mamba-2 chunked SSD scan: wrapper of its CUDA kernels and its plain version.
 
 Replaces the TPU kernel ``src/repro/kernels/ssd.py::_kernel`` (Pallas; grid
 (b, head, chunk) with the chunk axis run in order and the ``[P,N]`` state in
-VMEM scratch). The kernel is ``csrc/ssd.cu``: one CTA per (b, head, 32-wide
-block of P) loops over 64-row chunks itself and carries its rows of the
-state in fp32, with B, C, x and the decay-masked ``[64,64]`` score tile in
-shared memory. The D skip is added inside the kernel, so y is rounded to
-x's dtype once.
+VMEM scratch). ``csrc/ssd.cu`` holds two designs of the same function,
+chosen by dtype, P and N alone (``kernel_for``):
+
+* ``"tc"`` — bf16 at P in {16, 32, 64} and N in {16, 128} (the served
+  mamba2-2.7b: P=64, N=128): the chunk-parallel form on the tensor cores,
+  two kernels on one stream over chunks of 128 rows. The first walks each
+  (b, head, 64-wide block of N) through its chunks with two warpgroups:
+  each chunk's own state contribution ``(w o x)^T . B`` is a ``wgmma``,
+  the two warpgroups' products run at once, and only the fp32 recurrence
+  ``h_in[c+1] = exp(La_last) h_in[c] + S_c`` passes between them; it
+  writes every ``h_in[c]`` in bf16. The second runs every (b, head, chunk)
+  at once: ``C . h_in^T`` and the decay-masked ``C . B^T`` as SS
+  ``wgmma``, the masked block times x as an RS ``wgmma``, blocks above the
+  diagonal skipped. x, B, C and h_in come in by TMA, so x, B and C must
+  start on 16 bytes and have strides in multiples of 16 bytes
+  (``check_tma``); the wrapper raises otherwise and never copies. It
+  allocates the kernels' scratch (per chunk its entering state in bf16 and
+  its La, dt and decay factors: 23 MB at ``[1,2048,80,64]``, N=128) with
+  ``torch.empty``.
+* ``"fma"`` — fp32 at every size (the tensor cores would round it to TF32)
+  and bf16 at P or N = 8: the first design, one CTA per (b, head, 32-wide
+  block of P) looping over 64-row chunks with its state rows in fp32
+  registers and fp32 FMA products out of shared memory.
+
+Both add the D skip inside, so y is rounded to x's dtype once.
 
 What bounds it on an H100: the least arithmetic the function needs, that
-of the plain recurrence (about ``4NP`` FLOP per row and head; a chunked
-form of Q rows adds about ``Q(N+P)``), is some 117 FLOP per byte moved at
-the mamba2-2.7b prefill shape (P=64, N=128), below the card's ~295 ridge,
-so bytes set the bound: 46 MB at S=2048. This first kernel does its work
-as fp32 FMA loops out of shared memory, not on the tensor cores, and
-computes the masked half of each score tile. Its times against the bound
-are in PERF.md.
+of the plain recurrence (about ``4NP`` FLOP per row and head), is some 117
+FLOP per byte moved at the mamba2-2.7b prefill shape (P=64, N=128), below
+the card's ~295 ridge, so bytes set the bound: 46 MB at S=2048. The
+tensor-core design moves some 130 MB there (x read by both blocks of N and
+by the outputs, h_in written and read in bf16), is bound by latency more
+than by either, and rounds ``w o x``, the masked score blocks and h_in to
+bf16 for the tensor cores (about 2e-3 relative L2 on y). Its times against
+the bound are in PERF.md.
 
-``ssd_scan`` launches the kernel for CUDA tensors and counts the launch in
-the module-level integer ``launches``. For CPU tensors it runs
-``ssd_plain``, the reference's blocked path (``repro/kernels/ops.py::ssd``)
-in plain tensor ops; nothing else chooses between the two.
+``ssd_scan`` launches a kernel for CUDA tensors and counts the launch in
+the module-level integers ``launches_tc`` or ``launches_fma`` and in
+``launches``, their sum. For CPU tensors it runs ``ssd_plain``, the
+reference's blocked path (``repro/kernels/ops.py::ssd``) in plain tensor
+ops; nothing else chooses between the two.
 """
 from __future__ import annotations
 
@@ -29,12 +51,20 @@ import math
 
 import torch
 
-P_SIZES = (8, 16, 32, 64)     # head dims (P) the kernel takes
-N_SIZES = (8, 16, 128)        # state sizes (N) the kernel takes
+from repro_torch.kernels.flash_attention import check_tma, tma_strides
+
+P_SIZES = (8, 16, 32, 64)     # head dims (P) the kernels take
+N_SIZES = (8, 16, 128)        # state sizes (N) the kernels take
+TC_P_SIZES = (16, 32, 64)     # ... of them, the tensor-core design's
+TC_N_SIZES = (16, 128)
+TC_CHUNK = 128                # rows per chunk of the tensor-core design
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0          # kernel launches since the last reset by the caller
-_fn = None
+# kernel launches since the last reset by the caller; launches is the sum
+launches = 0
+launches_tc = 0
+launches_fma = 0
+_fns: dict = {}
 
 
 def _check(x, dt, A_log, B, C, D, h0):
@@ -65,6 +95,15 @@ def _check(x, dt, A_log, B, C, D, h0):
         raise ValueError(f"SSD inputs must lie on one device, got {devs}")
 
 
+def kernel_for(dtype, P, N):
+    """The kernel that runs a CUDA call: "tc" or "fma"."""
+    if P not in P_SIZES or N not in N_SIZES:
+        raise ValueError(f"head dim P={P} / state N={N} not among the "
+                         f"kernels' {P_SIZES} / {N_SIZES}")
+    return "tc" if (dtype == torch.bfloat16 and P in TC_P_SIZES
+                    and N in TC_N_SIZES) else "fma"
+
+
 def ssd_scan(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256):
     """x: [b,S,H,P]; dt: [b,S,H] fp32; A_log: [H]; B, C: [b,S,G,N];
     D: [H] or None; h0: [b,H,P,N] or None.
@@ -72,7 +111,8 @@ def ssd_scan(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256):
 
     ``chunk`` blocks only the plain version (CPU tensors). The function is
     the same for any blocking, as the reference's own gcd rule shows; the
-    kernel blocks by 64 rows and masks the ragged tail."""
+    kernels block by 128 (``tc``) or 64 (``fma``) rows and mask the ragged
+    tail."""
     _check(x, dt, A_log, B, C, D, h0)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A_log, B, C, D=D, h0=h0, chunk=chunk)
@@ -81,44 +121,70 @@ def ssd_scan(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256):
     return _launch(x, dt, A_log, B, C, D, h0)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(route):
+    fn = _fns.get(route)
+    if fn is None:
         from repro_torch.kernels import _build
-        fn = _build.load("ssd").ssd_scan_fwd
+        lib = _build.load("ssd")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 9 + [I] * 7 + [L] * 15 + [P]
+        if route == "tc":
+            fn = lib.ssd_scan_fwd_tc
+            fn.argtypes = [P] * 10 + [I] * 6 + [L] * 15 + [P]
+        else:
+            fn = lib.ssd_scan_fwd
+            fn.argtypes = [P] * 9 + [I] * 7 + [L] * 15 + [P]
         fn.restype = I
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return fn
 
 
 def _launch(x, dt, A_log, B, C, D, h0):
-    global launches
+    global launches, launches_tc, launches_fma
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    if P not in P_SIZES or N not in N_SIZES:
-        raise ValueError(f"head dim P={P} / state N={N} not among the "
-                         f"kernel's {P_SIZES} / {N_SIZES}")
+    route = kernel_for(x.dtype, P, N)
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride in its last dim")
-    fn = _kernel()
+    if route == "tc":
+        check_tma("ssd_scan", x=x, B=B, C=C)
+        strides = [s for t in (x, B, C) for s in tma_strides(t)[:3]]
+    else:
+        strides = [s for t in (x, B, C) for s in t.stride()[:3]]
+    xs, Bs, Cs = strides[:3], strides[3:6], strides[6:]
+    fn = _kernel(route)
     A_log = A_log.float().contiguous()
     D = D.float().contiguous() if D is not None else None
     h0 = h0.float().contiguous() if h0 is not None else None
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     hT = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr() if D is not None else None,
+            h0.data_ptr() if h0 is not None else None, y.data_ptr(),
+            hT.data_ptr())
+    rest = (*xs, *dt.stride(), *Bs, *Cs, *y.stride()[:3])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), D.data_ptr() if D is not None else None,
-                 h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                 hT.data_ptr(), _DTYPE_CODE[x.dtype], b, S, H, G, P, N,
-                 *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-                 *C.stride()[:3], *y.stride()[:3], stream)
+        if route == "tc":
+            # the kernels' scratch: per chunk its entering state in bf16,
+            # then its La, dt and decay factors in fp32
+            nc = -(-S // TC_CHUNK)
+            scratch = torch.empty(b * H * nc * (2 * P * N + 12 * TC_CHUNK),
+                                  dtype=torch.uint8, device=x.device)
+            err = fn(*ptrs, scratch.data_ptr(), b, S, H, G, P, N, *rest,
+                     stream)
+        else:
+            err = fn(*ptrs, _DTYPE_CODE[x.dtype], b, S, H, G, P, N, *rest,
+                     stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
+        what = (f"tensor map error {err - 10000}" if err >= 10000 else
+                f"CUDA error {err}")
+        raise RuntimeError(f"ssd_scan ({route} kernel) launch failed: "
+                           f"{what}")
+    if route == "tc":
+        launches_tc += 1
+    else:
+        launches_fma += 1
     launches += 1
     return y, hT
 

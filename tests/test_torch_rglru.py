@@ -194,7 +194,10 @@ def test_wrapper_rejects_what_kernel_cannot_take():
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    cases = SHAPES + [(1, 333, 100), (3, 1, 48), (1, 2048, 4096)]
+    # the time split: one chunk, ragged last chunks, many chunks and lane
+    # blocks (chunks of rglru.CHUNK_STEPS steps)
+    cases = SHAPES + [(1, 333, 100), (3, 1, 48), (1, 2048, 4096),
+                      (2, 1000, 300), (1, 2176, 4096)]
     for B, S, D in cases:
         arrs = _np_in(8, B, S, D)
         for dname in ("f32", "bf16"):

@@ -198,25 +198,52 @@ def test_wrapper_rejects_what_kernel_cannot_take():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version():
+    """Both routes: bf16 at P in {16, 32, 64} and N in {16, 128} on the
+    tensor-core kernels, the rest on the FMA kernel; each launch counted
+    under its route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     cases = [s[:6] for s in SSD_SHAPES] + [(1, 333, 8, 64, 1, 128),
                                            (2, 100, 4, 32, 2, 16),
-                                           (3, 1, 4, 16, 1, 16)]
+                                           (3, 1, 4, 16, 1, 16),
+                                           (1, 257, 6, 64, 3, 16),
+                                           (1, 2048, 80, 64, 1, 128)]
     for B, S, H, P, G, N in cases:
         arrs = _ssd_np(8, B, S, H, P, G, N)
         for dname in ("f32", "bf16"):
             x, dt, al, bm, cm, d = _torch_in(arrs, dname, "cuda")
             h0 = torch.randn((B, H, P, N), device="cuda",
                              generator=torch.Generator("cuda").manual_seed(0))
+            route = ssd.kernel_for(x.dtype, P, N)
+            assert route == ("tc" if dname == "bf16" and P >= 16 and N >= 16
+                             else "fma")
             for kw in (dict(), dict(D=d), dict(D=d, h0=h0)):
                 before = ssd.launches
+                counted = getattr(ssd, f"launches_{route}")
                 y, h = ssd.ssd_scan(x, dt, al, bm, cm, **kw)
                 torch.cuda.synchronize()
                 assert ssd.launches == before + 1
+                assert getattr(ssd, f"launches_{route}") == counted + 1
                 wy, wh = ssd.ssd_plain(x, dt, al, bm, cm, **kw)
                 msg = f"{(B, S, H, P, G, N)} {dname} {sorted(kw)}"
                 np.testing.assert_allclose(_f32(y.cpu()), _f32(wy.cpu()),
                                            **_tol(dname), err_msg=msg)
                 np.testing.assert_allclose(_f32(h.cpu()), _f32(wh.cpu()),
                                            **_tol(dname), err_msg=msg)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_route_raises_on_what_tma_cannot_read():
+    """No fallback: a bf16 x that TMA cannot read in place (its start 2
+    bytes off 16) raises instead of running another kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, dt, al, bm, cm, d = _torch_in(_ssd_np(9, 1, 64, 4, 64, 1, 128), "bf16",
+                                     "cuda")
+    flat = torch.zeros(x.numel() + 8, dtype=x.dtype, device="cuda")
+    xs = flat[1:1 + x.numel()].view(x.shape)
+    xs.copy_(x)
+    before = (ssd.launches, ssd.launches_tc, ssd.launches_fma)
+    with pytest.raises(ValueError, match="x does not start on 16 bytes"):
+        ssd.ssd_scan(xs, dt, al, bm, cm, D=d)
+    assert (ssd.launches, ssd.launches_tc, ssd.launches_fma) == before
