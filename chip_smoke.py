@@ -22,7 +22,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
              tensor-core ``tc`` or FMA ``fma``, and failing if a case ran
              another kernel than ``ssd.kernel_for`` names, so the served
              bf16 P=64, N=128 shape must run ``tc``), ``sweep-rglru`` the
-             RG-LRU scan (the same, ragged D and S among its shapes).
+             RG-LRU scan (the same, ragged D and S among its shapes),
+             ``sweep-bwd`` the flash backward (dq, dk, dv and the forward's
+             log-sum-exp, over the flash sweep's small shapes, dtypes and
+             variants and the two served S=2048 prefill shapes, beside the
+             plain backward in 64-row chunks as a witness; then the
+             FlashAttention Function against autograd through the plain
+             forward, SDPA as a second witness in bf16), ``grad-scan`` the
+             SSD and RG-LRU Functions' input gradients against autograd
+             through their plain versions at the served widths.
  4. timing — each kernel at the main paths' shapes (the device's time:
              CUDA events around calls queued behind a spin kernel), beside
              its plain version, a library yardstick where one PyTorch call
@@ -31,7 +39,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              and the host's time to issue a call beside the device's time
              for it; ``timing`` also gives the flash kernel's TFLOP/s and
              ratio to SDPA, and times the fp32 FMA flash kernel at
-             deepseek-7b's shape.
+             deepseek-7b's shape; ``timing-bwd`` the flash backward at the
+             two served shapes, beside SDPA's backward (fwd+bwd less fwd).
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
              set to 0 just before and read just after, and must equal one
@@ -70,6 +79,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
  7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
              device time by kernel and the device's idle share
              (``profile``, ``profile-mamba``, ``profile-rg``).
+ 8. train  — deepseek-7b at full width and 12 layers (fp32 params, bf16
+             compute, full remat), B=1, S=2048: a step-1 gate of the kernel
+             path against the plain path beside witnesses and controls, an
+             fp32 twin at 2 layers, then 3 AdamW steps through
+             ``optim.adamw.make_train_step`` with the counts set to 0 just
+             before (2 x layers flash forwards and layers backwards per
+             step): ms per step, tokens/s, peak memory.
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -224,16 +240,20 @@ def phase_build():
                 log("  ptxas:", line.strip().replace("ptxas info    : ", ""))
 
 
+# the flash sweeps' small shapes (B, Sq, Sk, H, Kh, hd): every head dim the
+# kernels take, then
+FLASH_SHAPES = [(1, 128, 128, 4, 4, hd) for hd in (16, 32, 64, 128, 256)] + [
+    (2, 256, 256, 8, 2, 64),        # GQA
+    (1, 192, 192, 6, 1, 16),        # MQA
+    (1, 100, 333, 8, 2, 128),       # right-aligned Sq < Sk, ragged
+    (1, 333, 333, 4, 2, 64),        # ragged S
+    (2, 77, 77, 4, 4, 256)]         # ragged, tiny, largest head dim
+
+
 def phase_sweep():
     import torch
     from repro_torch.kernels import flash_attention as fa
-    shapes = [(1, 128, 128, 4, 4, hd) for hd in fa.HEAD_DIMS] + [
-        (2, 256, 256, 8, 2, 64),        # GQA
-        (1, 192, 192, 6, 1, 16),        # MQA
-        (1, 100, 333, 8, 2, 128),       # right-aligned Sq < Sk, ragged
-        (1, 333, 333, 4, 2, 64),        # ragged S
-        (2, 77, 77, 4, 4, 256)]         # ragged, tiny, largest head dim
-    cases = [(s, dt, v) for s in shapes
+    cases = [(s, dt, v) for s in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
     cases += [((1, S, S, 32, 32, 128), torch.bfloat16, "causal")
               for S in PROMPT_LENS]            # deepseek-7b's prefills
@@ -608,6 +628,224 @@ def phase_sweep_rglru():
                              f"version: {bad}")
 
 
+def phase_sweep_bwd():
+    """The flash backward kernel against ``attention_bwd_plain`` on dq, dk
+    and dv, over the flash sweep's small shapes, dtypes and variants and
+    the two served prefill shapes at S=2048 (deepseek-7b causal,
+    recurrentgemma-9b MQA window 2048). Both backwards get the forward
+    kernel's o and log-sum-exp (the lse itself is held against the plain
+    forward's); per case the forward's limits (TOL elementwise, REL_L2).
+    Beside each case a witness, the plain backward in 64-row chunks (a
+    correct code that sums in another order), is read against the plain
+    one. Then once: the FlashAttention Function's gradients (forward and
+    backward kernels) against autograd through ``attention_plain``, with
+    SDPA's autograd as a second witness in bf16."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cases = [(s, dt, v) for s in FLASH_SHAPES
+             for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
+    cases += [((1, 2048, 2048, 32, 32, 128), torch.bfloat16, "causal"),
+              ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, "window2048")]
+    bad, worst = [], {}
+    for seed, (shape, dt, var) in enumerate(cases):
+        B, Sq, Sk, H, Kh, hd = shape
+        q, k, v = rand_qkv(500 + seed, B, Sq, Sk, H, Kh, hd, dt)
+        do = torch.randn(q.shape, device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(900 + seed)).to(dt)
+        kw = dict(variant_kw(var, Sk), scale=hd ** -0.5)
+        kw = {"causal": True, "window": 0, "softcap": 0.0, **kw}
+        o, lse = fa._launch(q, k, v, want_lse=True, **kw)
+        _, lse_plain = fa.attention_fwd_lse_plain(q, k, v, **kw)
+        before = fa.launches_bwd
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert fa.launches_bwd == before + 1
+        want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        wit = fa.attention_bwd_plain(q, k, v, o, lse, do, chunk_q=64,
+                                     chunk_k=64, **kw)
+        name = str(dt).split(".")[-1]
+        rtol, atol = TOL[name]
+        ok, errs = True, {}
+        for label, a, b, w in (("lse", lse, lse_plain, lse_plain),
+                               *zip(("dq", "dk", "dv"), got, want, wit)):
+            diff = (a.float() - b.float()).abs()
+            excess = (diff - atol - rtol * b.float().abs()).max().item()
+            rel = _rel(a, b)
+            errs[label] = (diff.max().item(), rel, _rel(w, b))
+            ok = ok and excess <= 0 and rel <= REL_L2[name] and \
+                bool(torch.isfinite(a).all())
+            key = f"{name}_{label}"
+            worst[key] = max(worst.get(key, 0.0), diff.max().item())
+            worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
+            worst[key + "_witness_rel_l2"] = max(
+                worst.get(key + "_witness_rel_l2", 0.0), errs[label][2])
+        log(f"sweep-bwd {shape} {name:8s} {var:10s} " + ", ".join(
+            f"{lb} max_abs_err={e:.3e} rel_l2={r:.3e} (witness {w:.3e})"
+            for lb, (e, r, w) in errs.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append((shape, name, var))
+    log(f"sweep-bwd: {len(cases) - len(bad)}/{len(cases)} cases within "
+        f"tolerance (the backward kernel ran in every case); worst errors "
+        f"{json.dumps(worst)}")
+    # the Function end to end against autograd through the plain forward
+    fn_out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        q, k, v = rand_qkv(77, 1, 512, 512, 8, 8, 128, dt)
+        do = torch.randn(q.shape, device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(78)).to(dt)
+
+        def grads(attn):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attn(*leaves)
+            return torch.autograd.grad(out, leaves, do)
+        ref = grads(lambda a, b, c: fa.attention_plain(a, b, c, causal=True))
+        runs = {"function": grads(lambda a, b, c: fa.flash_attention(
+            a, b, c, causal=True))}
+        if dt == torch.bfloat16:
+            runs["witness_sdpa"] = grads(lambda a, b, c: _sdpa_witness(
+                None, a, b, c, causal=True))
+        for run, gs in runs.items():
+            for label, a, b in zip(("dq", "dk", "dv"), gs, ref):
+                fn_out[f"{name}_{run}_{label}_rel_l2"] = _rel(a, b)
+    log(f"sweep-bwd: FlashAttention's gradients ([1,512,8,128] causal) vs "
+        f"autograd through attention_plain, relative L2 "
+        f"{json.dumps(fn_out)}; limits {json.dumps(REL_L2)}")
+    for key, val in fn_out.items():
+        if val > REL_L2[key.split("_")[0]]:
+            bad.append(("function", key, val))
+    if bad:
+        raise AssertionError(f"the backward kernel disagrees with its plain "
+                             f"version: {bad}")
+
+
+def attention_bwd_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None,
+                        window=0):
+    """Least time for the flash backward. FLOP: 5 products (q.k^T, do.v^T,
+    p^T.do, ds.k, ds^T.q) of 2 hd FLOP per unmasked query-key pair and
+    head, 10 B H hd per pair, at the bf16 tensor-core peak. Bytes: q, o,
+    do, dq [B,Sq,H,hd] and k, v, dk, dv [B,Sk,Kh,hd] once each, lse
+    [B,Sq,H] fp32."""
+    Kh = H if Kh is None else Kh
+    _, _, fwd_flops = attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal,
+                                      Kh=Kh, window=window)
+    flops = fwd_flops // 4 * 10
+    nbytes = elem_bytes * (4 * B * Sq * H * hd + 4 * B * Sk * Kh * hd) + \
+        4 * B * Sq * H
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+# backward timing shapes: (label, S, H, Kh, hd, window), bf16 causal
+BWD_TIMING = (("deepseek", 2048, 32, 32, 128, 0),
+              ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
+
+
+def phase_timing_bwd():
+    """The flash backward's device time at the two served prefill shapes,
+    beside the plain backward's, a library yardstick (SDPA's backward:
+    SDPA forward plus backward by autograd, less SDPA's forward) and the
+    bound; the host's time to issue a call beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for label, S, H, Kh, hd, window in BWD_TIMING:
+        q, k, v = rand_qkv(600 + hd, 1, S, S, H, Kh, hd, torch.bfloat16)
+        do = torch.randn(q.shape, device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(601)).to(torch.bfloat16)
+        kw = dict(causal=True, window=window, softcap=0.0, scale=hd ** -0.5)
+        o, lse = fa._launch(q, k, v, want_lse=True, **kw)
+        kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        plain = lambda: fa.attention_bwd_plain(  # noqa: E731
+            q, k, v, o, lse, do, **kw)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(kern(), plain()))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=Kh != H)
+        lib_fwdbwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa(), (qt, kt, vt), dot)
+        ms = time_ms(kern, 10)
+        plain_ms = time_ms(plain, 3)
+        with torch.no_grad():
+            lib_fwd_ms = time_ms(sdpa, 20)
+        lib_ms = time_ms(lib_fwdbwd, 20) - lib_fwd_ms
+        ms2 = time_ms(kern, 10)
+        host = host_ms(kern, 10)
+        bound_ms, bound_by, flops = attention_bwd_bound(
+            1, S, S, H, hd, 2, True, Kh=Kh, window=window)
+        shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
+        row = dict(path=label, S=S, shape=shape, window=window,
+                   dtype="bfloat16", ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_fwd_ms=lib_fwd_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   tflops=flops / (ms * 1e-3) / 1e12,
+                   share_of_bound=bound_ms / ms, vs_sdpa=ms / lib_ms,
+                   host_ms_per_call=host)
+        rows.append(row)
+        log(f"timing-bwd {shape} bf16 causal window={window}: {ms:.4f} ms "
+            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA backward "
+            f"yardstick {lib_ms:.4f} ms (fwd+bwd less fwd {lib_fwd_ms:.4f}), "
+            f"bound {bound_ms:.5f} ms ({bound_by}), {row['tflops']:.2f} "
+            f"TFLOP/s, {100 * row['share_of_bound']:.2f}% of the bound, "
+            f"{row['vs_sdpa']:.3f}x SDPA's backward, kernel-plain max abs "
+            f"err {err:.3e}; the host takes {host:.4f} ms to issue a call")
+    return rows
+
+
+def phase_grad_scan():
+    """The SSD and RG-LRU Functions' input gradients on the card (forward
+    by the kernel, backward through the plain version's autograd) against
+    autograd through the plain versions, at the served widths (mamba2-2.7b:
+    80 heads of 64, N=128; recurrentgemma-9b: 4096 lanes) and S=256, with
+    h0 and through both y and h_final; the output must carry a grad_fn and
+    the forward must have launched the kernel."""
+    import torch
+    from repro_torch.kernels import rglru, ssd
+    out, bad = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        runs = (("ssd", ssd, ssd.ssd_scan, ssd.ssd_plain,
+                 rand_ssd(31, 1, 256, 80, 64, 1, 128, dt), ("D", "h0")),
+                ("rglru", rglru, rglru.rglru_scan, rglru.rglru_plain,
+                 rand_rglru(32, 1, 256, 4096, dt), ("h0",)))
+        for label, mod, scan, plain, ins, kws in runs:
+            ins = [t.detach().requires_grad_() for t in ins]
+            args, kw = ins[:-len(kws)], dict(zip(kws, ins[-len(kws):]))
+            before = mod.launches
+            y, h = scan(*args, **kw)
+            launched = mod.launches - before
+            g = torch.Generator(device=DEVICE).manual_seed(33)
+            gy = torch.randn(y.shape, generator=g, device=DEVICE).to(y.dtype)
+            gh = torch.randn(h.shape, generator=g, device=DEVICE)
+            got = torch.autograd.grad((y, h), ins, (gy, gh))
+            yp, hp = plain(*args, **kw)
+            want = torch.autograd.grad((yp, hp), ins, (gy, gh))
+            rels = [_rel(a, b) for a, b in zip(got, want)]
+            out[f"{name}_{label}"] = max(rels)
+            ok = y.grad_fn is not None and launched == 1 and \
+                max(rels) <= REL_L2[name]
+            log(f"grad-scan {label} {name}: grad_fn "
+                f"{type(y.grad_fn).__name__}, kernel launches {launched}, "
+                f"worst input-gradient relative L2 {max(rels):.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append((label, name))
+    if bad:
+        raise AssertionError(f"scan gradients: {bad}")
+    return out
+
+
 RGLRU_OPS = 24     # fp32 operations per lane and step, exp/sqrt as one
 
 
@@ -688,7 +926,8 @@ def kernel_counts():
     """Launches counted by each kernel's wrapper since its last reset."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, ssd
-    return {"flash_attention_fwd": fa.launches, "ssd_scan": ssd.launches,
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd": fa.launches_bwd, "ssd_scan": ssd.launches,
             "rglru_scan": rglru.launches}
 
 
@@ -707,7 +946,7 @@ def ssd_counts():
 def reset_kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, ssd
-    fa.launches = fa.launches_tc = fa.launches_fma = 0
+    fa.launches = fa.launches_tc = fa.launches_fma = fa.launches_bwd = 0
     ssd.launches = ssd.launches_tc = ssd.launches_fma = 0
     rglru.launches = 0
 
@@ -1060,12 +1299,12 @@ def _hidden_after(lm, batch, n_layers, impl):
     """The residual stream after the first ``n_layers`` layers of a prefill,
     walking head, stacked core periods and tail in order."""
     import torch
-    from repro_torch.models.model import _period, layer_prefill, params_tree
+    from repro_torch.models.model import layer_prefill, params_tree, periods
     dec = lm.decoder
     params = params_tree(dec)
     layers = list(zip(dec.head_kinds, params["head"]))
-    for i in range(dec.n_periods):
-        layers += list(zip(dec.period_kinds, _period(params["core"], i)))
+    for core in periods(params["core"], dec.n_periods):
+        layers += list(zip(dec.period_kinds, core))
     layers += list(zip(dec.tail_kinds, params["tail"]))
     x = lm._embed(batch["tokens"])
     ctx = {"positions": lm._positions(*x.shape[:2]), "impl": impl}
@@ -1144,15 +1383,284 @@ def phase_logits_scan(lm):
     return out
 
 
+# training: deepseek-7b at full width and cut depth (fp32 params, grads, m
+# and v take 16 B/param: 30 layers need 103 GiB, 12 layers 48.7 GiB)
+TRAIN_ARCH, TRAIN_LABEL = "deepseek-7b", "train-deepseek"
+TRAIN_LAYERS = 12
+TRAIN_TWIN_LAYERS = 2          # the fp32 twin
+TRAIN_S = 2048
+TRAIN_STEPS = 3
+TRAIN_PEAK_GIB = 75            # above it, the depth is too large for the card
+TRAIN_REL = 1e-2               # step 1, kernel vs plain: loss and grad_norm
+# step-1 gradients, kernel vs plain, relative L2: wq/wk/wv of layer 0
+# ("l0") and of the last layer ("last"), and the head. Each limit lies
+# between the witnesses (correct codes) and the controls (faults).
+GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.0.mixer.{w}", i)
+               for at, i in (("l0", 0), ("last", -1))
+               for w in ("wq", "wk", "wv")}
+GRAD_LEAVES["head"] = ("head", None)
+# fp32 twin: every leaf. wq and wk get their gradient only through the
+# softmax's ds = p (dp - delta), which cancels: two correct fp32 codes (the
+# plain code in 512- and 64-row chunks) differ by up to 6.8e-4 there at
+# full width and S=2048 on an H100, so 1e-4 would refuse a correct kernel;
+# the controls read 0.135 and more
+GRAD_REL_L2_FP32 = 5e-3
+# bf16 model, 12 layers: only the head is gated. In bf16 that cancellation
+# leaves no digit of wq's and wk's gradients: SDPA, a correct code, reads
+# 1.28-1.34 on them, as far as the off-by-one control (1.32-1.37); the
+# gradients of layer 0 and the last layer are reported
+GRAD_REL_L2_BF16 = 0.1
+BF16_GATED = ("head",)
+# bf16 grad_norm: the witnesses read 0.033 (plain code, 64-row chunks) and
+# 0.039 (SDPA), the off-by-one control 0.077
+GRAD_NORM_REL_BF16 = 0.05
+
+
+def _plain_drops_delta(orig, q, k, v, **kw):
+    """Control: the plain forward with a backward that drops delta =
+    rowsum(do o) from ds = p (dp - delta), as a backward kernel that lost
+    that term would (dv is untouched)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    class DropsDelta(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = fa.attention_fwd_lse_plain(q, k, v, **kw)
+            ctx.save_for_backward(q, k, v, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, lse = ctx.saved_tensors
+            return fa.attention_bwd_plain(q, k, v, torch.zeros_like(do), lse,
+                                          do, **kw)
+    return DropsDelta.apply(q, k, v)
+
+
+def _step1_grads(lm, batch, impl):
+    """Loss, global gradient norm and the GRAD_LEAVES' gradients (layer 0
+    of a stacked leaf) of one forward and backward; the gradients are
+    dropped after."""
+    import torch
+    for p in lm.parameters():
+        p.grad = None
+    loss, _ = lm.loss(batch, impl=impl)
+    loss.backward()
+    params = dict(lm.named_parameters())
+    gn = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
+                        for p in params.values())).item()
+    picked = {}
+    for label, (path, i) in GRAD_LEAVES.items():
+        g = params[path].grad
+        picked[label] = (g if i is None else g[i]).detach().clone()
+    for p in lm.parameters():
+        p.grad = None
+    return loss.item(), gn, picked
+
+
+def _train_gate(lm, batch):
+    """Step 1 through the kernels (``impl=None``) and through the plain
+    code, beside witnesses (the plain code in 64-row chunks; SDPA in bf16)
+    and controls (a backward that drops delta; an off-by-one causal mask):
+    relative errors of loss, grad_norm and each leaf's gradient against the
+    plain code's."""
+    ref_loss, ref_gn, ref = _step1_grads(lm, batch, "plain")
+    runs = {"kernel": None,
+            "witness_chunks": plain_attention_as(_plain_small_chunks),
+            "control_drops_delta": plain_attention_as(_plain_drops_delta),
+            "control_drops_diagonal": plain_attention_as(
+                _plain_drops_diagonal)}
+    if lm.compute_dtype != lm.param_dtype:         # the bf16 model
+        runs["witness_sdpa"] = plain_attention_as(_sdpa_witness)
+    out = {"plain_loss": ref_loss, "plain_grad_norm": ref_gn}
+    for run, ctx in runs.items():
+        if ctx is None:
+            loss, gn, got = _step1_grads(lm, batch, None)
+        else:
+            with ctx:
+                loss, gn, got = _step1_grads(lm, batch, "plain")
+        out[f"{run}_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        out[f"{run}_grad_norm_rel"] = abs(gn - ref_gn) / ref_gn
+        for n in GRAD_LEAVES:
+            out[f"{run}_{n}_rel_l2"] = _rel(got[n], ref[n])
+        if run == "kernel":
+            out["kernel_loss"], out["kernel_grad_norm"] = loss, gn
+    return out
+
+
+def _assert_train_gate(out, grad_limit, norm_limit, leaves):
+    """The kernel's loss within TRAIN_REL of the plain code's. For the
+    grad_norm (at ``norm_limit``) and each leaf of ``leaves`` (at
+    ``grad_limit``): every witness under the limit, the control over it,
+    the kernel under it. The control is the dropped delta for wq and wk
+    (their gradient comes only through ds), the off-by-one mask for the
+    rest (delta does not reach the head, nor the last layer's wv)."""
+    assert out["kernel_loss_rel"] <= TRAIN_REL, out
+    checks = [("grad_norm_rel", norm_limit, "drops_diagonal")] + [
+        (f"{n}_rel_l2", grad_limit,
+         "drops_delta" if n.endswith((".wq", ".wk")) else "drops_diagonal")
+        for n in leaves]
+    for suffix, limit, control in checks:
+        for key in out:
+            if key.startswith("witness") and key.endswith(suffix):
+                assert out[key] <= limit, (key, limit, out)
+        assert out[f"control_{control}_{suffix}"] > limit, (suffix, out)
+        assert out[f"kernel_{suffix}"] <= limit, (suffix, limit, out)
+
+
+def _train_lm(layers, dtype):
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=layers, dtype=dtype)
+    lm = LM(cfg, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(0))
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_S), generator=g,
+                           device=DEVICE)
+    return lm, {"tokens": tokens}
+
+
+def phase_train():
+    """deepseek-7b at full width (d_model 4096, 32x128 MHA, d_ff 11008,
+    vocab 102400) and TRAIN_LAYERS layers, fp32 params, bf16 compute, full
+    remat; B=1, S=2048 seeded tokens.
+      * Step-1 gate: the kernel path against ``impl="plain"`` from the same
+        initial weights (gradients only, so the weights need no restore),
+        beside witnesses (the plain code in 64-row chunks, SDPA) and
+        controls (a backward that drops delta; an off-by-one causal mask):
+        the loss within TRAIN_REL, grad_norm at GRAD_NORM_REL_BF16 and the
+        head's gradient at GRAD_REL_L2_BF16, each limit between the
+        witnesses and the control; the wq/wk/wv gradients of layer 0 and
+        the last layer are reported.
+      * An fp32 twin at TRAIN_TWIN_LAYERS layers of the same width (FMA
+        forward and the backward kernel in fp32): loss and grad_norm within
+        TRAIN_REL, and every leaf (wq/wk/wv of both layers, the head) at
+        GRAD_REL_L2_FP32.
+      * TRAIN_STEPS AdamW steps on the same batch through
+        ``make_train_step``: the loss falls; the counts, set to 0 just
+        before, read 2 x layers forward launches per step (remat runs each
+        layer's forward twice), all on the tensor-core kernel, and layers
+        backward launches; ms per step (CUDA events), tokens/s and the
+        peak allocated memory, which must stay under TRAIN_PEAK_GIB; then
+        a fourth step under ``torch.profiler`` (device time by kernel, the
+        device's idle share)."""
+    import torch
+    from repro_torch.optim import adamw
+    out = {"layers": TRAIN_LAYERS, "seq": TRAIN_S, "batch": 1}
+
+    lm, batch = _train_lm(TRAIN_TWIN_LAYERS, "float32")
+    twin = _train_gate(lm, batch)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: fp32 twin ({TRAIN_TWIN_LAYERS} layers) step 1, relative "
+        f"to the plain path {json.dumps(twin)}")
+
+    lm, batch = _train_lm(TRAIN_LAYERS, "bfloat16")
+    n_params = sum(p.numel() for p in lm.parameters())
+    gate = _train_gate(lm, batch)
+    log(f"train: {TRAIN_ARCH} at full width, {TRAIN_LAYERS} layers, "
+        f"{n_params / 1e9:.3f} B params; bf16 step 1, relative to the plain "
+        f"path {json.dumps(gate)}")
+
+    cfg = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    state = adamw.init_state(lm)
+    step = adamw.make_train_step(lm, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        state, met = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        steps.append(dict(step=int(state["step"]), loss=met["loss"].item(),
+                          grad_norm=met["grad_norm"].item(),
+                          lr=met["lr"].item(), ms=e0.elapsed_time(e1),
+                          host_ms=(time.perf_counter() - h0) * 1e3))
+        log(f"train: step {steps[-1]['step']}: loss {steps[-1]['loss']:.6f}, "
+            f"grad_norm {steps[-1]['grad_norm']:.6f}, lr "
+            f"{steps[-1]['lr']:.3e}, {steps[-1]['ms']:.3f} ms (CUDA events; "
+            f"host clock {steps[-1]['host_ms']:.3f} ms)")
+    launches = kernel_counts()
+    flash = flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # one more step under the profiler, after the counts are read
+    prof = log_profile("train: profiled step 4", profiled(
+        lambda: step(state, batch), top_n=12))
+    want_fwd = TRAIN_STEPS * 2 * TRAIN_LAYERS
+    want_bwd = TRAIN_STEPS * TRAIN_LAYERS
+    ms = [r["ms"] for r in steps[1:]]
+    out.update(n_params=n_params, steps=steps, launches=launches,
+               flash_launches_by_kernel=flash, peak_allocated_gib=peak,
+               ms_per_step=sum(ms) / len(ms),
+               tokens_per_s=TRAIN_S / (sum(ms) / len(ms) / 1e3),
+               gate=gate, twin=twin, twin_layers=TRAIN_TWIN_LAYERS,
+               profile=prof)
+    log(f"train: {TRAIN_STEPS} steps, {out['ms_per_step']:.3f} ms per step "
+        f"after the first (CUDA events), {out['tokens_per_s']:.1f} tokens/s; "
+        f"peak allocated {peak:.2f} GiB; launches {json.dumps(launches)}, "
+        f"flash forward by kernel {json.dumps(flash)} (want {want_fwd} "
+        f"forward, {want_bwd} backward)")
+    del state, step, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert steps[-1]["loss"] < steps[0]["loss"], steps
+    assert all(torch.isfinite(torch.tensor(r["loss"])) for r in steps)
+    assert launches["flash_attention_fwd"] == want_fwd, launches
+    assert flash == {"tc": want_fwd, "fma": 0}, flash
+    assert launches["flash_attention_bwd"] == want_bwd, launches
+    assert launches["ssd_scan"] == launches["rglru_scan"] == 0, launches
+    assert peak <= TRAIN_PEAK_GIB, peak
+    _assert_train_gate(twin, GRAD_REL_L2_FP32, TRAIN_REL, GRAD_LEAVES)
+    _assert_train_gate(gate, GRAD_REL_L2_BF16, GRAD_NORM_REL_BF16,
+                       BF16_GATED)
+    return out
+
+
 PORT_KERNELS = re.compile(
-    r"(flash_fwd|ssd_fwd|rglru_fwd)\w*kernel(<[^>]*>)?")
+    r"(flash_fwd|flash_bwd|ssd_fwd|rglru_fwd)\w*kernel(<[^>]*>)?")
+
+
+def profiled(fn, top_n=8):
+    """Run ``fn`` once under ``torch.profiler``: wall time, the device's
+    busy time and idle share, the ``top_n`` kernels by device time and the
+    port's own kernels (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:top_n]
+    ours = {}
+    for k, t in dev.items():
+        m = PORT_KERNELS.search(k)
+        if m:
+            ours[m.group(0)] = ours.get(m.group(0), 0.0) + t / 1e3
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=(1 - busy / wall_us) if busy else None,
+                top=[(k[:80], t / 1e3) for k, t in top],
+                port_kernels_ms=ours)
 
 
 def phase_profile(lm):
     """Device time by kernel and the device's idle share under
     ``torch.profiler``: one S=2048 prefill, then 8 decode steps."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingEngine
     name = PATHS[lm.cfg.name].replace("serve", "profile")
     eng = ServingEngine(lm, slots=SLOTS, capacity=CAPACITY, device=DEVICE)
@@ -1161,33 +1669,18 @@ def phase_profile(lm):
             "decode": lambda: [eng.step() for _ in range(8)]}
     out = {}
     for label, fn in work.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
-        busy = sum(dev.values())
-        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-        # the port's own kernels, in or out of the top 8
-        ours = {PORT_KERNELS.search(k).group(0): t / 1e3
-                for k, t in dev.items() if PORT_KERNELS.search(k)}
-        out[label] = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                          idle_share=(1 - busy / wall_us) if busy else None,
-                          top=[(k[:80], t / 1e3) for k, t in top],
-                          port_kernels_ms=ours)
-        log(f"{name} {label}: wall {wall_us / 1e3:.3f} ms under the "
-            f"profiler, device busy {busy / 1e3:.3f} ms, idle share "
-            f"{out[label]['idle_share']}; the port's kernels "
-            f"{json.dumps(ours)}")
-        for k, t in top:
-            log(f"  {t / 1e3:9.3f} ms  {k[:100]}")
+        out[label] = log_profile(f"{name} {label}", profiled(fn))
     return out
+
+
+def log_profile(label, prof):
+    log(f"{label}: wall {prof['wall_ms']:.3f} ms under the profiler, device "
+        f"busy {prof['device_busy_ms']:.3f} ms, idle share "
+        f"{prof['idle_share']}; the port's kernels "
+        f"{json.dumps(prof['port_kernels_ms'])}")
+    for k, t in prof["top"]:
+        log(f"  {t:9.3f} ms  {k}")
+    return prof
 
 
 def phase_migrate(lm, streams):
@@ -1257,6 +1750,9 @@ def main():
     timing_ssd = run("timing-ssd", phase_timing_ssd)
     run("sweep-rglru", phase_sweep_rglru)
     timing_rglru = run("timing-rglru", phase_timing_rglru)
+    run("sweep-bwd", phase_sweep_bwd)
+    timing_bwd = run("timing-bwd", phase_timing_bwd)
+    run("grad-scan", phase_grad_scan)
     paths = {}
     for arch, logits_fn in (("deepseek-7b", phase_logits),
                             ("mamba2-2.7b", phase_logits_scan),
@@ -1274,24 +1770,33 @@ def main():
         del lm                  # free the card for the next path
         gc.collect()
         torch.cuda.empty_cache()
-    timings = (timing, timing_ssd, timing_rglru)
-    if failed or any(t is None for t in timings) or len(paths) < len(PATHS):
+    train = run("train", phase_train)
+    timings = (timing, timing_ssd, timing_rglru, timing_bwd)
+    if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
+            or train is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
     rows = {"flash_attention_fwd": next(
                 r for r in timing if r["path"] == "deepseek"
                 and r["S"] == 2048 and r["dtype"] == "bfloat16"),
+            "flash_attention_bwd": timing_bwd[0],
             "ssd_scan": timing_ssd[1],
             "rglru_scan": timing_rglru[1]}
     meta = {"flash_attention_fwd": ("flash_attention.cu",
                                     "src/repro/kernels/flash_attention.py:30"),
+            "flash_attention_bwd": (
+                "flash_attention.cu",
+                "src/repro/kernels/ops.py:328 (_flash_bwd, XLA-level "
+                "custom_vjp)"),
             "ssd_scan": ("ssd.cu", "src/repro/kernels/ssd.py:24"),
             "rglru_scan": ("rglru.cu", "src/repro/kernels/rglru.py:26")}
     kernels = []
     for kname, (src, replaces) in meta.items():
         row = rows[kname]
         by_path = {a: p[1][kname] for a, p in paths.items() if p[1][kname]}
+        if train["launches"][kname]:
+            by_path[TRAIN_LABEL] = train["launches"][kname]
         entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1308,20 +1813,39 @@ def main():
                 "flash_fwd_kernel, fp32 FMA")
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["flash_launches_by_kernel"][k]
-                       for p in paths.values()) for k in ("tc", "fma")}
+                       for p in paths.values())
+                + train["flash_launches_by_kernel"][k] for k in ("tc", "fma")}
             entry["at_shapes"] = [
                 {k: r[k] for k in ("path", "shape", "window", "kernel",
                                    "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err")}
                 for r in timing]
+        if kname == "flash_attention_bwd":
+            entry["design"] = (
+                "fp32 FMA from fp32 or bf16 inputs, three kernels on one "
+                "stream: delta = rowsum(do o); flash_bwd_dkdv_kernel, one "
+                "CTA per (b, kv head, key tile) summing dk and dv over the "
+                "group's heads and the visible query tiles; "
+                "flash_bwd_dq_kernel, one CTA per (b, head, query tile) "
+                "summing dq over its key tiles; scores and p computed in "
+                "both, no atomics; masked tiles skipped")
+            entry["at_shapes"] = [
+                {k: r[k] for k in ("path", "shape", "window", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+                for r in timing_bwd]
         if kname == "ssd_scan":
             entry["design"] = (
-                "bf16 at P 16/32/64, N 16/128: three tensor-core kernels "
-                "over 128-row chunks (chunk states (w o x)^T.B by wgmma, a "
-                "sequential fp32 state pass, outputs C.h_in and the "
-                "decay-masked C.B^T times x by wgmma, blocks above the "
-                "diagonal skipped), TMA tiles; fp32 and bf16 at P or N = 8: "
-                "ssd_fwd_kernel, fp32 FMA, chunks in order")
+                "bf16 at P 16/32/64, N 16/128: two tensor-core kernels over "
+                "128-row chunks: ssd_fwd_state_kernel walks each (b, head, "
+                "64-wide block of N) through its chunks, the chunk states "
+                "(w o x)^T.B by wgmma and the fp32 recurrence passed "
+                "between two warpgroups, writing each chunk's entering "
+                "state in bf16; ssd_fwd_out_kernel runs every (b, head, "
+                "chunk) at once, C.h_in and the decay-masked C.B^T times x "
+                "by wgmma, blocks above the diagonal skipped; TMA tiles; "
+                "fp32 and bf16 at P or N = 8: ssd_fwd_kernel, fp32 FMA, "
+                "chunks in order")
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["ssd_launches_by_kernel"][k]
                        for p in paths.values()) for k in ("tc", "fma")}
@@ -1334,8 +1858,9 @@ def main():
                 "rerun from shared memory, writing y; fp32 throughout")
         kernels.append(entry)
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
-                    "timing_rglru": timing_rglru,
-                    "serving": {a: p[2] for a, p in paths.items()}}))
+                    "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
+                    "serving": {a: p[2] for a, p in paths.items()},
+                    "train": train}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,27 @@
-// Flash-attention forward for Hopper (sm_90a), plain CUDA C++: two kernels.
+// Flash attention for Hopper (sm_90a), plain CUDA C++: two forward kernels
+// and a backward of three.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::_kernel
-// (Pallas; grid (B, H, q-blocks, kv-blocks) with the kv dimension run in
-// order and the online-softmax state in VMEM scratch).
+// The forward replaces the TPU kernel
+// src/repro/kernels/flash_attention.py::_kernel (Pallas; grid (B, H,
+// q-blocks, kv-blocks) with the kv dimension run in order and the
+// online-softmax state in VMEM scratch). Given an lse pointer, either
+// forward also writes each row's log-sum-exp m + log(max(l, 1e-30))
+// ([B,Sq,H] fp32, as the reference's ops.py::_fwd_blocked_lse) for the
+// backward; the served path passes none and runs an instantiation without
+// that store.
+//
+// The backward (entry flash_attention_bwd; the reference's XLA-level
+// custom_vjp ops.py::_flash_bwd, which has no Pallas kernel) is a first,
+// simple design in fp32 FMA from fp32 or bf16 inputs: a delta kernel
+// (rowsum(do o)), flash_bwd_dkdv_kernel (one CTA per (b, kv head, key
+// tile): dk and dv summed in registers over the G query heads of the
+// group and the query tiles the mask lets see the tile) and
+// flash_bwd_dq_kernel (one CTA per (b, head, query tile): dq summed over
+// its key tiles). Each recomputes s and p from q, k and the saved lse,
+// so dq needs no atomics and every sum has one order. What bounds it: 5
+// products of 2 hd FLOP per visible query-key pair and head, compute far
+// above the ridge; on the fp32 cores here the tensor cores' rate is out of
+// reach (its times against the bound are in PERF.md).
 //
 // Both compute softmax(q.k^T * scale) . v with an fp32 online softmax:
 //   q [B,Sq,H,hd], k/v [B,Sk,Kh,hd] -> o [B,Sq,H,hd] in q's dtype;
@@ -109,7 +128,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int Sq, int Sk, int G,
+                 float* __restrict__ lse, int Sq, int Sk, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -278,7 +297,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (ssub == 0) sL[srow] = l_run;
+  if (ssub == 0) {
+    sL[srow] = l_run;
+    // log-sum-exp of the row, as the reference's m + log(max(l, 1e-30))
+    if (lse != nullptr && q0 + srow < Sq)
+      lse[(static_cast<int64_t>(b) * Sq + q0 + srow) * gridDim.y + h] =
+          m_run + logf(fmaxf(l_run, 1e-30f));
+  }
   __syncthreads();
   T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
@@ -297,7 +322,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int G,
+                   float* lse, int B, int Sq, int Sk, int H, int G,
                    const long long* st, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
@@ -308,7 +333,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, G,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, G,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11],
       causal, window, softcap, scale);
@@ -317,15 +342,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int H, int G, const long long* st,
+                        float* lse, int B, int Sq, int Sk, int H, int G, const long long* st,
                         int causal, int window, float softcap, float scale,
                         cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,6 +366,7 @@ constexpr int BQ = 128;          // queries per CTA: 64 per consumer warpgroup
 constexpr int NT = 384;          // producer warpgroup + two consumer warpgroups
 constexpr int STAGES = 2;        // k/v ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
@@ -377,12 +403,15 @@ template <> struct Wgmma<256> {
   }
 };
 
-template <int HD>
+// LSE: also write each row's log-sum-exp (training); the served forward is
+// the instantiation without it, so serving runs the same code as before.
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
-                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int G,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int Sq, int Sk, int G,
                     int64_t o_sb, int64_t o_ss, int64_t o_sh,
                     int causal, int window, float softcap, float scale) {
   using C = Cfg<HD>;
@@ -569,6 +598,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qi = q0 + row0 + 8 * r;
       if (qi >= Sq) continue;
       const float den = fmaxf(l, 1e-30f);
+      // log-sum-exp of the row in natural units: m_run is in log2 units
+      if (LSE && t4 == 0)
+        lse[(static_cast<int64_t>(b) * Sq + qi) * gridDim.y + h] =
+            (m_run[r] + log2f(den)) * LN2;
       __nv_bfloat16* orow = ob + qi * o_ss + 2 * t4;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
@@ -578,11 +611,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int HD>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                   void* o, int B, int Sq, int Sk, int H, int G, long long o_sb,
-                   long long o_ss, long long o_sh, int causal, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+template <int HD, bool LSE>
+cudaError_t launch_as(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                      void* o, float* lse, int B, int Sq, int Sk, int H, int G,
+                      long long o_sb, long long o_ss, long long o_sh, int causal,
+                      int window, float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   // the shared-memory opt-in, once per instantiation and device
   static bool smem_set[64] = {};
@@ -591,26 +624,433 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_tc_kernel<HD><<<grid, NT, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, G, o_sb, o_ss, o_sh,
+  flash_fwd_tc_kernel<HD, LSE><<<grid, NT, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, G, o_sb, o_ss, o_sh,
       causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                   void* o, float* lse, int B, int Sq, int Sk, int H, int G, long long o_sb,
+                   long long o_ss, long long o_sh, int causal, int window, float softcap,
+                   float scale, cudaStream_t stream) {
+  return lse != nullptr
+             ? launch_as<HD, true>(tq, tk, tv, o, lse, B, Sq, Sk, H, G, o_sb, o_ss, o_sh,
+                                   causal, window, softcap, scale, stream)
+             : launch_as<HD, false>(tq, tk, tv, o, lse, B, Sq, Sk, H, G, o_sb, o_ss, o_sh,
+                                    causal, window, softcap, scale, stream);
+}
+
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Backward (fp32 FMA): delta, dk/dv and dq kernels
+// ---------------------------------------------------------------------------
+
+namespace bwd {
+
+constexpr int NT = 256;   // threads per CTA
+
+// delta[b, i, h] = sum_d do[b, i, h, d] * o[b, i, h, d] in fp32: one warp
+// per row.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int B, int Sq, int H, int hd,
+                       int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                       int64_t d_sb, int64_t d_ss, int64_t d_sh) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
+  if (row >= static_cast<int64_t>(B) * Sq * H) return;
+  const int lane = threadIdx.x % 32;
+  const int h = static_cast<int>(row % H);
+  const int i = static_cast<int>((row / H) % Sq);
+  const int b = static_cast<int>(row / (static_cast<int64_t>(H) * Sq));
+  const T* orow = o + b * o_sb + i * o_ss + h * o_sh;
+  const T* drow = dout + b * d_sb + i * d_ss + h * d_sh;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <int HD>
+struct Cfg {
+  static constexpr int BQ = HD >= 128 ? 32 : 64;   // query rows of a tile
+  static constexpr int BK = HD >= 256 ? 32 : 64;   // key rows of a tile
+  static constexpr int RS = HD + 4;                // row stride (floats) of q, do, k, v tiles
+  static constexpr int PS = BK + 4;                // row stride of the p and ds tiles
+  // score phase: 16 x 16 threads, query rows sy + 16*i, key columns sx + 16*j
+  static constexpr int S_ROWS = BQ / 16;
+  static constexpr int S_COLS = BK / 16;
+  // accumulation phase: TXD threads across dims (a float4 each), TYR across rows
+  static constexpr int TXD = HD / 4 < 16 ? HD / 4 : 16;
+  static constexpr int TYR = NT / TXD;
+  static constexpr int JD = HD / (4 * TXD);        // float4 chunks per thread
+  static constexpr int RM_K = BK / TYR;            // key rows per thread (dk, dv)
+  static constexpr int RM_Q = BQ / TYR;            // query rows per thread (dq)
+  static constexpr int SMEM_FLOATS = 2 * BQ * RS + 2 * BK * RS + 2 * BQ * PS + 2 * BQ;
+  static_assert(BK % TYR == 0 && BQ % TYR == 0 && HD % (4 * TXD) == 0, "layout");
+  static_assert(SMEM_FLOATS * 4 <= 227 * 1024, "shared memory");
+};
+
+struct Args {
+  int Sq, Sk, G, causal, window;
+  float softcap, scale;
+  // element strides (b, s, h) of q, k, v, do, dq, dk, dv
+  int64_t q[3], k[3], v[3], d[3], dq[3], dk[3], dv[3];
+};
+
+// Load rows [r0, r0 + R) of a [S, HD] slice with row stride ss into a
+// shared-memory tile of row stride RS as fp32; rows past S are zero.
+template <typename T, int HD, int R, int RS>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int64_t ss, int r0, int S) {
+  for (int e = threadIdx.x; e < R * HD; e += NT) {
+    const int r = e / HD, c = e % HD;
+    dst[r * RS + c] = r0 + r < S ? to_f(src[(r0 + r) * ss + c]) : 0.f;
+  }
+}
+
+// For the query rows sy + 16*i and key columns sx + 16*j of a tile: the
+// scores s = q.k^T and dp = do.v^T, then p = exp(s' - lse) with s' the
+// scaled (and soft-capped) score, masked, and ds = p (dp - delta)
+// (1 - t^2 under the softcap) scale. Writes p to sP and ds to sDS.
+template <int HD>
+__device__ __forceinline__ void scores_and_ds(const float* sQ, const float* sDO,
+                                              const float* sK, const float* sV,
+                                              const float* sLse, const float* sDelta,
+                                              float* sP, float* sDS, int q0, int k0,
+                                              const Args& a) {
+  using C = Cfg<HD>;
+  const int sx = threadIdx.x & 15, sy = threadIdx.x >> 4;
+  float s[C::S_ROWS][C::S_COLS], dp[C::S_ROWS][C::S_COLS];
+#pragma unroll
+  for (int i = 0; i < C::S_ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < C::S_COLS; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 qv[C::S_ROWS], dv[C::S_ROWS], kv[C::S_COLS], vv[C::S_COLS];
+#pragma unroll
+    for (int i = 0; i < C::S_ROWS; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(&sQ[(sy + 16 * i) * C::RS + d]);
+      dv[i] = *reinterpret_cast<const float4*>(&sDO[(sy + 16 * i) * C::RS + d]);
+    }
+#pragma unroll
+    for (int j = 0; j < C::S_COLS; ++j) {
+      kv[j] = *reinterpret_cast<const float4*>(&sK[(sx + 16 * j) * C::RS + d]);
+      vv[j] = *reinterpret_cast<const float4*>(&sV[(sx + 16 * j) * C::RS + d]);
+    }
+#pragma unroll
+    for (int i = 0; i < C::S_ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < C::S_COLS; ++j) {
+        float x = s[i][j], y = dp[i][j];
+        x = fmaf(qv[i].x, kv[j].x, x);
+        x = fmaf(qv[i].y, kv[j].y, x);
+        x = fmaf(qv[i].z, kv[j].z, x);
+        x = fmaf(qv[i].w, kv[j].w, x);
+        y = fmaf(dv[i].x, vv[j].x, y);
+        y = fmaf(dv[i].y, vv[j].y, y);
+        y = fmaf(dv[i].z, vv[j].z, y);
+        y = fmaf(dv[i].w, vv[j].w, y);
+        s[i][j] = x;
+        dp[i][j] = y;
+      }
+  }
+  const int q_off = a.Sk - a.Sq;
+#pragma unroll
+  for (int i = 0; i < C::S_ROWS; ++i) {
+    const int r = sy + 16 * i;
+    const int qpos = q_off + q0 + r;
+    const float lse = sLse[r], delta = sDelta[r];
+#pragma unroll
+    for (int j = 0; j < C::S_COLS; ++j) {
+      const int c = sx + 16 * j;
+      const int kpos = k0 + c;
+      bool keep = q0 + r < a.Sq && kpos < a.Sk;
+      if (a.causal) keep = keep && qpos >= kpos;
+      if (a.window > 0) keep = keep && (qpos - kpos) < a.window;
+      float x = s[i][j] * a.scale, t = 0.f;
+      if (a.softcap > 0.f) {
+        t = tanhf(x / a.softcap);
+        x = t * a.softcap;
+      }
+      const float p = keep ? expf(x - lse) : 0.f;
+      float ds = p * (dp[i][j] - delta);
+      if (a.softcap > 0.f) ds *= 1.f - t * t;
+      sP[r * C::PS + c] = p;
+      sDS[r * C::PS + c] = ds * a.scale;
+    }
+  }
+}
+
+// One CTA per (key tile, kv head, batch): dk and dv of BK keys, summed in
+// fp32 registers over the G query heads of the group and over every query
+// tile that the mask lets see the key tile; written once, no atomics.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, const Args a) {
+  using C = Cfg<HD>;
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);   // [BQ][RS]
+  float* sDO = sQ + C::BQ * C::RS;                  // [BQ][RS]
+  float* sK = sDO + C::BQ * C::RS;                  // [BK][RS]
+  float* sV = sK + C::BK * C::RS;                   // [BK][RS]
+  float* sP = sV + C::BK * C::RS;                   // [BQ][PS]
+  float* sDS = sP + C::BQ * C::PS;                  // [BQ][PS]
+  float* sLse = sDS + C::BQ * C::PS;                // [BQ]
+  float* sDelta = sLse + C::BQ;                     // [BQ]
+
+  const int tid = threadIdx.x;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * C::BK;
+  const int k_last = min(k0 + C::BK, a.Sk) - 1;
+  const int q_off = a.Sk - a.Sq;
+  const int H = gridDim.y * a.G;
+
+  load_rows<T, HD, C::BK, C::RS>(sK, k + b * a.k[0] + kvh * a.k[2], a.k[1], k0, a.Sk);
+  load_rows<T, HD, C::BK, C::RS>(sV, v + b * a.v[0] + kvh * a.v[2], a.v[1], k0, a.Sk);
+
+  // query rows that some key of this tile is visible to
+  const int q_lo = a.causal ? max(0, k0 - q_off) : 0;
+  const int q_hi = a.window > 0 ? min(a.Sq, k_last - q_off + a.window) : a.Sq;
+
+  const int tx = tid % C::TXD, ty = tid / C::TXD;
+  float acc_k[C::RM_K][C::JD][4], acc_v[C::RM_K][C::JD][4];
+#pragma unroll
+  for (int i = 0; i < C::RM_K; ++i)
+#pragma unroll
+    for (int j = 0; j < C::JD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[i][j][e] = acc_v[i][j][e] = 0.f;
+
+  for (int g = 0; g < a.G; ++g) {
+    const int h = kvh * a.G + g;
+    const T* qb = q + b * a.q[0] + h * a.q[2];
+    const T* db = dout + b * a.d[0] + h * a.d[2];
+    for (int q0 = (q_lo / C::BQ) * C::BQ; q0 < q_hi; q0 += C::BQ) {
+      __syncthreads();   // the previous tile's readers are done
+      load_rows<T, HD, C::BQ, C::RS>(sQ, qb, a.q[1], q0, a.Sq);
+      load_rows<T, HD, C::BQ, C::RS>(sDO, db, a.d[1], q0, a.Sq);
+      for (int r = tid; r < C::BQ; r += NT) {
+        const bool in = q0 + r < a.Sq;
+        const int64_t at = (static_cast<int64_t>(b) * a.Sq + q0 + r) * H + h;
+        sLse[r] = in ? lse[at] : 0.f;
+        sDelta[r] = in ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      scores_and_ds<HD>(sQ, sDO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, a);
+      __syncthreads();
+      // dv += p^T . do, dk += ds^T . q
+#pragma unroll 2
+      for (int r = 0; r < C::BQ; ++r) {
+        float p[C::RM_K], ds[C::RM_K];
+#pragma unroll
+        for (int i = 0; i < C::RM_K; ++i) {
+          p[i] = sP[r * C::PS + ty + C::TYR * i];
+          ds[i] = sDS[r * C::PS + ty + C::TYR * i];
+        }
+#pragma unroll
+        for (int j = 0; j < C::JD; ++j) {
+          const float4 dov = *reinterpret_cast<const float4*>(&sDO[r * C::RS + 4 * tx + 4 * C::TXD * j]);
+          const float4 qv = *reinterpret_cast<const float4*>(&sQ[r * C::RS + 4 * tx + 4 * C::TXD * j]);
+#pragma unroll
+          for (int i = 0; i < C::RM_K; ++i) {
+            acc_v[i][j][0] = fmaf(p[i], dov.x, acc_v[i][j][0]);
+            acc_v[i][j][1] = fmaf(p[i], dov.y, acc_v[i][j][1]);
+            acc_v[i][j][2] = fmaf(p[i], dov.z, acc_v[i][j][2]);
+            acc_v[i][j][3] = fmaf(p[i], dov.w, acc_v[i][j][3]);
+            acc_k[i][j][0] = fmaf(ds[i], qv.x, acc_k[i][j][0]);
+            acc_k[i][j][1] = fmaf(ds[i], qv.y, acc_k[i][j][1]);
+            acc_k[i][j][2] = fmaf(ds[i], qv.z, acc_k[i][j][2]);
+            acc_k[i][j][3] = fmaf(ds[i], qv.w, acc_k[i][j][3]);
+          }
+        }
+      }
+    }
+  }
+
+  T* dkb = dk + b * a.dk[0] + kvh * a.dk[2];
+  T* dvb = dv + b * a.dv[0] + kvh * a.dv[2];
+#pragma unroll
+  for (int i = 0; i < C::RM_K; ++i) {
+    const int kj = k0 + ty + C::TYR * i;
+    if (kj >= a.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < C::JD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * tx + 4 * C::TXD * j + e;
+        dkb[kj * a.dk[1] + d] = from_f<T>(acc_k[i][j][e]);
+        dvb[kj * a.dv[1] + d] = from_f<T>(acc_v[i][j][e]);
+      }
+  }
+}
+
+// One CTA per (query tile, head, batch): dq of BQ rows, summed in fp32
+// registers over the key tiles the mask lets the tile see; scores and ds
+// are recomputed here rather than summed into dq by atomics in the dk/dv
+// kernel, so every sum has one order.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, const Args a) {
+  using C = Cfg<HD>;
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sDO = sQ + C::BQ * C::RS;
+  float* sK = sDO + C::BQ * C::RS;
+  float* sV = sK + C::BK * C::RS;
+  float* sP = sV + C::BK * C::RS;
+  float* sDS = sP + C::BQ * C::PS;
+  float* sLse = sDS + C::BQ * C::PS;
+  float* sDelta = sLse + C::BQ;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;        // latest q tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int H = gridDim.y;
+  const int kvh = h / a.G;
+  const int q0 = qt * C::BQ;
+  const int q_off = a.Sk - a.Sq;
+
+  load_rows<T, HD, C::BQ, C::RS>(sQ, q + b * a.q[0] + h * a.q[2], a.q[1], q0, a.Sq);
+  load_rows<T, HD, C::BQ, C::RS>(sDO, dout + b * a.d[0] + h * a.d[2], a.d[1], q0, a.Sq);
+  for (int r = tid; r < C::BQ; r += NT) {
+    const bool in = q0 + r < a.Sq;
+    const int64_t at = (static_cast<int64_t>(b) * a.Sq + q0 + r) * H + h;
+    sLse[r] = in ? lse[at] : 0.f;
+    sDelta[r] = in ? delta[at] : 0.f;
+  }
+
+  // key tiles that some query of this tile can see
+  const int q_first = q_off + q0;
+  const int q_last = q_off + min(q0 + C::BQ, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  int k_begin = a.window > 0 ? max(0, q_first - a.window + 1) : 0;
+  k_begin = (k_begin / C::BK) * C::BK;
+
+  const T* kb = k + b * a.k[0] + kvh * a.k[2];
+  const T* vb = v + b * a.v[0] + kvh * a.v[2];
+  const int tx = tid % C::TXD, ty = tid / C::TXD;
+  float acc[C::RM_Q][C::JD][4];
+#pragma unroll
+  for (int i = 0; i < C::RM_Q; ++i)
+#pragma unroll
+    for (int j = 0; j < C::JD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += C::BK) {
+    __syncthreads();   // q tile written / the previous tile's readers done
+    load_rows<T, HD, C::BK, C::RS>(sK, kb, a.k[1], k0, a.Sk);
+    load_rows<T, HD, C::BK, C::RS>(sV, vb, a.v[1], k0, a.Sk);
+    __syncthreads();
+    scores_and_ds<HD>(sQ, sDO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, a);
+    __syncthreads();
+    // dq += ds . k
+#pragma unroll 2
+    for (int c = 0; c < C::BK; ++c) {
+      float ds[C::RM_Q];
+#pragma unroll
+      for (int i = 0; i < C::RM_Q; ++i) ds[i] = sDS[(ty + C::TYR * i) * C::PS + c];
+#pragma unroll
+      for (int j = 0; j < C::JD; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(&sK[c * C::RS + 4 * tx + 4 * C::TXD * j]);
+#pragma unroll
+        for (int i = 0; i < C::RM_Q; ++i) {
+          acc[i][j][0] = fmaf(ds[i], kv.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(ds[i], kv.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(ds[i], kv.z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(ds[i], kv.w, acc[i][j][3]);
+        }
+      }
+    }
+  }
+
+  T* dqb = dq + b * a.dq[0] + h * a.dq[2];
+#pragma unroll
+  for (int i = 0; i < C::RM_Q; ++i) {
+    const int qi = q0 + ty + C::TYR * i;
+    if (qi >= a.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < C::JD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dqb[qi * a.dq[1] + 4 * tx + 4 * C::TXD * j + e] = from_f<T>(acc[i][j][e]);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                   int B, int H, int Kh, const Args& a, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int smem = C::SMEM_FLOATS * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dt = static_cast<const T*>(dout);
+  dim3 grid_kv((a.Sk + C::BK - 1) / C::BK, Kh, B);
+  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, NT, smem, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_q((a.Sq + C::BQ - 1) / C::BQ, H, B);
+  flash_bwd_dq_kernel<T, HD><<<grid_q, NT, smem, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run(int hd, const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                void* dv, int B, int H, int Kh, const long long* st, const Args& a,
+                cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * a.Sq * H;
+  const int blocks = static_cast<int>((rows + NT / 32 - 1) / (NT / 32));
+  flash_bwd_delta_kernel<T><<<blocks, NT, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, a.Sq, H, hd,
+      st[9], st[10], st[11], st[12], st[13], st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (hd) {
+    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    case 256: return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of every tensor must have stride 1.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     int dtype, int B, int Sq, int Sk, int H, int Kh, int hd,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -625,9 +1065,9 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, s);
+    err = dispatch_hd<float>(hd, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, G, st, causal, window, softcap, scale, s);
   else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, G, st, causal, window, softcap, scale, s);
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, G, st, causal, window, softcap, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -637,7 +1077,7 @@ extern "C" int flash_attention_fwd(
 // dimension of every tensor must have stride 1, q, k and v must start on
 // 16 bytes and their other strides be multiples of 8 elements (TMA).
 extern "C" int flash_attention_fwd_tc(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int Sq, int Sk, int H, int Kh, int hd,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -657,9 +1097,46 @@ extern "C" int flash_attention_fwd_tc(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {
-    case 64: err = tc::launch<64>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
-    case 128: err = tc::launch<128>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
-    default: err = tc::launch<256>(tq, tk, tv, o, B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    case 64: err = tc::launch<64>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    case 128: err = tc::launch<128>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    default: err = tc::launch<256>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
   }
+  return static_cast<int>(err);
+}
+
+// dtype: 0 = float32, 1 = bfloat16, shared by q, k, v, o, do and the
+// gradients dq, dk, dv; lse [B,Sq,H] fp32 from the forward, contiguous;
+// delta [B,Sq,H] fp32 scratch. st: 24 element strides (b, s, h) of q, k, v,
+// o, do, dq, dk, dv in that order; the last dimension of each has stride 1.
+// Launches the delta, dk/dv and dq kernels in order on the stream.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* lse,
+    const void* dout, void* delta, void* dq, void* dk, void* dv,
+    int dtype, int B, int Sq, int Sk, int H, int Kh, int hd, const long long* st,
+    int causal, int window, float softcap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Args a;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.G = H / Kh;
+  a.causal = causal;
+  a.window = window;
+  a.softcap = softcap;
+  a.scale = scale;
+  int64_t* dst[7] = {a.q, a.k, a.v, a.d, a.dq, a.dk, a.dv};
+  const int src[7] = {0, 1, 2, 4, 5, 6, 7};    // o (3) feeds only delta
+  for (int t = 0; t < 7; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = st[3 * src[t] + i];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err;
+  if (dtype == 0)
+    err = bwd::run<float>(hd, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Kh, st, a, s);
+  else if (dtype == 1)
+    err = bwd::run<__nv_bfloat16>(hd, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Kh, st, a, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-"""Flash-attention forward: wrapper of two CUDA kernels, and its plain version.
+"""Flash attention: wrappers of the CUDA forward and backward kernels, their
+plain versions, and the ``FlashAttention`` autograd Function.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::_kernel``
 (Pallas). ``csrc/flash_attention.cu`` holds two kernels of the same
@@ -27,6 +28,28 @@ launch in the module-level integers ``launches_tc`` or ``launches_fma``
 and in ``launches``, their sum. For CPU tensors it runs ``attention_plain``,
 a blocked online-softmax loop in fp32 that mirrors
 ``repro/kernels/ops.py::_block``; nothing else chooses between the two.
+
+The backward. The reference's flash backward is the XLA-level
+``custom_vjp`` ``repro/kernels/ops.py::_flash_bwd`` (no Pallas kernel):
+it saves ``(out, lse)`` and recomputes the scores block by block. Here
+``FlashAttention`` (a ``torch.autograd.Function``) does the same: its
+forward runs the forward kernel with the log-sum-exp as a second output
+(``[B,Sq,H]`` fp32) and saves ``q, k, v, o, lse``; its backward is
+``flash_attention_bwd``, three CUDA kernels in ``csrc/flash_attention.cu``
+on one stream (counted once in ``launches_bwd``): ``delta = rowsum(do o)``;
+one CTA per (b, kv head, key tile) summing dk and dv over the group's
+heads and the query tiles the mask lets see the tile; one CTA per (b,
+head, query tile) summing dq over its key tiles. No atomics: scores and p
+are computed twice instead, so every sum has one order. fp32 FMA from
+fp32 or bf16 inputs, gradients written in the inputs' dtype; tiles the
+mask rules out are skipped. What bounds it: 5 products against the
+forward's 2, ``10*B*H*Sq*Sk*hd`` FLOP (about halved under the causal
+mask), on the fp32 cores here, far from the tensor cores' rate; its times
+are in PERF.md. On CPU tensors both halves run the plain versions
+(``attention_fwd_lse_plain``, ``attention_bwd_plain``).
+``flash_attention`` takes the Function when grad is enabled and an input
+requires it; otherwise (serving) it launches the forward alone, without
+the log-sum-exp.
 """
 from __future__ import annotations
 
@@ -43,6 +66,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
 launches_fma = 0
+launches_bwd = 0      # backward calls (delta, dk/dv and dq kernels each)
 _fns: dict = {}
 
 
@@ -105,15 +129,71 @@ def check_tma(who="flash_attention", /, **tensors):
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
-    """q: [B,Sq,H,hd]; k,v: [B,Sk,Kh,hd] -> [B,Sq,H,hd] in q's dtype."""
+    """q: [B,Sq,H,hd]; k,v: [B,Sk,Kh,hd] -> [B,Sq,H,hd] in q's dtype.
+    Differentiable in q, k and v through ``FlashAttention``."""
     _check(q, k, v)
-    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
-    return _launch(q, k, v, causal, window, softcap, scale)
+    kw = _options(q, causal, window, softcap, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, kw)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, **kw)
+    return _launch(q, k, v, **kw)[0]
+
+
+def _options(q, causal, window, softcap, scale):
+    return dict(causal=bool(causal), window=int(window),
+                softcap=float(softcap),
+                scale=float(scale) if scale is not None
+                else q.shape[-1] ** -0.5)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its own backward (the reference's ``_flash``
+    custom_vjp): forward with the log-sum-exp, saving ``q, k, v, o, lse``;
+    backward from them, recomputing the scores. Kernels on CUDA tensors,
+    the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        if q.device.type == "cpu":
+            o, lse = attention_fwd_lse_plain(q, k, v, **kw)
+        else:
+            o, lse = _launch(q, k, v, want_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                        softcap=0.0, scale=None):
+    """dq, dk, dv of attention from the forward's output ``o`` and its
+    log-sum-exp ``lse`` [B,Sq,H] (fp32) and the output's gradient ``do``.
+    The CUDA kernels for CUDA tensors, ``attention_bwd_plain`` for CPU
+    tensors."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"lse {tuple(lse.shape)} is not [B,Sq,H] = "
+                         f"{tuple(q.shape[:3])}")
+    kw = _options(q, causal, window, softcap, scale)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention backward for device "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, o, lse, do, **kw)
 
 
 def _kernel(route):
@@ -125,18 +205,21 @@ def _kernel(route):
                       ctypes.c_float)
         if route == "tc":
             fn = lib.flash_attention_fwd_tc
-            fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + \
-                [I, I, F, F, P]
-        else:
+            fn.argtypes = [P] * 5 + [I] * 6 + [L] * 12 + [I, I, F, F, P]
+        elif route == "fma":
             fn = lib.flash_attention_fwd
-            fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + \
-                [I, I, F, F, P]
+            fn.argtypes = [P] * 5 + [I] * 7 + [L] * 12 + [I, I, F, F, P]
+        else:
+            fn = lib.flash_attention_bwd
+            fn.argtypes = [P] * 10 + [I] * 7 + [P, I, I, F, F, P]
         fn.restype = I
         _fns[route] = fn
     return fn
 
 
-def _launch(q, k, v, causal, window, softcap, scale):
+def _launch(q, k, v, *, causal, window, softcap, scale, want_lse=False):
+    """Launch the forward kernel: (o, lse), lse [B,Sq,H] fp32 when
+    ``want_lse``, else None (the kernel then writes no log-sum-exp)."""
     global launches, launches_tc, launches_fma
     B, Sq, H, hd = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
@@ -152,11 +235,14 @@ def _launch(q, k, v, causal, window, softcap, scale):
         strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     fn = _kernel(route)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     args = (*strides, *o.stride()[:3], int(bool(causal)), int(window),
             float(softcap), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if want_lse else None)
         if route == "tc":
             err = fn(*ptrs, B, Sq, Sk, H, Kh, hd, *args, stream)
         else:
@@ -172,7 +258,44 @@ def _launch(q, k, v, causal, window, softcap, scale):
     else:
         launches_fma += 1
     launches += 1
-    return o
+    return o, lse
+
+
+def _launch_bwd(q, k, v, o, lse, do, *, causal, window, softcap, scale):
+    global launches_bwd
+    B, Sq, H, hd = q.shape
+    Sk, Kh = k.shape[1], k.shape[2]
+    kernel_for(q.dtype, hd)                  # the head dims the kernels take
+    if not (o.dtype == do.dtype == q.dtype):
+        raise TypeError(f"o and do must have q's dtype {q.dtype}; got "
+                        f"{o.dtype}, {do.dtype}")
+    ins = {"q": q, "k": k, "v": v, "o": o, "do": do}
+    for name, t in ins.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride in its last dim")
+    lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    st = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    fn = _kernel("bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Kh, hd, st,
+                 int(causal), int(window), float(softcap), float(scale),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    launches_bwd += 1
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -186,13 +309,8 @@ def _block(qc, kc, vc, qpos, kpos, m, l, acc, *, causal, window, softcap,
     s = torch.einsum("bqkgh,bckh->bkgqc", qc, kc) * scale
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
-    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
-                      device=qc.device)
-    if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
-    if window > 0:
-        mask &= (qpos[:, None] - kpos[None, :]) < window
-    s = torch.where(mask, s, torch.full_like(s, NEG))
+    s = torch.where(_mask(qpos, kpos, causal, window), s,
+                    torch.full_like(s, NEG))
     m_new = torch.maximum(m, s.amax(-1))
     p = torch.exp(s - m_new[..., None])
     alpha = torch.exp(m - m_new)
@@ -206,6 +324,21 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     """Blocked online-softmax attention in fp32 on any device; the same
     function as the kernel. Skips kv chunks the mask rules out for a whole
     q chunk; ragged chunk edges are sliced, not padded."""
+    return _plain_forward(q, k, v, causal, window, softcap, scale, chunk_q,
+                          chunk_k)[0]
+
+
+def attention_fwd_lse_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
+                            scale=None, chunk_q=512, chunk_k=512):
+    """``attention_plain`` and the log-sum-exp of each row's scaled,
+    masked scores, ``m + log(max(l, 1e-30))`` [B,Sq,H] in fp32 (the
+    reference's ``ops.py::_fwd_blocked_lse``)."""
+    return _plain_forward(q, k, v, causal, window, softcap, scale, chunk_q,
+                          chunk_k)
+
+
+def _plain_forward(q, k, v, causal, window, softcap, scale, chunk_q,
+                   chunk_k):
     B, Sq, H, hd = q.shape
     _, Sk, Kh, _ = k.shape
     G = H // Kh
@@ -215,6 +348,7 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
     qf = q.float().reshape(B, Sq, Kh, G, hd)
     kf, vf = k.float(), v.float()
     out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, chunk_q):
         q1 = min(q0 + chunk_q, Sq)
         cq = q1 - q0
@@ -230,6 +364,76 @@ def attention_plain(q, k, v, *, causal=True, window=0, softcap=0.0,
             m, l, acc = _block(qf[:, q0:q1], kf[:, k0:k1], vf[:, k0:k1], qpos,
                                kpos, m, l, acc, causal=causal, window=window,
                                softcap=softcap, scale=scale)
-        o = acc / torch.clamp_min(l, 1e-30)[..., None]      # [B,Kh,G,cq,hd]
+        l = torch.clamp_min(l, 1e-30)
+        o = acc / l[..., None]                              # [B,Kh,G,cq,hd]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(B, cq, H, hd)
-    return out.to(q.dtype)
+        lse[:, q0:q1] = (m + torch.log(l)).permute(0, 3, 1, 2).reshape(
+            B, cq, H)
+    return out.to(q.dtype), lse
+
+
+def _mask(qpos, kpos, causal, window):
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return mask
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
+                        softcap=0.0, scale=None, chunk_q=512, chunk_k=512):
+    """dq, dk, dv in fp32 on any device, block for block the reference's
+    ``ops.py::_flash_bwd``: ``delta = rowsum(do o)``; per (q chunk, k
+    chunk) ``p = exp(s - lse)`` masked, ``dv += p^T do``, ``dp = do v^T``,
+    ``ds = p (dp - delta)``, times ``1 - t^2`` under a softcap
+    (``t = tanh(s_raw / softcap)``) and the scale, ``dq += ds k``,
+    ``dk += ds^T q``. GQA sums dk and dv over a group's heads; queries are
+    right-aligned in the keys. The chunks the mask rules out are skipped
+    (the windowed band of the reference is the same set of blocks).
+    Gradients come back in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    _, Sk, Kh, _ = k.shape
+    G = H // Kh
+    scale = scale if scale is not None else hd ** -0.5
+    off = Sk - Sq
+    dev = q.device
+    qf = q.float().reshape(B, Sq, Kh, G, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, Kh, G, hd)
+    delta = (dof * o.float().reshape(B, Sq, Kh, G, hd)).sum(-1)  # [B,Sq,Kh,G]
+    lsef = lse.float().reshape(B, Sq, Kh, G)
+    dq = torch.zeros((B, Sq, Kh, G, hd), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Sk, Kh, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, Kh, hd), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, chunk_q):
+        q1 = min(q0 + chunk_q, Sq)
+        qpos = off + torch.arange(q0, q1, device=dev)
+        qc, doc = qf[:, q0:q1], dof[:, q0:q1]
+        lsec = lsef[:, q0:q1].permute(0, 2, 3, 1)[..., None]   # [B,Kh,G,cq,1]
+        dc = delta[:, q0:q1].permute(0, 2, 3, 1)[..., None]
+        k_lo = max(0, off + q0 - window + 1) if window > 0 else 0
+        k_hi = min(Sk, off + q1) if causal else Sk
+        for k0 in range(k_lo // chunk_k * chunk_k, k_hi, chunk_k):
+            k1 = min(k0 + chunk_k, Sk)
+            kc, vc = kf[:, k0:k1], vf[:, k0:k1]
+            mask = _mask(qpos, torch.arange(k0, k1, device=dev), causal,
+                         window)
+            s = torch.einsum("bqkgh,bckh->bkgqc", qc, kc) * scale
+            t = None
+            if softcap > 0:
+                t = torch.tanh(s / softcap)
+                s = t * softcap
+            s = torch.where(mask, s, torch.full_like(s, NEG))
+            p = torch.where(mask, torch.exp(s - lsec), torch.zeros_like(s))
+            dv[:, k0:k1] += torch.einsum("bkgqc,bqkgh->bckh", p, doc)
+            dp = torch.einsum("bqkgh,bckh->bkgqc", doc, vc)
+            ds = p * (dp - dc)
+            if t is not None:
+                ds = ds * (1.0 - t * t)
+            ds = ds * scale
+            dq[:, q0:q1] += torch.einsum("bkgqc,bckh->bqkgh", ds, kc)
+            dk[:, k0:k1] += torch.einsum("bkgqc,bqkgh->bckh", ds, qc)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -25,6 +25,13 @@ the module-level integer ``launches``. For CPU tensors it runs
 ``rglru_plain``, the reference's blocked path
 (``repro/kernels/ops.py::rglru``) in plain tensor ops; nothing else chooses
 between the two.
+
+Gradients: the reference has no backward kernel for the RG-LRU (JAX
+differentiates its blocked path), so none is owed here. When grad is
+enabled and an input requires it, ``rglru_scan`` runs ``RGLRUScan``, a
+``torch.autograd.Function`` whose forward is the same kernel (or the plain
+version on CPU tensors) and whose backward recomputes ``rglru_plain``
+under autograd and differentiates it, through y and ``h_final`` alike.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ssd import plain_vjp
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,11 +75,41 @@ def rglru_scan(x, a_log, gate_a, gate_x, *, c=8.0, h0=None):
     """x, gate_a, gate_x: [B,S,D]; a_log: [D]; h0: [B,D] or None.
     Returns (y [B,S,D] in x's dtype, h_final [B,D] fp32)."""
     _check(x, a_log, gate_a, gate_x, h0)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no RG-LRU scan for device {x.device}")
+    ins = (x, a_log, gate_a, gate_x, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ins):
+        return RGLRUScan.apply(*ins, float(c))
+    return _forward(*ins, float(c))
+
+
+def _forward(x, a_log, gate_a, gate_x, h0, c):
     if x.device.type == "cpu":
         return rglru_plain(x, a_log, gate_a, gate_x, c=c, h0=h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"no RG-LRU scan for device {x.device}")
-    return _launch(x, a_log, gate_a, gate_x, float(c), h0)
+    return _launch(x, a_log, gate_a, gate_x, c, h0)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU scan with a gradient: forward by the kernel (the plain
+    version on CPU tensors), backward through the plain version's
+    autograd, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, gate_a, gate_x, h0, c):
+        ctx.save_for_backward(x, a_log, gate_a, gate_x, h0)
+        ctx.c = c
+        ctx.set_materialize_grads(False)   # None for an unused output
+        return _forward(x, a_log, gate_a, gate_x, h0, c)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dh):
+        grads = plain_vjp(
+            lambda x, a_log, gate_a, gate_x, h0, c: rglru_plain(
+                x, a_log, gate_a, gate_x, c=c, h0=h0),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], (dy, dh), c=ctx.c)
+        return (*grads, None)
 
 
 def _kernel():

@@ -43,6 +43,13 @@ the module-level integers ``launches_tc`` or ``launches_fma`` and in
 ``launches``, their sum. For CPU tensors it runs ``ssd_plain``, the
 reference's blocked path (``repro/kernels/ops.py::ssd``) in plain tensor
 ops; nothing else chooses between the two.
+
+Gradients: the reference has no backward kernel for the SSD (JAX
+differentiates its blocked path), so none is owed here. When grad is
+enabled and an input requires it, ``ssd_scan`` runs ``SSDScan``, a
+``torch.autograd.Function`` whose forward is the same kernel (or the plain
+version on CPU tensors) and whose backward recomputes ``ssd_plain`` under
+autograd and differentiates it, through y and ``h_final`` alike.
 """
 from __future__ import annotations
 
@@ -114,11 +121,61 @@ def ssd_scan(x, dt, A_log, B, C, *, D=None, h0=None, chunk=256):
     kernels block by 128 (``tc``) or 64 (``fma``) rows and mask the ragged
     tail."""
     _check(x, dt, A_log, B, C, D, h0)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SSD scan for device {x.device}")
+    ins = (x, dt, A_log, B, C, D, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ins):
+        return SSDScan.apply(*ins, chunk)
+    return _forward(*ins, chunk)
+
+
+def _forward(x, dt, A_log, B, C, D, h0, chunk):
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A_log, B, C, D=D, h0=h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD scan for device {x.device}")
     return _launch(x, dt, A_log, B, C, D, h0)
+
+
+def plain_vjp(plain, inputs, needs, grads_out, **kw):
+    """Gradients of ``plain(*inputs, **kw)`` (which returns (y, h_final))
+    with respect to the inputs flagged in ``needs``, given the gradients
+    of its outputs (None for an output with none): the plain version is
+    recomputed under autograd. None for the other inputs."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) if t is not None else None
+                  for t, n in zip(inputs, needs)]
+        outs = plain(*leaves, **kw)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        want = [t for t, n in zip(leaves, needs) if t is not None and n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and want else [None] * len(want))
+    return [next(got) if t is not None and n else None
+            for t, n in zip(leaves, needs)]
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with a gradient: forward by the kernel (the plain
+    version on CPU tensors), backward through the plain version's
+    autograd, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, D, h0, chunk):
+        ctx.save_for_backward(x, dt, A_log, B, C, D, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)   # None for an unused output
+        return _forward(x, dt, A_log, B, C, D, h0, chunk)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dh):
+        grads = plain_vjp(
+            lambda x, dt, A_log, B, C, D, h0, chunk: ssd_plain(
+                x, dt, A_log, B, C, D=D, h0=h0, chunk=chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:7], (dy, dh),
+            chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def _kernel(route):

@@ -9,7 +9,8 @@ the place of ``lax.scan``.
 
 Public API:
     LM(cfg, device=..., generator=...)
-    .forward(batch)                 -> (logits, aux, off)
+    .forward(batch, impl=, schedule=) -> (logits, aux, off)
+    .loss(batch, impl=, schedule=)  -> (loss, {"ce", "aux"})
     .prefill(batch, capacity)       -> (cache, last_logits)
     .decode_step(cache, tokens)     -> (cache, logits)   # cache updated in place
     .init_cache(batch, capacity)    -> cache tree of meta tensors
@@ -21,15 +22,20 @@ The port runs ``("attn", "dense")`` layers (the deepseek-7b family),
 ``("rec", "dense")`` layers (an RG-LRU mixer) and ``("local", "dense")``
 sliding-window attention layers (recurrentgemma-9b, gemma3-1b). MLA, MoE,
 encoder-decoder and vision inputs raise ``NotImplementedError`` naming
-their ROADMAP item. Remat and sharding constraints have no
-counterpart here (serving only, one card).
+their ROADMAP item. ``cfg.remat`` ("none", "full", "dots_saveable") maps
+to ``torch.utils.checkpoint`` per head and tail layer and per core period,
+as the reference remats its layers and ``period_body``; it applies only
+while grad is enabled. Sharding constraints have no counterpart on one
+card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -181,8 +187,44 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
 # ---------------------------------------------------------------------------
 
 
-def _period(tree, i):
-    return tree_map(lambda t: t[i], tree)
+def periods(tree, n):
+    """The ``n`` per-period trees of a stacked tree (leaves ``[n, ...]``),
+    each leaf split by one ``unbind``. Under autograd its backward then
+    writes a stacked gradient once; indexing period by period would add a
+    zeroed full-size gradient per period, traffic quadratic in depth (the
+    reference's ``lax.scan`` accumulates in place)."""
+    if isinstance(tree, dict):
+        parts = {k: periods(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [periods(v, n) for v in tree]
+        return [[p[i] for p in parts] for i in range(n)]
+    return list(tree.unbind(0))
+
+
+# the matrix products whose outputs "dots_saveable" keeps (the reference's
+# jax.checkpoint_policies.dots_saveable); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(kind, fn):
+    """``fn`` under the reference's remat policy ``kind``."""
+    if kind == "none":
+        return fn
+    if kind == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if kind == "dots_saveable":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {kind!r}")
 
 
 class Stack(nn.Module):
@@ -240,14 +282,33 @@ class Stack(nn.Module):
         }
 
     def forward(self, x, ctx):
-        """Full sequence (the reference's ``Stack.apply``) -> (x, aux)."""
-        x, _, aux = self._full(x, ctx, None)
+        """Full sequence (the reference's ``Stack.apply``) -> (x, aux).
+        While grad is enabled each head and tail layer and each core period
+        runs under ``cfg.remat``."""
+        cfg, params = self.cfg, params_tree(self)
+        kind = self.cfg.remat if torch.is_grad_enabled() else "none"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def layers(pairs):
+            def body(x):
+                a = torch.zeros((), dtype=torch.float32, device=x.device)
+                for k, p in pairs:
+                    x, ak = layer_apply(cfg, k, p, x, ctx)
+                    a = a + ak
+                return x, a
+            return _remat(kind, body)
+
+        groups = [[pair] for pair in zip(self.head_kinds, params["head"])]
+        groups += [list(zip(self.period_kinds, core))
+                   for core in periods(params["core"], self.n_periods)]
+        groups += [[pair] for pair in zip(self.tail_kinds, params["tail"])]
+        for pairs in groups:
+            x, a = layers(pairs)(x)
+            aux = aux + a
         return x, aux
 
     def prefill(self, x, ctx, capacity):
-        return self._full(x, ctx, capacity)
-
-    def _full(self, x, ctx, capacity):
+        """Full sequence with decode caches -> (x, caches, aux)."""
         cfg, params = self.cfg, params_tree(self)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = {"head": [], "core": [], "tail": []}
@@ -256,9 +317,9 @@ class Stack(nn.Module):
             caches["head"].append(c)
             aux = aux + a
         per_period = []
-        for i in range(self.n_periods):
+        for core in periods(params["core"], self.n_periods):
             cs = []
-            for k, p in zip(self.period_kinds, _period(params["core"], i)):
+            for k, p in zip(self.period_kinds, core):
                 x, c, a = layer_prefill(cfg, k, p, x, ctx, capacity)
                 cs.append(c)
                 aux = aux + a
@@ -279,9 +340,9 @@ class Stack(nn.Module):
         cfg, params = self.cfg, params_tree(self)
         for k, p, c in zip(self.head_kinds, params["head"], cache["head"]):
             x, _ = layer_decode(cfg, k, p, x, c, ctx)
-        for i in range(self.n_periods):
-            for k, p, c in zip(self.period_kinds, _period(params["core"], i),
-                               _period(cache["core"], i)):
+        for core, cores in zip(periods(params["core"], self.n_periods),
+                               periods(cache["core"], self.n_periods)):
+            for k, p, c in zip(self.period_kinds, core, cores):
                 x, _ = layer_decode(cfg, k, p, x, c, ctx)
         for k, p, c in zip(self.tail_kinds, params["tail"], cache["tail"]):
             x, _ = layer_decode(cfg, k, p, x, c, ctx)
@@ -379,13 +440,30 @@ class LM(nn.Module):
         return torch.arange(S, device=self.device)[None].expand(B, S)
 
     # -- full-sequence forward ------------------------------------------------------
-    def forward(self, batch, *, impl=None):
-        """batch["tokens"]: [B,S] -> (logits [B,S,V], aux, loss offset)."""
+    def forward(self, batch, *, impl=None, schedule="full"):
+        """batch["tokens"]: [B,S] -> (logits [B,S,V], aux, loss offset).
+        ``schedule`` is the reference's attention schedule: "full" and
+        "triangular" give the same numbers here, since the kernels and the
+        plain version already skip the blocks the mask rules out."""
+        if schedule not in ("full", "triangular"):
+            raise ValueError(f"unknown attention schedule {schedule!r}")
         x = self._embed(batch["tokens"])
         B, S, _ = x.shape
         ctx = {"positions": self._positions(B, S), "impl": impl}
         x, aux = self.decoder(x, ctx)
         return self._logits(x), aux, 0
+
+    def loss(self, batch, *, impl=None, schedule="full"):
+        """Next-token cross-entropy in fp32 over the text region and the
+        padded vocab, plus ``aux`` (the reference's ``LM.loss``).
+        Returns (loss, {"ce", "aux"})."""
+        logits, aux, off = self.forward(batch, impl=impl, schedule=schedule)
+        S = logits.shape[1]
+        lf = logits[:, off:S - 1].float()
+        labels = batch["tokens"][:, 1:].long()
+        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+        ce = torch.mean(torch.logsumexp(lf, -1) - gold)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------------
     def init_cache(self, batch, capacity):

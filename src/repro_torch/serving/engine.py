@@ -96,6 +96,13 @@ class ServingEngine:
                 self.active[s] = None
         self.steps += 1
 
+    def run_until_done(self, max_steps: int = 1024):
+        """Step until no slot is active, at most ``max_steps`` times."""
+        for _ in range(max_steps):
+            if not any(self.active):
+                break
+            self.step()
+
     # -- migratability ------------------------------------------------------------
     def state_dict(self):
         return {"cache": self.cache, "steps": self.steps}

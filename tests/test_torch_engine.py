@@ -117,3 +117,47 @@ def test_idle_slot_past_capacity_is_clamped(models):
     assert eng.steps == 10
     assert int(eng.cache["lengths"][1]) == cap - 2 + 10 > cap
     assert got[0] == alone[0]
+
+
+def test_run_until_done_after_hand_off_matches_jax_engine(models):
+    """tests/test_substrate.py::test_serving_engine_decodes_and_migrates on
+    both engines: two requests, one step, the state handed to a fresh
+    engine, then ``run_until_done``; slots=2 != n_periods=3, which the
+    reference's slot write needs."""
+    from repro.serving.engine import Request as JaxRequest
+    from repro.serving.engine import ServingEngine as JaxEngine
+    jlm, params, lm = models
+    assert lm.decoder.n_periods != 2
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, 8).astype(np.int32) for _ in range(2)]
+
+    def drive(make, request):
+        eng = make()
+        reqs = [request(i, p, max_new=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            assert eng.submit(r)
+        eng.step()
+        fresh = make()
+        fresh.load_state_dict(eng.state_dict())
+        fresh.active = eng.active
+        fresh.run_until_done()
+        assert not any(fresh.active) and fresh.steps == 5
+        return [r.out for r in reqs]
+
+    want = drive(lambda: JaxEngine(jlm, params, slots=2, capacity=CAP),
+                 JaxRequest)
+    got = drive(lambda: ServingEngine(lm, slots=2, capacity=CAP,
+                                      device="cpu"), Request)
+    assert got == want
+    assert all(len(s) == 6 for s in got)
+
+
+def test_run_until_done_stops_at_max_steps(models):
+    _, _, lm = models
+    eng = ServingEngine(lm, slots=2, capacity=CAP, device="cpu")
+    req = Request(0, _prompts(1)[0], max_new=10)
+    assert eng.submit(req)
+    eng.run_until_done(max_steps=3)
+    assert eng.steps == 3 and len(req.out) == 4 and not req.done
+    eng.run_until_done()
+    assert req.done and len(req.out) == 10 and eng.steps == 9
