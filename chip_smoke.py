@@ -26,9 +26,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``sweep-bwd`` the flash backward (dq, dk, dv and the forward's
              log-sum-exp, over the flash sweep's small shapes, dtypes and
              variants and the two served S=2048 prefill shapes, beside the
-             plain backward in 64-row chunks as a witness; then the
-             FlashAttention Function against autograd through the plain
-             forward, SDPA as a second witness in bf16), ``grad-scan`` the
+             plain backward in 64-row chunks as a witness and, at S=2048,
+             SDPA's backward as a second; each case's route, tensor-core
+             ``tc`` (bf16 at head dims 64/128/256) or FMA ``fma``, held by
+             the counters; then the FlashAttention Function against
+             autograd through the plain forward, SDPA as a second witness
+             in bf16), ``grad-scan`` the
              SSD and RG-LRU Functions' input gradients against autograd
              through their plain versions at the served widths.
  4. timing — each kernel at the main paths' shapes (the device's time:
@@ -40,7 +43,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              for it; ``timing`` also gives the flash kernel's TFLOP/s and
              ratio to SDPA, and times the fp32 FMA flash kernel at
              deepseek-7b's shape; ``timing-bwd`` the flash backward at the
-             two served shapes, beside SDPA's backward (fwd+bwd less fwd).
+             two served shapes with its route, beside SDPA's backward
+             (fwd+bwd less fwd).
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
              set to 0 just before and read just after, and must equal one
@@ -85,7 +89,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              fp32 twin at 2 layers, then 3 AdamW steps through
              ``optim.adamw.make_train_step`` with the counts set to 0 just
              before (2 x layers flash forwards and layers backwards per
-             step): ms per step, tokens/s, peak memory.
+             step, all on the tensor-core kernels; the fp32 twin's backward
+             on the FMA ones): ms per step, tokens/s, peak memory.
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -635,18 +640,22 @@ def phase_sweep_bwd():
     recurrentgemma-9b MQA window 2048). Both backwards get the forward
     kernel's o and log-sum-exp (the lse itself is held against the plain
     forward's); per case the forward's limits (TOL elementwise, REL_L2).
-    Beside each case a witness, the plain backward in 64-row chunks (a
+    Each case asserts its route by the counters: bf16 at head dims
+    64/128/256 on the tensor-core kernels (``tc``), the rest on the FMA
+    ones. Beside each case a witness, the plain backward in 64-row chunks (a
     correct code that sums in another order), is read against the plain
-    one. Then once: the FlashAttention Function's gradients (forward and
-    backward kernels) against autograd through ``attention_plain``, with
-    SDPA's autograd as a second witness in bf16."""
+    one; at the two S=2048 shapes SDPA's backward (a correct code on the
+    tensor cores, rounding P and dS to bf16) is a second witness. Then
+    once: the FlashAttention Function's gradients (forward and backward
+    kernels) against autograd through ``attention_plain``, with SDPA's
+    autograd as a second witness in bf16."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     cases = [(s, dt, v) for s in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
     cases += [((1, 2048, 2048, 32, 32, 128), torch.bfloat16, "causal"),
               ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, "window2048")]
-    bad, worst = [], {}
+    bad, worst, routes = [], {}, {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
         B, Sq, Sk, H, Kh, hd = shape
         q, k, v = rand_qkv(500 + seed, B, Sq, Sk, H, Kh, hd, dt)
@@ -657,22 +666,32 @@ def phase_sweep_bwd():
         kw = {"causal": True, "window": 0, "softcap": 0.0, **kw}
         o, lse = fa._launch(q, k, v, want_lse=True, **kw)
         _, lse_plain = fa.attention_fwd_lse_plain(q, k, v, **kw)
-        before = fa.launches_bwd
+        before = bwd_counts()
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
-        assert fa.launches_bwd == before + 1
+        route = "tc" if dt == torch.bfloat16 and hd >= 64 else "fma"
+        after = bwd_counts()
+        assert fa.bwd_kernel_for(dt, hd) == route and after == {
+            r: before[r] + (r == route) for r in before}, \
+            (shape, dt, route, before, after)
+        routes[route] += 1
         want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
         wit = fa.attention_bwd_plain(q, k, v, o, lse, do, chunk_q=64,
                                      chunk_k=64, **kw)
+        # at S=2048, recurrentgemma's 2048-token window masks nothing the
+        # causal mask keeps, so SDPA's causal backward is a witness there
+        sdpa = _sdpa_grads(q, k, v, do, kw["scale"]) if Sq == 2048 else None
         name = str(dt).split(".")[-1]
         rtol, atol = TOL[name]
         ok, errs = True, {}
-        for label, a, b, w in (("lse", lse, lse_plain, lse_plain),
-                               *zip(("dq", "dk", "dv"), got, want, wit)):
+        for i, (label, a, b, w) in enumerate((
+                ("lse", lse, lse_plain, lse_plain),
+                *zip(("dq", "dk", "dv"), got, want, wit))):
             diff = (a.float() - b.float()).abs()
             excess = (diff - atol - rtol * b.float().abs()).max().item()
             rel = _rel(a, b)
-            errs[label] = (diff.max().item(), rel, _rel(w, b))
+            errs[label] = (diff.max().item(), rel, _rel(w, b),
+                           _rel(sdpa[i - 1], b) if sdpa and i else None)
             ok = ok and excess <= 0 and rel <= REL_L2[name] and \
                 bool(torch.isfinite(a).all())
             key = f"{name}_{label}"
@@ -680,14 +699,19 @@ def phase_sweep_bwd():
             worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
             worst[key + "_witness_rel_l2"] = max(
                 worst.get(key + "_witness_rel_l2", 0.0), errs[label][2])
-        log(f"sweep-bwd {shape} {name:8s} {var:10s} " + ", ".join(
-            f"{lb} max_abs_err={e:.3e} rel_l2={r:.3e} (witness {w:.3e})"
-            for lb, (e, r, w) in errs.items()) + f" {'ok' if ok else 'FAIL'}")
+            if errs[label][3] is not None:
+                worst[key + "_sdpa_rel_l2"] = max(
+                    worst.get(key + "_sdpa_rel_l2", 0.0), errs[label][3])
+        log(f"sweep-bwd {shape} {name:8s} {var:10s} {route:3s} " + ", ".join(
+            f"{lb} max_abs_err={e:.3e} rel_l2={r:.3e} (witness {w:.3e}"
+            + (f", SDPA {sd:.3e})" if sd is not None else ")")
+            for lb, (e, r, w, sd) in errs.items())
+            + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append((shape, name, var))
     log(f"sweep-bwd: {len(cases) - len(bad)}/{len(cases)} cases within "
-        f"tolerance (the backward kernel ran in every case); worst errors "
-        f"{json.dumps(worst)}")
+        f"tolerance (the backward kernels ran in every case, by route "
+        f"{json.dumps(routes)}); worst errors {json.dumps(worst)}")
     # the Function end to end against autograd through the plain forward
     fn_out = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -721,6 +745,14 @@ def phase_sweep_bwd():
                              f"version: {bad}")
 
 
+def _sdpa_grads(q, k, v, do, scale):
+    """dq, dk, dv of causal attention by SDPA's autograd (a witness)."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = _sdpa_witness(None, *leaves, causal=True, scale=scale)
+    return torch.autograd.grad(out, leaves, do)
+
+
 def attention_bwd_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None,
                         window=0):
     """Least time for the flash backward. FLOP: 5 products (q.k^T, do.v^T,
@@ -745,10 +777,11 @@ BWD_TIMING = (("deepseek", 2048, 32, 32, 128, 0),
 
 
 def phase_timing_bwd():
-    """The flash backward's device time at the two served prefill shapes,
-    beside the plain backward's, a library yardstick (SDPA's backward:
-    SDPA forward plus backward by autograd, less SDPA's forward) and the
-    bound; the host's time to issue a call beside it."""
+    """The flash backward's device time at the two served prefill shapes
+    (the route that ran them, ``tc`` or ``fma``), beside the plain
+    backward's, a library yardstick (SDPA's backward: SDPA forward plus
+    backward by autograd, less SDPA's forward) and the bound; the host's
+    time to issue a call beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -786,14 +819,16 @@ def phase_timing_bwd():
             1, S, S, H, hd, 2, True, Kh=Kh, window=window)
         shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
         row = dict(path=label, S=S, shape=shape, window=window,
-                   dtype="bfloat16", ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                   dtype="bfloat16", route=fa.bwd_kernel_for(q.dtype, hd),
+                   ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
                    library_ms=lib_ms, library_fwd_ms=lib_fwd_ms,
                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                    tflops=flops / (ms * 1e-3) / 1e12,
                    share_of_bound=bound_ms / ms, vs_sdpa=ms / lib_ms,
                    host_ms_per_call=host)
         rows.append(row)
-        log(f"timing-bwd {shape} bf16 causal window={window}: {ms:.4f} ms "
+        log(f"timing-bwd {shape} bf16 causal window={window} "
+            f"({row['route']} kernels): {ms:.4f} ms "
             f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, SDPA backward "
             f"yardstick {lib_ms:.4f} ms (fwd+bwd less fwd {lib_fwd_ms:.4f}), "
             f"bound {bound_ms:.5f} ms ({bound_by}), {row['tflops']:.2f} "
@@ -931,6 +966,12 @@ def kernel_counts():
             "rglru_scan": rglru.launches}
 
 
+def bwd_counts():
+    """Flash backward calls by route: tensor-core and FMA kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"tc": fa.launches_bwd_tc, "fma": fa.launches_bwd_fma}
+
+
 def flash_counts():
     """Flash launches by kernel: tensor-core and FMA."""
     from repro_torch.kernels import flash_attention as fa
@@ -947,6 +988,7 @@ def reset_kernel_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, ssd
     fa.launches = fa.launches_tc = fa.launches_fma = fa.launches_bwd = 0
+    fa.launches_bwd_tc = fa.launches_bwd_fma = 0
     ssd.launches = ssd.launches_tc = ssd.launches_fma = 0
     rglru.launches = 0
 
@@ -1535,14 +1577,15 @@ def phase_train():
         witnesses and the control; the wq/wk/wv gradients of layer 0 and
         the last layer are reported.
       * An fp32 twin at TRAIN_TWIN_LAYERS layers of the same width (FMA
-        forward and the backward kernel in fp32): loss and grad_norm within
+        forward and the FMA backward kernels): loss and grad_norm within
         TRAIN_REL, and every leaf (wq/wk/wv of both layers, the head) at
-        GRAD_REL_L2_FP32.
+        GRAD_REL_L2_FP32. Each gate's kernel run is counted by backward
+        route: the twin's on ``fma``, the bf16 model's on ``tc``.
       * TRAIN_STEPS AdamW steps on the same batch through
         ``make_train_step``: the loss falls; the counts, set to 0 just
         before, read 2 x layers forward launches per step (remat runs each
         layer's forward twice), all on the tensor-core kernel, and layers
-        backward launches; ms per step (CUDA events), tokens/s and the
+        backward launches, all on the tensor-core route; ms per step (CUDA events), tokens/s and the
         peak allocated memory, which must stay under TRAIN_PEAK_GIB; then
         a fourth step under ``torch.profiler`` (device time by kernel, the
         device's idle share)."""
@@ -1551,7 +1594,9 @@ def phase_train():
     out = {"layers": TRAIN_LAYERS, "seq": TRAIN_S, "batch": 1}
 
     lm, batch = _train_lm(TRAIN_TWIN_LAYERS, "float32")
+    reset_kernel_counts()
     twin = _train_gate(lm, batch)
+    twin_bwd = bwd_counts()
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1560,7 +1605,9 @@ def phase_train():
 
     lm, batch = _train_lm(TRAIN_LAYERS, "bfloat16")
     n_params = sum(p.numel() for p in lm.parameters())
+    reset_kernel_counts()
     gate = _train_gate(lm, batch)
+    gate_bwd = bwd_counts()
     log(f"train: {TRAIN_ARCH} at full width, {TRAIN_LAYERS} layers, "
         f"{n_params / 1e9:.3f} B params; bf16 step 1, relative to the plain "
         f"path {json.dumps(gate)}")
@@ -1590,6 +1637,7 @@ def phase_train():
             f"host clock {steps[-1]['host_ms']:.3f} ms)")
     launches = kernel_counts()
     flash = flash_counts()
+    flash_bwd = bwd_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     # one more step under the profiler, after the counts are read
     prof = log_profile("train: profiled step 4", profiled(
@@ -1598,7 +1646,11 @@ def phase_train():
     want_bwd = TRAIN_STEPS * TRAIN_LAYERS
     ms = [r["ms"] for r in steps[1:]]
     out.update(n_params=n_params, steps=steps, launches=launches,
-               flash_launches_by_kernel=flash, peak_allocated_gib=peak,
+               flash_launches_by_kernel=flash,
+               flash_bwd_launches_by_route=flash_bwd,
+               gate_bwd_launches_by_route={"twin_fp32": twin_bwd,
+                                           "bf16": gate_bwd},
+               peak_allocated_gib=peak,
                ms_per_step=sum(ms) / len(ms),
                tokens_per_s=TRAIN_S / (sum(ms) / len(ms) / 1e3),
                gate=gate, twin=twin, twin_layers=TRAIN_TWIN_LAYERS,
@@ -1606,8 +1658,10 @@ def phase_train():
     log(f"train: {TRAIN_STEPS} steps, {out['ms_per_step']:.3f} ms per step "
         f"after the first (CUDA events), {out['tokens_per_s']:.1f} tokens/s; "
         f"peak allocated {peak:.2f} GiB; launches {json.dumps(launches)}, "
-        f"flash forward by kernel {json.dumps(flash)} (want {want_fwd} "
-        f"forward, {want_bwd} backward)")
+        f"flash forward by kernel {json.dumps(flash)}, backward by route "
+        f"{json.dumps(flash_bwd)} (want {want_fwd} forward, {want_bwd} "
+        f"backward); the gates' backward by route: fp32 twin "
+        f"{json.dumps(twin_bwd)}, bf16 {json.dumps(gate_bwd)}")
     del state, step, lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1616,6 +1670,9 @@ def phase_train():
     assert launches["flash_attention_fwd"] == want_fwd, launches
     assert flash == {"tc": want_fwd, "fma": 0}, flash
     assert launches["flash_attention_bwd"] == want_bwd, launches
+    assert flash_bwd == {"tc": want_bwd, "fma": 0}, flash_bwd
+    assert twin_bwd == {"tc": 0, "fma": TRAIN_TWIN_LAYERS}, twin_bwd
+    assert gate_bwd == {"tc": TRAIN_LAYERS, "fma": 0}, gate_bwd
     assert launches["ssd_scan"] == launches["rglru_scan"] == 0, launches
     assert peak <= TRAIN_PEAK_GIB, peak
     _assert_train_gate(twin, GRAD_REL_L2_FP32, TRAIN_REL, GRAD_LEAVES)
@@ -1822,17 +1879,25 @@ def main():
                 for r in timing]
         if kname == "flash_attention_bwd":
             entry["design"] = (
-                "fp32 FMA from fp32 or bf16 inputs, three kernels on one "
-                "stream: delta = rowsum(do o); flash_bwd_dkdv_kernel, one "
-                "CTA per (b, kv head, key tile) summing dk and dv over the "
-                "group's heads and the visible query tiles; "
-                "flash_bwd_dq_kernel, one CTA per (b, head, query tile) "
-                "summing dq over its key tiles; scores and p computed in "
-                "both, no atomics; masked tiles skipped")
+                "bf16 at head dims 64/128/256 (route tc): delta and "
+                "lse*log2(e) into [B,H,Sq] scratch; "
+                "flash_bwd_dkdv_tc_kernel, one CTA per (b, kv head x head "
+                "split, key tile), a TMA producer warpgroup and two wgmma "
+                "consumers, S^T = K.Q^T and dP^T = V.dO^T from shared "
+                "memory, P^T and dS^T rounded to bf16 as register operands "
+                "of dV += P^T.dO and dK += dS^T.Q, q/do through a two-stage "
+                "ring; at GQA/MQA the group's heads split across CTAs and "
+                "flash_bwd_reduce_kernel sums the fp32 partials in order; "
+                "flash_bwd_dq_tc_kernel, one CTA per (b, head, 128 queries), "
+                "k/v through the ring, dQ += dS.K by wgmma. fp32 and bf16 at "
+                "16/32 (route fma): flash_bwd_{delta,dkdv,dq}_kernel, fp32 "
+                "FMA. No atomics; masked tiles skipped")
+            entry["launches_by_kernel"] = train["flash_bwd_launches_by_route"]
             entry["at_shapes"] = [
-                {k: r[k] for k in ("path", "shape", "window", "ms",
+                {k: r[k] for k in ("path", "shape", "window", "route", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "max_abs_err")}
+                                   "library_ms", "max_abs_err",
+                                   "host_ms_per_call")}
                 for r in timing_bwd]
         if kname == "ssd_scan":
             entry["design"] = (

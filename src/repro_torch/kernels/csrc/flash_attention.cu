@@ -1,5 +1,5 @@
 // Flash attention for Hopper (sm_90a), plain CUDA C++: two forward kernels
-// and a backward of three.
+// and two backward routes.
 //
 // The forward replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::_kernel (Pallas; grid (B, H,
@@ -10,18 +10,41 @@
 // backward; the served path passes none and runs an instantiation without
 // that store.
 //
-// The backward (entry flash_attention_bwd; the reference's XLA-level
-// custom_vjp ops.py::_flash_bwd, which has no Pallas kernel) is a first,
-// simple design in fp32 FMA from fp32 or bf16 inputs: a delta kernel
-// (rowsum(do o)), flash_bwd_dkdv_kernel (one CTA per (b, kv head, key
-// tile): dk and dv summed in registers over the G query heads of the
-// group and the query tiles the mask lets see the tile) and
-// flash_bwd_dq_kernel (one CTA per (b, head, query tile): dq summed over
-// its key tiles). Each recomputes s and p from q, k and the saved lse,
-// so dq needs no atomics and every sum has one order. What bounds it: 5
-// products of 2 hd FLOP per visible query-key pair and head, compute far
-// above the ridge; on the fp32 cores here the tensor cores' rate is out of
-// reach (its times against the bound are in PERF.md).
+// The backward replaces the reference's XLA-level custom_vjp
+// ops.py::_flash_bwd (no Pallas kernel): dq, dk and dv from q, k, v, o,
+// do and the saved lse, s and p computed again from q and k. What bounds
+// it: 5 products of 2 hd FLOP per visible query-key pair and head, compute
+// far above the ridge, so the bf16 tensor cores' 989 TFLOP/s (times
+// against the bound in PERF.md). Both routes compute s, p and ds in fp32,
+// use no atomics (the dk/dv and the dq kernels each compute s and p, seven
+// products' work for five, so every sum has one order) and skip the tiles
+// the mask rules out.
+//   * Tensor cores (entry flash_attention_bwd_tc; bf16 at head dims 64,
+//     128, 256): a delta kernel writes rowsum(do o) and lse log2(e) as
+//     [B,H,Sq] scratch, so a tile's 64 values of one head are one bulk
+//     copy. flash_bwd_dkdv_tc_kernel: one CTA per (kv head x head split,
+//     key tile, b) of a TMA producer warpgroup and two wgmma consumer
+//     warpgroups; k and v load once, q, do, lse and delta stream through a
+//     two-stage ring; S^T = K.Q^T and dP^T = V.dO^T from shared memory,
+//     P^T and dS^T in registers with the queries along the accumulator's
+//     columns, rounded to bf16 as the register A operands of dV += P^T.dO
+//     and dK += dS^T.Q. At head dim 64/128 each consumer owns 64 of 128
+//     keys and holds dk and dv; at 256 dk and dv of 64 keys do not fit one
+//     warpgroup's registers, so one consumer computes P^T and holds dv and
+//     hands P^T (1 - t^2) scale through shared memory to the other, which
+//     forms dS^T and holds dk. At GQA/MQA a group's heads are split across
+//     CTAs (the second grid dimension; one CTA per key tile would leave 64
+//     CTAs at Kh = 1) whose fp32 partials flash_bwd_reduce_kernel sums in
+//     split order. flash_bwd_dq_tc_kernel: the forward's shape, one CTA per
+//     (head, 128-query tile, b), q and do loaded once, k/v through the
+//     ring, dQ += dS.K by wgmma. Both put the tiles with the most work
+//     first over every head.
+//   * FMA (entry flash_attention_bwd; fp32, and bf16 at head dims 16/32),
+//     the first, simple design: the delta kernel, flash_bwd_dkdv_kernel
+//     (one CTA per (b, kv head, key tile): dk and dv summed in registers
+//     over the G query heads of the group and the query tiles the mask lets
+//     see the tile) and flash_bwd_dq_kernel (one CTA per (b, head, query
+//     tile)), fp32 FMA loops from shared memory.
 //
 // Both compute softmax(q.k^T * scale) . v with an fp32 online softmax:
 //   q [B,Sq,H,hd], k/v [B,Sk,Kh,hd] -> o [B,Sq,H,hd] in q's dtype;
@@ -78,8 +101,9 @@
 //
 // Entry points: plain C, loaded with ctypes. They launch on the given
 // stream, allocate nothing, do not synchronise, and return
-// cudaGetLastError() after the launch (flash_attention_fwd_tc returns
-// 10000 + the CUresult when a tensor map cannot be encoded).
+// cudaGetLastError() after the launch (flash_attention_fwd_tc and
+// flash_attention_bwd_tc return 10000 + the CUresult when a tensor map
+// cannot be encoded).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -381,6 +405,11 @@ struct Cfg {
 };
 
 template <int N> struct Wgmma;
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    sm90::wgmma_ss_n32(d, a, b, acc);
+  }
+};
 template <> struct Wgmma<64> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
     sm90::wgmma_ss_n64(d, a, b, acc);
@@ -658,27 +687,59 @@ namespace bwd {
 
 constexpr int NT = 256;   // threads per CTA
 
+// The dynamic shared-memory opt-in of `kernel`, made once per device for
+// each `done` array (a static of the calling launcher, one per
+// instantiation), not on every call.
+template <typename K>
+cudaError_t opt_in_smem(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
 // delta[b, i, h] = sum_d do[b, i, h, d] * o[b, i, h, d] in fp32: one warp
-// per row.
-template <typename T>
+// per row. TR (the tensor-core route) runs the rows over [B, H, Sqp]
+// instead and also writes lse2 = lse * log2(e) there, so one head's values
+// for a tile of queries are contiguous; rows i >= Sq of the padding get 0.
+template <typename T, bool TR>
 __global__ void __launch_bounds__(NT)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, int B, int Sq, int H, int hd,
+                       const float* __restrict__ lse, float* __restrict__ delta,
+                       float* __restrict__ lse2, int B, int Sq, int Sqp, int H, int hd,
                        int64_t o_sb, int64_t o_ss, int64_t o_sh,
                        int64_t d_sb, int64_t d_ss, int64_t d_sh) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
-  if (row >= static_cast<int64_t>(B) * Sq * H) return;
+  if (row >= static_cast<int64_t>(B) * (TR ? Sqp : Sq) * H) return;
   const int lane = threadIdx.x % 32;
-  const int h = static_cast<int>(row % H);
-  const int i = static_cast<int>((row / H) % Sq);
-  const int b = static_cast<int>(row / (static_cast<int64_t>(H) * Sq));
+  int b, i, h;
+  if (TR) {
+    i = static_cast<int>(row % Sqp);
+    h = static_cast<int>((row / Sqp) % H);
+    b = static_cast<int>(row / (static_cast<int64_t>(H) * Sqp));
+    if (i >= Sq) {
+      if (lane == 0) delta[row] = lse2[row] = 0.f;
+      return;
+    }
+  } else {
+    h = static_cast<int>(row % H);
+    i = static_cast<int>((row / H) % Sq);
+    b = static_cast<int>(row / (static_cast<int64_t>(H) * Sq));
+  }
   const T* orow = o + b * o_sb + i * o_ss + h * o_sh;
   const T* drow = dout + b * d_sb + i * d_ss + h * d_sh;
   float acc = 0.f;
   for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(drow[d]), to_f(orow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  if (lane == 0) {
+    delta[row] = acc;
+    if (TR) lse2[row] = lse[(static_cast<int64_t>(b) * Sq + i) * H + h] * tc::LOG2E;
+  }
 }
 
 template <int HD>
@@ -1000,11 +1061,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    int B, int H, int Kh, const Args& a, cudaStream_t stream) {
   using C = Cfg<HD>;
   const int smem = C::SMEM_FLOATS * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool set_kv[64] = {}, set_q[64] = {};
+  cudaError_t err = opt_in_smem(flash_bwd_dkdv_kernel<T, HD>, smem, set_kv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = opt_in_smem(flash_bwd_dq_kernel<T, HD>, smem, set_q);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -1028,9 +1088,9 @@ cudaError_t run(int hd, const void* q, const void* k, const void* v, const void*
                 cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(B) * a.Sq * H;
   const int blocks = static_cast<int>((rows + NT / 32 - 1) / (NT / 32));
-  flash_bwd_delta_kernel<T><<<blocks, NT, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), delta, B, a.Sq, H, hd,
-      st[9], st[10], st[11], st[12], st[13], st[14]);
+  flash_bwd_delta_kernel<T, false><<<blocks, NT, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), nullptr, delta, nullptr, B,
+      a.Sq, a.Sq, H, hd, st[9], st[10], st[11], st[12], st[13], st[14]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   switch (hd) {
@@ -1044,6 +1104,640 @@ cudaError_t run(int hd, const void* q, const void* k, const void* v, const void*
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward on the tensor cores (bf16): dk/dv, dq and the split reduction
+// ---------------------------------------------------------------------------
+
+namespace tcb {
+
+constexpr int NT = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int STAGES = 2;      // ring depth
+constexpr int BQ = 64;         // queries per ring tile of the dk/dv kernel
+constexpr int BQ_DQ = 128;     // queries per dq CTA: 64 per consumer warpgroup
+using tc::LOG2E;
+using tc::Wgmma;
+
+struct Args {
+  int B, Sq, Sk, H, G, Sqp, n_split, causal, window;
+  float softcap, scale;
+};
+
+// dq's key tile; k and v come in boxes of this many rows in both kernels
+template <int HD> struct QCfg {
+  static constexpr int BK = HD == 256 ? 32 : 64;
+  static constexpr int Q_BYTES = BQ_DQ * HD * 2;     // one of q, do
+  static constexpr int KV_BYTES = BK * HD * 2;       // one of k, v
+  static constexpr int RING = 2 * Q_BYTES;           // stage s: k at + 2 s KV_BYTES, v after
+  static constexpr int BARS = RING + STAGES * 2 * KV_BYTES;
+  // barriers: q and do, full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 227 * 1024, "q, do and the ring must fit");
+};
+
+template <int HD> struct KvCfg {
+  // head dim 256: both consumers share one 64-key tile (one holds dv, the
+  // other dk); else each owns 64 of the CTA's 128 keys and holds both
+  static constexpr bool SHARED = HD == 256;
+  static constexpr int BK = SHARED ? 64 : 128;
+  static constexpr int BOX = QCfg<HD>::BK;           // rows per k/v box
+  static constexpr int KV_BYTES = BK * HD * 2;       // one of k, v
+  static constexpr int Q_BYTES = BQ * HD * 2;        // one of q, do
+  static constexpr int RING = 2 * KV_BYTES;          // stage s: q at + 2 s Q_BYTES, do after
+  static constexpr int LD = RING + STAGES * 2 * Q_BYTES;   // stage s: lse2[BQ], delta[BQ]
+  static constexpr int PX = LD + STAGES * 2 * BQ * 4;      // SHARED: p (1 - t^2) scale
+  static constexpr int BARS = PX + (SHARED ? 32 * 128 * 4 : 0);   // 32 floats a thread
+  // barriers: k and v, full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 227 * 1024, "k, v, the ring and p must fit");
+  static_assert(BK % BOX == 0, "k/v boxes tile the key tile");
+};
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, const Args& a) {
+  bool keep = !a.causal || qpos >= kpos;
+  if (a.window > 0) keep = keep && (qpos - kpos) < a.window;
+  return keep;
+}
+
+// From a raw score s: p = exp2(x - lse2) with x the scaled (soft-capped)
+// score in log2 units (0 where `keep` is false), and the factor f of
+// ds = p (dp - delta) f: the scale, times 1 - t^2 under the softcap.
+__device__ __forceinline__ void p_and_f(float s, float lse2, bool keep, float sl2,
+                                        const Args& a, float& p, float& f) {
+  float x;
+  f = a.scale;
+  if (a.softcap > 0.f) {
+    const float t = tanhf(s * a.scale / a.softcap);
+    x = t * a.softcap * LOG2E;
+    f *= 1.f - t * t;
+  } else {
+    x = s * sl2;
+  }
+  p = keep ? exp2f(x - lse2) : 0.f;
+}
+
+__device__ __forceinline__ uint64_t kmaj(uint32_t addr) { return sm90::desc_sw128(addr, 16, 1024); }
+
+// Rows `key`, key + 8 of a 64 x HD accumulator (this thread's columns
+// 8j + 2 t4, +1) to bf16 `out` (row stride ss) or, with a head split, to
+// the fp32 partials `part` (row stride ps). Keys past Sk are not stored.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], __nv_bfloat16* out,
+                                           int64_t ss, float* part, int64_t ps, int key,
+                                           int Sk, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key + 8 * r;
+    if (kj >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const float x = acc[4 * j + 2 * r], y = acc[4 * j + 2 * r + 1];
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + kj * ps + col) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + kj * ss + col) = __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+// One CTA per (kv head x head split, key tile, b), the key tiles that see
+// the most queries (the first, under a causal mask) launched first over
+// every head, so the light ones fill the tail: dk and dv of the tile's
+// keys, summed over the split's heads of the group (in order) and over the
+// query tiles the mask lets see a key of the tile. k and v are loaded once;
+// q, do and their lse2 and delta stream through the ring in tiles of 64
+// queries. Per tile: S^T = K.Q^T and dP^T = V.dO^T by wgmma (both operands
+// K-major), P^T = exp2(S^T scale log2e - lse2), dS^T = P^T (dP^T - delta)
+// (1 - t^2) scale in registers, the queries along the accumulator's
+// columns; P^T and dS^T rounded to bf16 are the register A operands of
+// dV += P^T.dO and dK += dS^T.Q (do and q MN-major).
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse2, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         float* __restrict__ part, int64_t dk_sb, int64_t dk_ss,
+                         int64_t dk_sh, int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
+                         const Args a) {
+  using C = KvCfg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms need 1024-byte alignment
+  uint8_t* sm = smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sK = sm90::smem_u32(sm);
+  const uint32_t sV = sK + C::KV_BYTES;
+  const uint32_t ring = sK + C::RING;                  // q of stage s at + 2 s Q_BYTES
+  const float* sLD = reinterpret_cast<const float*>(sm + C::LD);
+  float* sPX = reinterpret_cast<float*>(sm + C::PX);
+  const uint32_t bar_kv = sK + C::BARS;
+  const uint32_t full = bar_kv + 8;                    // + 8 s
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int kvh = blockIdx.x / a.n_split, split = blockIdx.x % a.n_split;
+  const int b = blockIdx.z;
+  const int q_off = a.Sk - a.Sq;
+  const int gs = a.G / a.n_split;                      // heads this CTA sums
+  const int h_first = kvh * a.G + split * gs;
+  // query tiles that some key of this tile is visible to
+  const int k_last = min(k0 + BK, a.Sk) - 1;
+  const int q_lo = a.causal ? max(0, k0 - q_off) : 0;
+  const int q_hi = a.window > 0 ? min(a.Sq, k_last - q_off + a.window) : a.Sq;
+  const int q_first = (q_lo / BQ) * BQ;
+  const int nqt = q_hi > q_first ? (q_hi - q_first + BQ - 1) / BQ : 0;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, 2 * 128);   // every consumer thread
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread loads k, v and keeps the ring full ----
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(bar_kv, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+        for (int j = 0; j < BK / C::BOX; ++j) {
+          const uint32_t at = c * BK * 128 + j * C::BOX * 128;
+          sm90::tma_load_4d(sK + at, &tm_k, bar_kv, 64 * c, kvh, k0 + j * C::BOX, b);
+          sm90::tma_load_4d(sV + at, &tm_v, bar_kv, 64 * c, kvh, k0 + j * C::BOX, b);
+        }
+      int it = 0;
+      for (int gi = 0; gi < gs; ++gi) {
+        const int h = h_first + gi;
+        const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Sqp;
+        for (int tq = 0; tq < nqt; ++tq, ++it) {
+          const int s = it % STAGES;
+          const uint32_t phase = (it / STAGES) & 1;
+          const int q0 = q_first + tq * BQ;
+          const uint32_t q_tile = ring + s * 2 * C::Q_BYTES;
+          sm90::mbar_wait(empty + 8 * s, phase ^ 1);
+          sm90::mbar_arrive_expect_tx(full + 8 * s, 2 * C::Q_BYTES + 2 * BQ * 4);
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c) {
+            sm90::tma_load_4d(q_tile + c * BQ * 128, &tm_q, full + 8 * s, 64 * c, h, q0, b);
+            sm90::tma_load_4d(q_tile + C::Q_BYTES + c * BQ * 128, &tm_do, full + 8 * s,
+                              64 * c, h, q0, b);
+          }
+          const uint32_t ld = sm90::smem_u32(sLD + s * 2 * BQ);
+          sm90::bulk_load(ld, lse2 + row + q0, BQ * 4, full + 8 * s);
+          sm90::bulk_load(ld + BQ * 4, delta + row + q0, BQ * 4, full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  sm90::setmaxnreg_inc<240>();
+  const int cw = tid / 128 - 1, t = tid % 128;
+  const int warp = t / 32, lane = t % 32, g = lane / 4, t4 = lane % 4;
+  const int kc0 = C::SHARED ? k0 : k0 + 64 * cw;       // this warpgroup's 64 keys
+  const int key = kc0 + 16 * warp + g;                 // this thread's keys: key, key + 8
+  const float sl2 = a.scale * LOG2E;
+  // with a head split: this (split, b, kv head)'s fp32 partials of dk and
+  // dv at key 0, rows of Kh * HD floats
+  const int Kh = a.H / a.G;
+  const int64_t prow = static_cast<int64_t>(Kh) * HD;
+  float* pk = part == nullptr ? nullptr
+      : part + ((static_cast<int64_t>(split) * a.B + b) * a.Sk * Kh + kvh) * HD;
+  float* pv = part == nullptr ? nullptr
+      : pk + static_cast<int64_t>(a.n_split) * a.B * a.Sk * prow;
+
+  sm90::mbar_wait(bar_kv, 0);
+
+  if constexpr (!C::SHARED) {
+    const uint32_t rows = cw * 64 * 128;               // the warpgroup's k, v rows
+    float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    int it = 0;
+    for (int gi = 0; gi < gs; ++gi) {
+      for (int tq = 0; tq < nqt; ++tq, ++it) {
+        const int s = it % STAGES;
+        const uint32_t phase = (it / STAGES) & 1;
+        const int q0 = q_first + tq * BQ;
+        const int qp0 = q_off + q0;                  // the tile's first query position
+        const uint32_t q_tile = ring + s * 2 * C::Q_BYTES;
+        const uint32_t do_tile = q_tile + C::Q_BYTES;
+        const bool skip = kc0 >= a.Sk || (a.causal && qp0 + BQ - 1 < kc0) ||
+                          (a.window > 0 && qp0 - (kc0 + 63) >= a.window);
+        sm90::mbar_wait(full + 8 * s, phase);
+        if (!skip) {
+          float sc[32], dp[32];
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const int c = kk / 4, w = kk % 4;
+            Wgmma<64>::ss(sc, kmaj(sK + rows + c * BK * 128 + 32 * w),
+                          kmaj(q_tile + c * BQ * 128 + 32 * w), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const int c = kk / 4, w = kk % 4;
+            Wgmma<64>::ss(dp, kmaj(sV + rows + c * BK * 128 + 32 * w),
+                          kmaj(do_tile + c * BQ * 128 + 32 * w), kk > 0);
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(sc);
+          sm90::fence_regs(dp);
+          // masks only where the tile crosses Sq, the diagonal or the window's edge
+          const bool masked = q0 + BQ > a.Sq || (a.causal && qp0 < kc0 + 63) ||
+                              (a.window > 0 && qp0 + BQ - 1 - kc0 >= a.window);
+          const float* L = sLD + s * 2 * BQ;
+          const float* D = L + BQ;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 8 * j + 2 * t4;
+            const float2 l2 = *reinterpret_cast<const float2*>(L + col);
+            const float2 d2 = *reinterpret_cast<const float2*>(D + col);
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * j + 2 * r + e;
+                const bool keep = !masked ||
+                    (q0 + col + e < a.Sq && visible(qp0 + col + e, key + 8 * r, a));
+                float p, f;
+                p_and_f(sc[i], e ? l2.y : l2.x, keep, sl2, a, p, f);
+                dp[i] = p * (dp[i] - (e ? d2.y : d2.x)) * f;
+                sc[i] = p;
+              }
+          }
+          uint32_t pp[16], pd[16];                  // P^T, dS^T in bf16: A operands
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            pp[i] = sm90::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+            pd[i] = sm90::pack_bf16(dp[2 * i], dp[2 * i + 1]);
+          }
+          sm90::fence_regs(acc_v);
+          sm90::fence_regs(acc_k);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<HD>::rs(acc_v, &pp[4 * kk],
+                          sm90::desc_sw128(do_tile + kk * 16 * 128, BQ * 128, 1024));
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<HD>::rs(acc_k, &pd[4 * kk],
+                          sm90::desc_sw128(q_tile + kk * 16 * 128, BQ * 128, 1024));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc_v);
+          sm90::fence_regs(acc_k);
+        }
+        sm90::mbar_arrive(empty + 8 * s);
+      }
+    }
+    store_rows<HD>(acc_k, dk + b * dk_sb + kvh * dk_sh, dk_ss, pk, prow, key, a.Sk, t4);
+    store_rows<HD>(acc_v, dv + b * dv_sb + kvh * dv_sh, dv_ss, pv, prow, key, a.Sk, t4);
+  } else {
+    // head dim 256: warpgroup 0 computes S^T and P^T and holds dV; it hands
+    // P^T (1 - t^2) scale to warpgroup 1 through shared memory in fragment
+    // order (named barrier 1: written; 2: read), which computes dP^T, forms
+    // dS^T and holds dK
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    int it = 0, n = 0;
+    for (int gi = 0; gi < gs; ++gi) {
+      for (int tq = 0; tq < nqt; ++tq, ++it) {
+        const int s = it % STAGES;
+        const uint32_t phase = (it / STAGES) & 1;
+        const int q0 = q_first + tq * BQ;
+        const int qp0 = q_off + q0;
+        const uint32_t q_tile = ring + s * 2 * C::Q_BYTES;
+        const uint32_t do_tile = q_tile + C::Q_BYTES;
+        const bool skip = (a.causal && qp0 + BQ - 1 < kc0) ||
+                          (a.window > 0 && qp0 - (kc0 + 63) >= a.window);
+        sm90::mbar_wait(full + 8 * s, phase);
+        if (!skip) {
+          float sc[32];
+          const uint32_t a_rows = cw == 0 ? sK : sV;      // S^T = K.Q^T; dP^T = V.dO^T
+          const uint32_t b_tile = cw == 0 ? q_tile : do_tile;
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const int c = kk / 4, w = kk % 4;
+            Wgmma<64>::ss(sc, kmaj(a_rows + c * BK * 128 + 32 * w),
+                          kmaj(b_tile + c * BQ * 128 + 32 * w), kk > 0);
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(sc);
+          const float* L = sLD + s * 2 * BQ;
+          uint32_t pa[16];                                // P^T or dS^T in bf16
+          if (cw == 0) {
+            const bool masked = q0 + BQ > a.Sq || (a.causal && qp0 < kc0 + 63) ||
+                                (a.window > 0 && qp0 + BQ - 1 - kc0 >= a.window);
+            if (n > 0) sm90::named_sync<2>(256);          // the last P^T is read
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = 8 * j + 2 * t4;
+              const float2 l2 = *reinterpret_cast<const float2*>(L + col);
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int i = 4 * j + 2 * r + e;
+                  const bool keep = !masked ||
+                      (q0 + col + e < a.Sq && visible(qp0 + col + e, key + 8 * r, a));
+                  float p, f;
+                  p_and_f(sc[i], e ? l2.y : l2.x, keep, sl2, a, p, f);
+                  sPX[i * 128 + t] = p * f;
+                  sc[i] = p;
+                }
+            }
+            sm90::named_arrive<1>(256);
+          } else {
+            const float* D = L + BQ;
+            sm90::named_sync<1>(256);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 d2 = *reinterpret_cast<const float2*>(D + 8 * j + 2 * t4);
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int i = 4 * j + 2 * r + e;
+                  sc[i] = sPX[i * 128 + t] * (sc[i] - (e ? d2.y : d2.x));
+                }
+            }
+            sm90::named_arrive<2>(256);
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) pa[i] = sm90::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+          // dV += P^T.dO (warpgroup 0); dK += dS^T.Q (warpgroup 1)
+          const uint32_t b_mn = cw == 0 ? do_tile : q_tile;
+          sm90::fence_regs(acc);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            Wgmma<HD>::rs(acc, &pa[4 * kk],
+                          sm90::desc_sw128(b_mn + kk * 16 * 128, BQ * 128, 1024));
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(acc);
+          ++n;
+        }
+        sm90::mbar_arrive(empty + 8 * s);
+      }
+    }
+    if (cw == 0 && n > 0) sm90::named_sync<2>(256);      // warpgroup 1's last read
+    if (cw == 0)
+      store_rows<HD>(acc, dv + b * dv_sb + kvh * dv_sh, dv_ss, pv, prow, key, a.Sk, t4);
+    else
+      store_rows<HD>(acc, dk + b * dk_sb + kvh * dk_sh, dk_ss, pk, prow, key, a.Sk, t4);
+  }
+}
+
+// dk and dv from the head splits' fp32 partials [2][n_split][B*Sk*Kh*HD]
+// (dk's, then dv's), summed in split order, in bf16: four values a thread,
+// blockIdx.y picks dk (0) or dv (1).
+__global__ void __launch_bounds__(256)
+flash_bwd_reduce_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int n_split, int64_t n, int hd,
+                        int Kh, int Sk, int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
+                        int64_t dv_sb, int64_t dv_ss, int64_t dv_sh) {
+  const int64_t idx = (static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (idx >= n) return;
+  const int y = blockIdx.y;
+  const float* p = part + y * n_split * n + idx;
+  float4 acc = *reinterpret_cast<const float4*>(p);
+  for (int sp = 1; sp < n_split; ++sp) {
+    const float4 x = *reinterpret_cast<const float4*>(p + sp * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const int d = static_cast<int>(idx % hd);
+  int64_t r = idx / hd;
+  const int kh = static_cast<int>(r % Kh);
+  r /= Kh;
+  const int s = static_cast<int>(r % Sk);
+  const int b = static_cast<int>(r / Sk);
+  __nv_bfloat16* out = y == 0 ? dk + b * dk_sb + s * dk_ss + kh * dk_sh + d
+                              : dv + b * dv_sb + s * dv_ss + kh * dv_sh + d;
+  reinterpret_cast<__nv_bfloat162*>(out)[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  reinterpret_cast<__nv_bfloat162*>(out)[1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
+// One CTA per (head, 128-query tile, b), the latest query tiles (the most
+// keys, under a causal mask) launched first over every head: q and do are
+// loaded once, k and v tiles of BK keys stream through the ring. Per tile:
+// S = Q.K^T and dP = dO.V^T by wgmma (both K-major), dS in registers,
+// rounded to bf16 as the register A operand of dQ += dS.K (k MN-major).
+// No atomics: scores and p are computed here again, so dq has one order.
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse2, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int64_t dq_sb, int64_t dq_ss,
+                       int64_t dq_sh, const Args a) {
+  using C = QCfg<HD>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sQ = sm90::smem_u32(sm);
+  const uint32_t sDO = sQ + C::Q_BYTES;
+  const uint32_t ring = sQ + C::RING;                   // k of stage s at + 2 s KV_BYTES
+  const uint32_t bar_q = sQ + C::BARS;
+  const uint32_t full = bar_q + 8;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;           // latest q tiles first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qt * BQ_DQ;
+  const int q_off = a.Sk - a.Sq;
+  // key tiles that some query of this tile can see
+  const int q_first = q_off + q0;
+  const int q_last = q_off + min(q0 + BQ_DQ, a.Sq) - 1;
+  const int k_end = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  int k_begin = a.window > 0 ? max(0, q_first - a.window + 1) : 0;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, 2 * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 0) {
+      sm90::mbar_arrive_expect_tx(bar_q, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c)
+#pragma unroll
+        for (int j = 0; j < BQ_DQ / BQ; ++j) {
+          const uint32_t at = c * BQ_DQ * 128 + j * BQ * 128;
+          sm90::tma_load_4d(sQ + at, &tm_q, bar_q, 64 * c, h, q0 + j * BQ, b);
+          sm90::tma_load_4d(sDO + at, &tm_do, bar_q, 64 * c, h, q0 + j * BQ, b);
+        }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t phase = (it / STAGES) & 1;
+        const int k0 = k_begin + it * BK;
+        const uint32_t k_tile = ring + s * 2 * C::KV_BYTES;
+        sm90::mbar_wait(empty + 8 * s, phase ^ 1);
+        sm90::mbar_arrive_expect_tx(full + 8 * s, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          sm90::tma_load_4d(k_tile + c * BK * 128, &tm_k, full + 8 * s, 64 * c, kvh, k0, b);
+          sm90::tma_load_4d(k_tile + C::KV_BYTES + c * BK * 128, &tm_v, full + 8 * s, 64 * c,
+                            kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+  const int cw = tid / 128 - 1;
+  const int warp = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int row0 = 64 * cw + 16 * warp + g;            // this thread's rows: row0, row0 + 8
+  const int qpos0 = q_off + q0 + row0;
+  const int wg_q = q0 + 64 * cw;                       // the warpgroup's first query
+  const int wg_qlo = q_off + wg_q, wg_qhi = wg_qlo + 63;
+  const float sl2 = a.scale * LOG2E;
+  const int64_t at = (static_cast<int64_t>(b) * a.H + h) * a.Sqp + q0 + row0;   // < Sqp
+  const float l2[2] = {lse2[at], lse2[at + 8]};
+  const float dl[2] = {delta[at], delta[at + 8]};
+  const uint32_t q_rows = sQ + cw * 64 * 128, do_rows = sDO + cw * 64 * 128;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  sm90::mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int k0 = k_begin + it * BK;
+    const uint32_t k_tile = ring + s * 2 * C::KV_BYTES;
+    const uint32_t v_tile = k_tile + C::KV_BYTES;
+    const bool skip = wg_q >= a.Sq || (a.causal && k0 > wg_qhi) ||
+                      (a.window > 0 && wg_qlo - (k0 + BK - 1) >= a.window);
+    sm90::mbar_wait(full + 8 * s, phase);
+    if (!skip) {
+      float sc[BK / 2], dp[BK / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        Wgmma<BK>::ss(sc, kmaj(q_rows + c * BQ_DQ * 128 + 32 * w),
+                      kmaj(k_tile + c * BK * 128 + 32 * w), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / 4, w = kk % 4;
+        Wgmma<BK>::ss(dp, kmaj(do_rows + c * BQ_DQ * 128 + 32 * w),
+                      kmaj(v_tile + c * BK * 128 + 32 * w), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      // masks only where the tile crosses Sk, the diagonal or the window's edge
+      const bool masked = k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wg_qlo) ||
+                          (a.window > 0 && wg_qhi - k0 >= a.window);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int kpos = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+        const bool keep = !masked || (kpos < a.Sk && visible(qpos0 + 8 * r, kpos, a));
+        float p, f;
+        p_and_f(sc[i], l2[r], keep, sl2, a, p, f);
+        dp[i] = p * (dp[i] - dl[r]) * f;
+      }
+      uint32_t pd[BK / 4];                              // dS in bf16: the A operand
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) pd[i] = sm90::pack_bf16(dp[2 * i], dp[2 * i + 1]);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<HD>::rs(acc, &pd[4 * kk], sm90::desc_sw128(k_tile + kk * 16 * 128, BK * 128, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+    }
+    sm90::mbar_arrive(empty + 8 * s);
+  }
+
+  __nv_bfloat16* qb = dq + b * dq_sb + h * dq_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + row0 + 8 * r;
+    if (qi >= a.Sq) continue;
+    __nv_bfloat16* orow = qb + qi * dq_ss + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                   const CUtensorMap& tdo, const float* lse2, const float* delta, float* part,
+                   void* dq, void* dk, void* dv, const long long* st, const Args& a,
+                   cudaStream_t stream) {
+  static bool set_kv[64] = {}, set_q[64] = {};
+  cudaError_t err = bwd::opt_in_smem(flash_bwd_dkdv_tc_kernel<HD>, KvCfg<HD>::SMEM, set_kv);
+  if (err != cudaSuccess) return err;
+  err = bwd::opt_in_smem(flash_bwd_dq_tc_kernel<HD>, QCfg<HD>::SMEM, set_q);
+  if (err != cudaSuccess) return err;
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  const int Kh = a.H / a.G;
+  dim3 grid_kv(Kh * a.n_split, (a.Sk + KvCfg<HD>::BK - 1) / KvCfg<HD>::BK, a.B);
+  flash_bwd_dkdv_tc_kernel<HD><<<grid_kv, NT, KvCfg<HD>::SMEM, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, dkp, dvp, part, st[18], st[19], st[20], st[21], st[22],
+      st[23], a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (part != nullptr) {
+    const int64_t n = static_cast<int64_t>(a.B) * a.Sk * Kh * HD;
+    dim3 grid_r(static_cast<unsigned>((n / 4 + 255) / 256), 2);
+    flash_bwd_reduce_kernel<<<grid_r, 256, 0, stream>>>(
+        part, dkp, dvp, a.n_split, n, HD, Kh, a.Sk, st[18], st[19], st[20], st[21], st[22],
+        st[23]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid_q(a.H, (a.Sq + BQ_DQ - 1) / BQ_DQ, a.B);
+  flash_bwd_dq_tc_kernel<HD><<<grid_q, NT, QCfg<HD>::SMEM, stream>>>(
+      tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dq), st[15], st[16], st[17],
+      a);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
 
 }  // namespace
 
@@ -1138,5 +1832,65 @@ extern "C" int flash_attention_bwd(
     err = bwd::run<__nv_bfloat16>(hd, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Kh, st, a, s);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The tensor-core backward: bf16 only, head dim 64, 128 or 256. st: the 24
+// element strides (b, s, h) of q, k, v, o, do, dq, dk, dv as
+// flash_attention_bwd's; q, k, v and do are read by TMA, so each must start
+// on 16 bytes with strides that are multiples of 8 elements. lse [B,Sq,H]
+// fp32 contiguous; scratch [2][B][H][Sqp] fp32 with Sqp = Sq rounded up to
+// 128 (lse * log2(e), then delta); part [2][n_split][B][Sk][Kh][hd] fp32
+// when n_split > 1 (n_split divides H / Kh), else null. Launches the delta,
+// dk/dv, (split reduction) and dq kernels in order on the stream; returns
+// 10000 + the CUresult when a tensor map cannot be encoded.
+extern "C" int flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* o, const void* lse,
+    const void* dout, void* scratch, void* part, void* dq, void* dk, void* dv,
+    int B, int Sq, int Sk, int H, int Kh, int hd, int n_split, const long long* st,
+    int causal, int window, float softcap, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / Kh;
+  if (n_split <= 0 || G % n_split != 0 || (n_split > 1) != (part != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int box = hd == 256 ? 32 : 64;                 // rows of a k/v box
+  CUtensorMap tq, tk, tv, tdo;
+  int res = sm90::encode_bf16_4d(&tq, q, hd, H, Sq, B, st[2], st[1], st[0], tcb::BQ);
+  if (res == 0) res = sm90::encode_bf16_4d(&tk, k, hd, Kh, Sk, B, st[5], st[4], st[3], box);
+  if (res == 0) res = sm90::encode_bf16_4d(&tv, v, hd, Kh, Sk, B, st[8], st[7], st[6], box);
+  if (res == 0)
+    res = sm90::encode_bf16_4d(&tdo, dout, hd, H, Sq, B, st[14], st[13], st[12], tcb::BQ);
+  if (res != 0) return 10000 + res;
+  tcb::Args a;
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.G = G;
+  a.Sqp = (Sq + tcb::BQ_DQ - 1) / tcb::BQ_DQ * tcb::BQ_DQ;
+  a.n_split = n_split;
+  a.causal = causal;
+  a.window = window;
+  a.softcap = softcap;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse2 = static_cast<float*>(scratch);
+  float* delta = lse2 + static_cast<int64_t>(B) * H * a.Sqp;
+  const int64_t rows = static_cast<int64_t>(B) * H * a.Sqp;
+  const int blocks = static_cast<int>((rows + bwd::NT / 32 - 1) / (bwd::NT / 32));
+  bwd::flash_bwd_delta_kernel<__nv_bfloat16, true><<<blocks, bwd::NT, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), delta, lse2, B, Sq, a.Sqp, H, hd, st[9], st[10],
+      st[11], st[12], st[13], st[14]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* pf = static_cast<float*>(part);
+  switch (hd) {
+    case 64: err = tcb::launch<64>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
+    case 128: err = tcb::launch<128>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
+    default: err = tcb::launch<256>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
+  }
   return static_cast<int>(err);
 }

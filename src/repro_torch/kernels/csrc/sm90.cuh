@@ -152,6 +152,20 @@ __device__ __forceinline__ void wgmma_wait() {
 // 16s..16s+15, packed pairwise, are the A operand of a k-step over them.
 // `accumulate` = 0 overwrites D.
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32]; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                             int accumulate) {
@@ -313,6 +327,12 @@ inline int encode_bf16_4d(CUtensorMap* map, const void* ptr, long long d0, long 
                           long long s3, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  // cuTensorMapEncodeTiled needs a current context: a thread that has made
+  // no runtime call yet (the autograd engine's worker, which runs a
+  // backward) has none, so bind the device's primary context first.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return static_cast<int>(CUDA_ERROR_INVALID_CONTEXT);
   const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
   const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)s3 * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};

@@ -35,17 +35,39 @@ it saves ``(out, lse)`` and recomputes the scores block by block. Here
 ``FlashAttention`` (a ``torch.autograd.Function``) does the same: its
 forward runs the forward kernel with the log-sum-exp as a second output
 (``[B,Sq,H]`` fp32) and saves ``q, k, v, o, lse``; its backward is
-``flash_attention_bwd``, three CUDA kernels in ``csrc/flash_attention.cu``
-on one stream (counted once in ``launches_bwd``): ``delta = rowsum(do o)``;
-one CTA per (b, kv head, key tile) summing dk and dv over the group's
-heads and the query tiles the mask lets see the tile; one CTA per (b,
-head, query tile) summing dq over its key tiles. No atomics: scores and p
-are computed twice instead, so every sum has one order. fp32 FMA from
-fp32 or bf16 inputs, gradients written in the inputs' dtype; tiles the
-mask rules out are skipped. What bounds it: 5 products against the
-forward's 2, ``10*B*H*Sq*Sk*hd`` FLOP (about halved under the causal
-mask), on the fp32 cores here, far from the tensor cores' rate; its times
-are in PERF.md. On CPU tensors both halves run the plain versions
+``flash_attention_bwd``, kernels of ``csrc/flash_attention.cu`` on one
+stream, chosen by dtype and head dim alone (``bwd_kernel_for``, the same
+rule as the forward's) and counted once per call in ``launches_bwd_tc`` or
+``launches_bwd_fma`` and in ``launches_bwd``, their sum:
+
+* ``"tc"`` — bf16 at head dims 64, 128, 256: ``delta = rowsum(do o)`` and
+  ``lse * log2(e)`` into ``[B,H,Sq]`` scratch (a tile's rows contiguous);
+  ``flash_bwd_dkdv_tc_kernel``, one CTA per (b, kv head x head split, key
+  tile) with a TMA producer warpgroup and two consumer warpgroups on
+  ``wgmma``: ``S^T = K.Q^T`` and ``dP^T = V.dO^T`` from shared memory,
+  ``P^T`` and ``dS^T`` in registers, rounded to bf16 for
+  ``dV += P^T.dO`` and ``dK += dS^T.Q`` (as SDPA's backward rounds them;
+  gradients within about 3e-3, relative L2, of the plain version's);
+  q and do stream through a two-stage ring. At GQA/MQA the group's heads
+  are split across ``bwd_head_splits`` CTAs whose fp32 partials a small
+  kernel sums in split order. ``flash_bwd_dq_tc_kernel``, one CTA per (b,
+  head, 128-query tile), q and do loaded once and k/v through the ring,
+  ``dQ += dS.K`` on the tensor cores. TMA reads q, k, v and do in place
+  (``check_tma``); the wrapper raises on a layout it cannot read.
+* ``"fma"`` — fp32 at every head dim and bf16 at head dims 16 and 32: the
+  first design, fp32 FMA from shared memory; one CTA per (b, kv head, key
+  tile) sums dk and dv over the group's heads, one per (b, head, query
+  tile) sums dq.
+
+Both compute in fp32 from the inputs and write the gradients in the
+inputs' dtype; neither uses atomics: scores and p are computed in both
+the dk/dv and the dq kernel, so every sum has one order (seven products'
+work where the math needs five). Tiles the mask rules out are skipped.
+What bounds it: ``10*B*H*Sq*Sk*hd`` FLOP (about halved under the causal
+mask) against the bytes of q, k, v, o, do and the gradients, compute far
+above the ridge, so the bf16 tensor cores' rate; the FMA route runs on
+the fp32 cores, far from it. Times against the bound are in PERF.md. On
+CPU tensors both halves run the plain versions
 (``attention_fwd_lse_plain``, ``attention_bwd_plain``).
 ``flash_attention`` takes the Function when grad is enabled and an input
 requires it; otherwise (serving) it launches the forward alone, without
@@ -66,7 +88,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
 launches_fma = 0
-launches_bwd = 0      # backward calls (delta, dk/dv and dq kernels each)
+launches_bwd = 0      # backward calls (its kernels on one stream each)
+launches_bwd_tc = 0
+launches_bwd_fma = 0
+SMS = 132             # an H100's SMs: the dk/dv grid's target is 2 x SMS CTAs
 _fns: dict = {}
 
 
@@ -94,6 +119,28 @@ def kernel_for(dtype, hd):
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not among the kernel's {HEAD_DIMS}")
     return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+
+
+def bwd_kernel_for(dtype, hd):
+    """The backward kernels that run a CUDA call: "tc" (bf16 at head dims
+    64, 128, 256) or "fma", by the forward's rule."""
+    return kernel_for(dtype, hd)
+
+
+def bwd_key_tile(hd):
+    """Keys per CTA of the tensor-core dk/dv kernel."""
+    return 64 if hd == 256 else 128
+
+
+def bwd_head_splits(B, Sk, Kh, G, bk):
+    """Head splits of the tensor-core dk/dv kernel: the smallest divisor of
+    the group size G that gives at least 2 x SMS CTAs over B x key tiles x
+    Kh, or G itself. Each split sums G / splits heads of the group."""
+    ctas = B * -(-Sk // bk) * Kh
+    for d in range(1, G + 1):
+        if G % d == 0 and ctas * d >= 2 * SMS:
+            return d
+    return G
 
 
 def tma_strides(t):
@@ -170,7 +217,9 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
+        # TMA reads do in place: autograd may hand over a strided view
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.kw)
         return dq, dk, dv, None
 
 
@@ -209,6 +258,9 @@ def _kernel(route):
         elif route == "fma":
             fn = lib.flash_attention_fwd
             fn.argtypes = [P] * 5 + [I] * 7 + [L] * 12 + [I, I, F, F, P]
+        elif route == "bwd_tc":
+            fn = lib.flash_attention_bwd_tc
+            fn.argtypes = [P] * 11 + [I] * 7 + [P, I, I, F, F, P]
         else:
             fn = lib.flash_attention_bwd
             fn.argtypes = [P] * 10 + [I] * 7 + [P, I, I, F, F, P]
@@ -262,10 +314,10 @@ def _launch(q, k, v, *, causal, window, softcap, scale, want_lse=False):
 
 
 def _launch_bwd(q, k, v, o, lse, do, *, causal, window, softcap, scale):
-    global launches_bwd
+    global launches_bwd, launches_bwd_tc, launches_bwd_fma
     B, Sq, H, hd = q.shape
     Sk, Kh = k.shape[1], k.shape[2]
-    kernel_for(q.dtype, hd)                  # the head dims the kernels take
+    route = bwd_kernel_for(q.dtype, hd)
     if not (o.dtype == do.dtype == q.dtype):
         raise TypeError(f"o and do must have q's dtype {q.dtype}; got "
                         f"{o.dtype}, {do.dtype}")
@@ -275,25 +327,50 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal, window, softcap, scale):
             raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit stride in its last dim")
+    if route == "tc":
+        check_tma("flash_attention_bwd", q=q, k=k, v=v, do=do)
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     st = (ctypes.c_longlong * 24)(*[
-        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
-    fn = _kernel("bwd")
+        s for t in (q, k, v, o, do, dq, dk, dv)
+        for s in (tma_strides(t) if route == "tc" else t.stride())[:3]])
+    args = (int(causal), int(window), float(softcap), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Kh, hd, st,
-                 int(causal), int(window), float(softcap), float(scale),
-                 stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr())
+        outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        if route == "tc":
+            # lse * log2(e) and delta as [B,H,Sqp], Sqp = Sq rounded up to
+            # the dq kernel's 128-query tile; the head split's partials
+            sqp = -(-Sq // 128) * 128
+            scratch = torch.empty((2, B, H, sqp), dtype=torch.float32,
+                                  device=q.device)
+            n_split = bwd_head_splits(B, Sk, Kh, H // Kh, bwd_key_tile(hd))
+            part = (torch.empty((2, n_split, B, Sk, Kh, hd),
+                                dtype=torch.float32, device=q.device)
+                    if n_split > 1 else None)
+            err = _kernel("bwd_tc")(
+                *ptrs, scratch.data_ptr(),
+                part.data_ptr() if part is not None else None, *outs,
+                B, Sq, Sk, H, Kh, hd, n_split, st, *args, stream)
+        else:
+            delta = torch.empty((B, Sq, H), dtype=torch.float32,
+                                device=q.device)
+            err = _kernel("bwd")(*ptrs, delta.data_ptr(), *outs,
+                                 _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Kh, hd,
+                                 st, *args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
+        what = (f"tensor map error {err - 10000}" if err >= 10000 else
+                f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd ({route} kernels) launch "
+                           f"failed: {what}")
+    if route == "tc":
+        launches_bwd_tc += 1
+    else:
+        launches_bwd_fma += 1
     launches_bwd += 1
     return dq, dk, dv
 

@@ -156,11 +156,17 @@ def _card():
 def test_cuda_backward_matches_plain_version():
     """The backward kernel against ``attention_bwd_plain`` on the same o and
     lse (from the forward kernel, whose lse is held against the plain
-    one), every case above in fp32 and bf16; the chip smoke's limits
-    (2e-5 / 2e-2 elementwise, 1e-5 / 1e-2 relative L2)."""
+    one), every case above and two at the tensor-core head dims (MHA at
+    128, MQA with a window at 256) in fp32 and bf16; the chip smoke's
+    limits (2e-5 / 2e-2 elementwise, 1e-5 / 1e-2 relative L2). Each call
+    counts on its route: bf16 at head dims 128 and 256 on ``tc``, the rest
+    on ``fma``."""
     _card()
     lim = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
-    for name, (shape, variant) in CASES.items():
+    cases = dict(CASES, mha128=((1, 224, 224, 4, 4, 128), dict(causal=True)),
+                 mqa256=((1, 160, 288, 4, 1, 256),
+                         dict(causal=True, window=96)))
+    for name, (shape, variant) in cases.items():
         for dt, (tol, rel) in lim.items():
             q, k, v, do = [torch.from_numpy(a).cuda().to(dt)
                            for a in _inputs(shape, seed=5)]
@@ -169,9 +175,13 @@ def test_cuda_backward_matches_plain_version():
             _, lse_p = fa.attention_fwd_lse_plain(q, k, v, **kw)
             torch.testing.assert_close(lse, lse_p, rtol=tol, atol=tol)
             n = fa.launches_bwd
+            n_route = (fa.launches_bwd_tc, fa.launches_bwd_fma)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             assert fa.launches_bwd == n + 1
+            tc = dt == torch.bfloat16 and shape[-1] >= 128
+            assert (fa.launches_bwd_tc, fa.launches_bwd_fma) == (
+                n_route[0] + tc, n_route[1] + (not tc)), (name, dt)
             want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
             for g, w in zip(got, want):
                 assert g.dtype == dt, name
