@@ -91,6 +91,23 @@ Phases, in order (any failure exits non-zero and prints no result line):
              before (2 x layers flash forwards and layers backwards per
              step, all on the tensor-core kernels; the fp32 twin's backward
              on the FMA ones): ms per step, tokens/s, peak memory.
+ 9. ckpt   — deepseek-7b's training state at full width and 2 layers
+             ({step, params, m, v}: 1.24 B params, 14.92 GB in 37 leaves),
+             batches from the port's TokenPipeline: 2 AdamW steps, an
+             async ``checkpoint.ckpt.save``, 2 more steps (the
+             uninterrupted run), a simulated failure (LM and state
+             deleted), a fresh LM from another seed, ``restore`` of the
+             latest checkpoint and the pipeline's cursor, the 2 steps
+             again: every restored leaf bit-equal to the saved state, the
+             restart equal to the uninterrupted run bit for bit where a
+             witness (the restart run again) is, a control (the cursor not
+             restored) caught; every flash launch on ``tc``; the stop,
+             write and restore times, bytes on disk, the compressor.
+10. examples — ``repro_torch.examples``' quickstart, train_e2e
+             (``--steps 60``: a failure at 30, a restart from step 25,
+             held against the uninterrupted command as in ``ckpt``) and
+             serve_batch, each ``main(device="cuda")`` in-process with its
+             own checks and its FMA flash launches counted.
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1681,6 +1698,526 @@ def phase_train():
     return out
 
 
+# checkpoint: deepseek-7b at full width and the fp32 twin's depth. Its
+# {step, params, m, v} takes 12 B/param: 14.92 GB at 2 layers, 39.2 GB at
+# 12, which the save holds in host memory once more and the restore reads
+# back; 2 layers keep the phase inside the run's time limit (zlib at level
+# 1 writes some 200 MB/s on 8 cores where zstandard is absent)
+CKPT_LAYERS = TRAIN_TWIN_LAYERS
+CKPT_LABEL = "ckpt-deepseek"
+CKPT_STEPS = 2                 # before the save, and again after it
+# a restart against the uninterrupted run where the card does not repeat
+# a step bit for bit (the witness reads above 0): the largest relative
+# difference of a loss and the relative L2 difference of the final
+# params over the two steps' update. A restart from the wrong batches (the
+# control) differs by O(1); last-bit noise through two steps by far less
+RESTART_REL = 1e-3
+
+
+def _meminfo(key):
+    """A /proc/meminfo field in bytes (MemAvailable, Cached, ...)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError(f"no {key} in /proc/meminfo")
+
+
+def _mem_available():
+    return _meminfo("MemAvailable")
+
+
+def _fsync_dir(d):
+    """fsync every file of ``d``, then ``d``: the checkpoint then survives
+    a failure of the host, not only of the process (``save`` does not
+    fsync, as the reference's does not)."""
+    import os
+    for f in sorted(Path(d).iterdir()) + [Path(d)]:
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+
+def _evict(d):
+    """Drop the pages of ``d``'s files (clean once fsynced) from this
+    host's page cache, so that a restore cannot read them from there, as a
+    migration's destination could not. Returns the page cache's size
+    (Cached) before and after: what it dropped. A file system that keeps
+    no pages in this host's cache (a 9p mount) has none to drop; its
+    server's cache lies out of reach."""
+    import os
+    before = _meminfo("Cached")
+    for f in Path(d).iterdir():
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    return before, _meminfo("Cached")
+
+
+def _filesystem(path):
+    """The type and device of the mount that holds ``path``."""
+    best = ("", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, kind = line.split()[:3]
+            if str(path).startswith(mnt) and len(mnt) >= len(best[0]):
+                best = (mnt, kind, dev)
+    return {"mount": best[0], "type": best[1], "device": best[2]}
+
+
+def _module_version(name):
+    """The installed version of ``name``, or None (not imported here)."""
+    from importlib import metadata
+    try:
+        return metadata.version(name)
+    except metadata.PackageNotFoundError:
+        return None
+
+
+def _restart_gate(label, restart, witness, control):
+    """The rule for a restarted run against the uninterrupted one. Each
+    argument is a distance {"bit_equal", "loss_rel", ...} from the
+    uninterrupted run; ``witness`` (the restart run again) and ``control``
+    (a restart that replays the wrong batches) may be None when the
+    restart is bit-equal. Where the witness is bit-equal, or absent, the
+    card repeats a step bit for bit and the restart must be bit-equal;
+    otherwise every witness and the restart must be within RESTART_REL on
+    each measure and the control over it on one."""
+    out = {"restart": restart, "witness": witness, "control": control,
+           "limit": RESTART_REL}
+    log(f"{label}: restart against the uninterrupted run "
+        f"{json.dumps(out)}")
+    if control is not None:
+        assert not control["bit_equal"], out
+        assert max(v for k, v in control.items() if k != "bit_equal") \
+            > RESTART_REL, out
+    if witness is None or witness["bit_equal"]:
+        assert restart["bit_equal"], out
+        return out
+    for run in (restart, witness):
+        assert all(v <= RESTART_REL for k, v in run.items()
+                   if k != "bit_equal"), out
+    return out
+
+
+def _loss_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_ckpt():
+    """deepseek-7b at full width and CKPT_LAYERS layers (fp32 params, bf16
+    compute, full remat: the tensor-core flash forward and backward), B=1,
+    S=2048 from ``TokenPipeline(DataConfig(102400, 2048, 1, seed=0))``:
+    CKPT_STEPS AdamW steps; ``ckpt.save`` of ``adamw.state_tree`` with
+    ``async_write`` and the pipeline's cursor in ``extra``; CKPT_STEPS more
+    steps while it writes (the uninterrupted run: losses, and a host copy of
+    the final params); the failure (LM and state deleted, the cache
+    emptied); a fresh LM from another seed; ``restore(latest(...))`` into
+    its state and the cursor into a fresh pipeline; the CKPT_STEPS steps
+    again. Gates: every restored leaf bit-equal to the saved state; the
+    restart held to the uninterrupted run by ``_restart_gate``, beside a
+    witness (the restart run again from the restored state) and a control
+    (a restart that skips the cursor and replays batch 0); each step
+    2 x layers flash forwards and layers backwards, all on ``tc``. Logs the
+    bytes on disk, the compressor, and the stop (``save`` until it returns:
+    the device-to-host copy), write (until the writer is joined), fsync
+    (of every file after that: the write made durable), and restore (until
+    the tensors are on the card, synchronised) times; the restore reads
+    the files after their pages were dropped from the page cache
+    (``_evict``), then once more."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=CKPT_LAYERS)
+    opt = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    data = DataConfig(cfg.vocab_size, TRAIN_S, 1, seed=0)
+    per_step = ({"tc": 2 * CKPT_LAYERS, "fma": 0},
+                {"tc": CKPT_LAYERS, "fma": 0})
+
+    def build(seed):
+        lm = LM(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        state = adamw.init_state(lm)
+        return lm, state, adamw.make_train_step(lm, opt)
+
+    def steps(state, step, pipe):
+        losses = []
+        for _ in range(CKPT_STEPS):
+            f0, b0 = flash_counts(), bwd_counts()
+            batch = {k: torch.as_tensor(v, device=DEVICE)
+                     for k, v in pipe.next().items()}
+            state, met = step(state, batch)
+            losses.append(met["loss"].item())
+            got = ({k: flash_counts()[k] - f0[k] for k in f0},
+                   {k: bwd_counts()[k] - b0[k] for k in b0})
+            assert got == per_step, (got, per_step)
+        return state, losses
+
+    def distance(losses, params, want_losses, want, saved):
+        """Bit-equality, loss and params (over the update) distances."""
+        bit = losses == want_losses
+        num = den = 0.0
+        for n, p in params.items():
+            w = want[n].to(DEVICE)
+            bit = bit and torch.equal(p, w)
+            num += torch.sum(torch.square(p - w)).item()
+            den += torch.sum(torch.square(w - saved[f"params.{n}"])).item()
+        return {"bit_equal": bool(bit),
+                "loss_rel": _loss_rel(losses, want_losses),
+                "params_rel": (num / den) ** 0.5}
+
+    out = {"layers": CKPT_LAYERS, "seq": TRAIN_S, "batch": 1,
+           "compressor": ckpt.compressor(),
+           "host_packages": {m: _module_version(m)
+                             for m in ("msgpack", "zstandard")}}
+    t_phase = time.perf_counter()
+    reset_kernel_counts()
+    lm, state, step = build(0)
+    out["n_params"] = sum(p.numel() for p in lm.parameters())
+    n_param_leaves = len(list(lm.parameters()))
+    pipe = TokenPipeline(data)
+    state, out["losses_before"] = steps(state, step, pipe)
+    tree = adamw.state_tree(state, lm)
+    leaves = list(ckpt.flatten(tree))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    out.update(n_leaves=len(leaves), state_bytes=n_bytes,
+               largest_leaf_bytes=max(t.numel() * t.element_size()
+                                      for _, t in leaves))
+    # the oracle: the saved state, on the card (checks only)
+    saved = {p: t.detach().clone() for p, t in leaves}
+
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=base)
+    try:
+        disk, mem = shutil.disk_usage(tmp).free, _mem_available()
+        # zlib stores what it cannot shrink at a few bytes per 16 KB; the
+        # save's host copy and the restore's leaves are each the state
+        need_disk, need_mem = n_bytes * 1.01 + 2**30, 2 * n_bytes + 2**33
+        out.update(disk_free_bytes=disk, mem_available_bytes=mem,
+                   filesystem=_filesystem(tmp))
+        log(f"ckpt: {TRAIN_ARCH} at full width, {CKPT_LAYERS} layers, "
+            f"{out['n_params']:,} params; state {n_bytes:,} bytes "
+            f"({n_bytes / 2**30:.2f} GiB) in {len(leaves)} leaves; "
+            f"{disk / 2**30:.1f} GiB free on disk under {tmp}, "
+            f"{mem / 2**30:.1f} GiB host memory available")
+        if disk < need_disk or mem < need_mem:
+            raise RuntimeError(
+                f"ckpt: too little room: {disk:,} bytes free on disk for "
+                f"{need_disk:,.0f}, {mem:,} bytes of host memory available "
+                f"for {need_mem:,}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, writer = ckpt.save(
+            tmp, tree, step=int(state["step"]), async_write=True,
+            extra={"step": int(state["step"]), "data": pipe.state_dict()})
+        out["stop_s"] = time.perf_counter() - t0
+        state, out["losses_uninterrupted"] = steps(state, step, pipe)
+        writer.join()
+        out["write_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        _fsync_dir(d)
+        out["fsync_s"] = time.perf_counter() - t1
+        final = {n: p.detach().to("cpu", copy=True)
+                 for n, p in state["params"].items()}
+
+        # the failure
+        del lm, state, step, tree, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm, state, step = build(1)
+        like = adamw.state_tree(state, lm)
+        assert not torch.equal(lm.embed, saved["params.embed"])
+        latest = ckpt.latest(tmp)
+        assert latest == d, (latest, d)
+        out["disk_bytes"] = sum(f.stat().st_size
+                                for f in Path(latest).iterdir())
+        out["cached_before_evict"], out["cached_after_evict"] = \
+            _evict(latest)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(latest, like)
+        out["restore_s"] = time.perf_counter() - t0
+        out["restored_bit_equal"] = all(
+            torch.equal(t, saved[p]) for p, t in ckpt.flatten(like))
+        # once more, with whatever the first restore left cached
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(latest, like)
+        out["restore_warm_s"] = time.perf_counter() - t0
+        out["restored_bit_equal"] = out["restored_bit_equal"] and all(
+            torch.equal(t, saved[p]) for p, t in ckpt.flatten(like))
+        extra = ckpt.manifest_extra(latest)
+
+        def restart(load_cursor):
+            """From the restored state (reset from the oracle after the
+            first run), the CKPT_STEPS steps again."""
+            with torch.no_grad():
+                for p, t in ckpt.flatten(adamw.state_tree(state, lm)):
+                    t.copy_(saved[p])
+            pipe = TokenPipeline(data)
+            if load_cursor:
+                pipe.load_state_dict(extra["data"])
+            _, losses = steps(state, step, pipe)
+            return distance(losses, state["params"],
+                            out["losses_uninterrupted"], final, saved)
+
+        pipe = TokenPipeline(data)
+        pipe.load_state_dict(extra["data"])
+        _, out["losses_restarted"] = steps(state, step, pipe)
+        dist = distance(out["losses_restarted"], state["params"],
+                        out["losses_uninterrupted"], final, saved)
+        gate = _restart_gate("ckpt", dist, restart(True), restart(False))
+        out["gate"] = gate
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = kernel_counts()
+    out["flash_launches_by_kernel"] = flash_counts()
+    out["flash_bwd_launches_by_route"] = bwd_counts()
+    gb = n_bytes / 1e9
+    out.update(stop_gb_s=gb / out["stop_s"], write_gb_s=gb / out["write_s"],
+               restore_gb_s=gb / out["restore_s"],
+               restore_warm_gb_s=gb / out["restore_warm_s"],
+               phase_s=time.perf_counter() - t_phase)
+    log(f"ckpt: {out['compressor']} (host packages "
+        f"{json.dumps(out['host_packages'])}), {out['disk_bytes']:,} bytes "
+        f"on disk ({out['disk_bytes'] / n_bytes:.4f} of the state) on "
+        f"{json.dumps(out['filesystem'])}; stop "
+        f"{out['stop_s']:.3f} s ({out['stop_gb_s']:.3f} GB/s), write "
+        f"{out['write_s']:.3f} s ({out['write_gb_s']:.3f} GB/s), fsync "
+        f"after it {out['fsync_s']:.3f} s; page cache "
+        f"{out['cached_before_evict']:,} -> {out['cached_after_evict']:,} "
+        f"bytes by the eviction; restore after it "
+        f"{out['restore_s']:.3f} s ({out['restore_gb_s']:.3f} GB/s), once "
+        f"more {out['restore_warm_s']:.3f} s "
+        f"({out['restore_warm_gb_s']:.3f} GB/s); "
+        f"restored bit-equal {out['restored_bit_equal']}; losses before "
+        f"{out['losses_before']}, uninterrupted "
+        f"{out['losses_uninterrupted']}, restarted "
+        f"{out['losses_restarted']}; launches {json.dumps(out['launches'])}"
+        f", by kernel {json.dumps(out['flash_launches_by_kernel'])}, "
+        f"backward by route {json.dumps(out['flash_bwd_launches_by_route'])}"
+        f"; phase {out['phase_s']:.1f} s")
+    del lm, state, step, like, saved, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert out["n_leaves"] == 1 + 3 * n_param_leaves, out["n_leaves"]
+    assert out["restored_bit_equal"]
+    n_steps = 5 * CKPT_STEPS       # before, uninterrupted, restart, witness,
+    assert out["flash_launches_by_kernel"] == {                 # control
+        "tc": n_steps * 2 * CKPT_LAYERS, "fma": 0}, out
+    assert out["flash_bwd_launches_by_route"] == {
+        "tc": n_steps * CKPT_LAYERS, "fma": 0}, out
+    return out
+
+
+EXAMPLES = ("quickstart", "train_e2e", "serve_batch")
+E2E_ARGS = ["--steps", "60"]           # fails at 30, restarts from step 25
+
+
+@contextmanager
+def _cursor_not_restored():
+    """The control of a restart: ``TokenPipeline.load_state_dict`` does
+    nothing, so the restarted run replays the batches from 0."""
+    from repro_torch.data.pipeline import TokenPipeline
+    orig = TokenPipeline.load_state_dict
+    TokenPipeline.load_state_dict = lambda self, d: None
+    try:
+        yield
+    finally:
+        TokenPipeline.load_state_dict = orig
+
+
+def _losses_distance(got, want):
+    """A run's losses against the uninterrupted run's, by state step."""
+    steps = sorted(want)
+    return {"bit_equal": all(got[s] == want[s] for s in steps),
+            "loss_rel": _loss_rel([got[s] for s in steps],
+                                  [want[s] for s in steps])}
+
+
+@contextmanager
+def _flash_inputs(calls):
+    """Record into ``calls`` the inputs of the first flash forward and
+    backward launch of each set of shapes, strides, dtype and options while
+    the block runs; the launches and their counts are those of the run."""
+    from repro_torch.kernels import flash_attention as fa
+    fwd, bwd = fa._launch, fa._launch_bwd
+
+    def key(kind, ts, kw):
+        return (kind, tuple((tuple(t.shape), t.stride(), str(t.dtype))
+                            for t in ts), tuple(sorted(kw.items())))
+
+    def launch(q, k, v, **kw):
+        calls.setdefault(key("fwd", (q, k, v), kw), ((q, k, v), kw))
+        return fwd(q, k, v, **kw)
+
+    def launch_bwd(q, k, v, o, lse, do, **kw):
+        calls.setdefault(key("bwd", (q, k, v, o, do), kw),
+                         ((q, k, v, o, lse, do), kw))
+        return bwd(q, k, v, o, lse, do, **kw)
+
+    fa._launch, fa._launch_bwd = launch, launch_bwd
+    try:
+        yield calls
+    finally:
+        fa._launch, fa._launch_bwd = fwd, bwd
+
+
+def _hold_recorded(label, calls):
+    """Each recorded flash launch again on its own inputs, the kernel
+    against its plain version at the sweeps' limits (TOL per element,
+    REL_L2): the forward's o (and lse where the path asked for it) against
+    ``attention_fwd_lse_plain``, the backward's dq, dk, dv against
+    ``attention_bwd_plain``, beside a witness (the plain code in 64-wide
+    chunks). These launches come after the path's counts were read."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    rows, bad = [], []
+    for (kind, _, _), (ts, kw) in calls.items():
+        kw = dict(kw)
+        name = str(ts[0].dtype).split(".")[-1]
+        with torch.no_grad():
+            if kind == "fwd":
+                want_lse = kw.pop("want_lse", False)
+                o, lse = fa._launch(*ts, want_lse=want_lse, **kw)
+                o_p, lse_p = fa.attention_fwd_lse_plain(*ts, **kw)
+                o_w, lse_w = fa.attention_fwd_lse_plain(
+                    *ts, chunk_q=64, chunk_k=64, **kw)
+                pairs = [("o", o, o_p, o_w)]
+                if want_lse:
+                    pairs.append(("lse", lse, lse_p, lse_w))
+            else:
+                got = fa.flash_attention_bwd(*ts, **kw)
+                want = fa.attention_bwd_plain(*ts, **kw)
+                wit = fa.attention_bwd_plain(*ts, chunk_q=64, chunk_k=64,
+                                             **kw)
+                pairs = list(zip(("dq", "dk", "dv"), got, want, wit))
+        torch.cuda.synchronize()
+        rtol, atol = TOL[name]
+        errs, ok = {}, True
+        for lb, a, b, w in pairs:
+            diff = (a.float() - b.float()).abs()
+            excess = (diff - atol - rtol * b.float().abs()).max().item()
+            errs[lb] = {"max_abs_err": diff.max().item(), "rel_l2": _rel(a, b),
+                        "witness_rel_l2": _rel(w, b)}
+            ok = ok and excess <= 0 and errs[lb]["rel_l2"] <= REL_L2[name] \
+                and bool(torch.isfinite(a).all())
+        row = {"kind": kind, "q": list(ts[0].shape), "k": list(ts[1].shape),
+               "dtype": name, "options": kw, "errors": errs, "ok": ok}
+        rows.append(row)
+        log(f"examples: {label} holds {json.dumps(row)}")
+        if not ok:
+            bad.append(row)
+    if bad:
+        raise AssertionError(f"{label}: a flash kernel disagrees with its "
+                             f"plain version at the path's shapes: {bad}")
+    return rows
+
+
+def phase_examples():
+    """The three examples' ``main(device="cuda")`` in-process, each asserting
+    its own checks, with the counts set to 0 before each run and read
+    after: quickstart (deepseek-7b smoke, 2 layers, fp32: 22 steps of
+    2 x 2 FMA flash forwards and 2 FMA backwards), train_e2e (lm-100m,
+    12 x 768, fp32, ``--steps 60``: fails at 30, restarts from the
+    checkpoint of step 25, 65 steps; then the same command uninterrupted,
+    60 steps; the losses by state["step"] held by ``_restart_gate``, the
+    witness (the uninterrupted command again) and the control (a restart
+    that replays batch 0) run only where the restart is not bit-equal),
+    serve_batch (gemma3-1b smoke, 6 requests over 4 slots, a migration at
+    step 3: one FMA flash forward per layer and prefill, windowed on the
+    local layers). After each example's first run, its flash launches are
+    held against their plain versions at the shapes, strides and options
+    the example gave them (``_hold_recorded``)."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.examples import quickstart, serve_batch, train_e2e
+    out = {}
+
+    def counted(label, fn, hold=False):
+        """Run ``fn`` with the counts set to 0 before and read after; with
+        ``hold``, every flash launch's shape is then held by
+        ``_hold_recorded``."""
+        calls = {}
+        reset_kernel_counts()
+        with _flash_inputs(calls):
+            res = fn()
+        torch.cuda.synchronize()
+        out[label] = {"flash": flash_counts(), "bwd": bwd_counts(),
+                      "launches": kernel_counts()}
+        log(f"examples: {label} launches {json.dumps(out[label])}")
+        if hold:
+            out[label]["held"] = _hold_recorded(label, calls)
+        return res
+
+    t0 = time.perf_counter()
+    q = counted("quickstart", lambda: quickstart.main([], device=DEVICE),
+                hold=True)
+    out["quickstart_s"] = time.perf_counter() - t0
+    out["quickstart_result"] = q
+    n = (quickstart.STEPS + 2) * 2
+    assert q["equal"], q
+    assert out["quickstart"]["flash"] == {"tc": 0, "fma": 2 * n}, out
+    assert out["quickstart"]["bwd"] == {"tc": 0, "fma": n}, out
+
+    t0 = time.perf_counter()
+    failed = counted("train_e2e", lambda: train_e2e.main(
+        E2E_ARGS, device=DEVICE), hold=True)
+    clean = counted("train_e2e_uninterrupted", lambda: train_e2e.main(
+        E2E_ARGS + ["--fail-at", "1000"], device=DEVICE))
+    layers = train_e2e.CFG.num_layers
+    for label, n_steps in (("train_e2e", 65), ("train_e2e_uninterrupted",
+                                                60)):
+        assert out[label]["flash"] == {"tc": 0,
+                                       "fma": 2 * layers * n_steps}, out
+        assert out[label]["bwd"] == {"tc": 0, "fma": layers * n_steps}, out
+    assert failed["restarted"] == train_e2e.CKPT_EVERY, failed
+    assert failed["final_step"] == 61 and clean["final_step"] == 60
+    dist = _losses_distance(failed["losses"], clean["losses"])
+    witness = control = None
+    if not dist["bit_equal"]:
+        witness = _losses_distance(counted("train_e2e_witness", lambda:
+                                           train_e2e.main(E2E_ARGS + [
+                                               "--fail-at", "1000"],
+                                               device=DEVICE))["losses"],
+                                   clean["losses"])
+        with _cursor_not_restored():
+            control = _losses_distance(counted(
+                "train_e2e_control", lambda: train_e2e.main(
+                    E2E_ARGS, device=DEVICE))["losses"], clean["losses"])
+    out["train_e2e_gate"] = _restart_gate("examples: train_e2e", dist,
+                                          witness, control)
+    out["train_e2e_s"] = time.perf_counter() - t0
+    out["train_e2e_losses"] = {s: clean["losses"][s] for s in (1, 26, 30,
+                                                                60)}
+
+    t0 = time.perf_counter()
+    streams = counted("serve_batch", lambda: serve_batch.main(
+        [], device=DEVICE), hold=True)
+    out["serve_batch_s"] = time.perf_counter() - t0
+    cfg = get_smoke_config("gemma3-1b")
+    assert all(len(s) >= 8 for s in streams), streams
+    n = expected_launches(cfg, 6)["flash_attention_fwd"]
+    assert out["serve_batch"]["flash"] == {"tc": 0, "fma": n}, out
+    assert out["serve_batch"]["bwd"] == {"tc": 0, "fma": 0}, out
+    log(f"examples: quickstart {out['quickstart_s']:.1f} s, restored step "
+        f"bit-equal {q['equal']}; train_e2e {out['train_e2e_s']:.1f} s, "
+        f"losses at state steps 1, 26, 30, 60 "
+        f"{json.dumps(out['train_e2e_losses'])}; serve_batch "
+        f"{out['serve_batch_s']:.1f} s, {len(streams)} requests served")
+    return out
+
+
 PORT_KERNELS = re.compile(
     r"(flash_fwd|flash_bwd|ssd_fwd|rglru_fwd)\w*kernel(<[^>]*>)?")
 
@@ -1828,9 +2365,11 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     train = run("train", phase_train)
+    saved = run("ckpt", phase_ckpt)
+    examples = run("examples", phase_examples)
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
-            or train is None:
+            or train is None or saved is None or examples is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
@@ -1854,6 +2393,11 @@ def main():
         by_path = {a: p[1][kname] for a, p in paths.items() if p[1][kname]}
         if train["launches"][kname]:
             by_path[TRAIN_LABEL] = train["launches"][kname]
+        if saved["launches"][kname]:
+            by_path[CKPT_LABEL] = saved["launches"][kname]
+        for ex in EXAMPLES:
+            if examples[ex]["launches"][kname]:
+                by_path[f"examples-{ex}"] = examples[ex]["launches"][kname]
         entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1871,7 +2415,10 @@ def main():
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["flash_launches_by_kernel"][k]
                        for p in paths.values())
-                + train["flash_launches_by_kernel"][k] for k in ("tc", "fma")}
+                + train["flash_launches_by_kernel"][k]
+                + saved["flash_launches_by_kernel"][k]
+                + sum(examples[ex]["flash"][k] for ex in EXAMPLES)
+                for k in ("tc", "fma")}
             entry["at_shapes"] = [
                 {k: r[k] for k in ("path", "shape", "window", "kernel",
                                    "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1892,7 +2439,11 @@ def main():
                 "k/v through the ring, dQ += dS.K by wgmma. fp32 and bf16 at "
                 "16/32 (route fma): flash_bwd_{delta,dkdv,dq}_kernel, fp32 "
                 "FMA. No atomics; masked tiles skipped")
-            entry["launches_by_kernel"] = train["flash_bwd_launches_by_route"]
+            entry["launches_by_kernel"] = {
+                k: train["flash_bwd_launches_by_route"][k]
+                + saved["flash_bwd_launches_by_route"][k]
+                + sum(examples[ex]["bwd"][k] for ex in EXAMPLES)
+                for k in ("tc", "fma")}
             entry["at_shapes"] = [
                 {k: r[k] for k in ("path", "shape", "window", "route", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
@@ -1925,7 +2476,7 @@ def main():
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
                     "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
                     "serving": {a: p[2] for a, p in paths.items()},
-                    "train": train}))
+                    "train": train, "ckpt": saved, "examples": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
@@ -420,7 +421,11 @@ class LM(nn.Module):
 
     # -- embedding / logits -------------------------------------------------------
     def _embed(self, tokens):
-        x = self.embed[tokens.long()].to(self.compute_dtype)
+        # F.embedding sums each row's gradients in a fixed order; the
+        # backward of self.embed[tokens] adds them by atomics on a
+        # multi-threaded CPU, and a restarted run could then not be held to
+        # the uninterrupted one bit for bit
+        x = F.embedding(tokens.long(), self.embed).to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5,
                                  dtype=self.compute_dtype)

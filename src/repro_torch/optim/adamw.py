@@ -3,7 +3,8 @@ gradient-compression hook (mirrors ``repro/optim/adamw.py``).
 
 The state keeps the reference's layout, ``{step, params, m, v}``, with each
 tree flattened to a dict keyed by the parameter's dotted path (the
-``named_parameters`` names, which are the JAX tree's paths). ``params``
+``named_parameters`` names, which are the JAX tree's paths; ``state_tree``
+nests it back into the reference's tree for checkpoints). ``params``
 holds the ``LM``'s own ``nn.Parameter``s, and ``apply_updates`` writes
 params, ``m`` and ``v`` in place under ``torch.no_grad()``: at full width a
 functional copy would double the fp32 weights (13 GB for deepseek-7b at 12
@@ -16,6 +17,8 @@ import math
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch.models.layers import flatten_paths
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +52,33 @@ def init_state(params) -> Dict[str, object]:
             "params": dict(params),
             "m": {n: torch.zeros_like(p) for n, p in params.items()},
             "v": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+
+def state_tree(state, lm) -> Dict[str, object]:
+    """The state as the reference's pytree ``{step, params, m, v}``: each
+    path dict nested along ``lm.defs()``, so that ``core``, ``head`` and
+    ``tail`` are lists as in the reference (``tail.10`` after ``tail.9``),
+    with the state's own tensors as leaves. ``checkpoint.ckpt`` saves it and
+    restores into it in the reference's leaf order."""
+    defs = lm.defs()
+    paths = {p for p, _ in flatten_paths(defs)}
+
+    def nest(tree, flat, prefix):
+        if isinstance(tree, dict):
+            return {k: nest(v, flat, f"{prefix}{k}.")
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [nest(v, flat, f"{prefix}{i}.")
+                    for i, v in enumerate(tree)]
+        return flat[prefix[:-1]]
+
+    out = {"step": state["step"]}
+    for part in ("params", "m", "v"):
+        if state[part].keys() != paths:
+            raise KeyError(f"state[{part!r}] paths differ from the LM's: "
+                           f"{sorted(state[part].keys() ^ paths)}")
+        out[part] = nest(defs, state[part], "")
+    return out
 
 
 def _compress(g, generator: torch.Generator):

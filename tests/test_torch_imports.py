@@ -22,12 +22,16 @@ def test_every_module_imports_without_jax_or_repro():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'repro_torch.serving.engine' in names, names\n"
+        "for want in ('serving.engine', 'data.pipeline', 'checkpoint.ckpt',\n"
+        "             'examples.quickstart', 'examples.train_e2e',\n"
+        "             'examples.serve_batch'):\n"
+        "    assert 'repro_torch.' + want in names, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -37,14 +41,17 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_sources_name_no_jax_and_no_repro():
-    bad = re.compile(r"^\s*(import|from)\s+(jax\b|repro(\.|\s|$))", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax\b|msgpack\b|repro(\.|\s|$))",
+                     re.M)
     for path in _port_sources():
         hits = bad.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)}: {hits}"
 
 
-@pytest.mark.parametrize("entry", ["LM", "ServingEngine"])
+@pytest.mark.parametrize("entry", ["LM", "ServingEngine", "quickstart",
+                                   "train_e2e", "serve_batch"])
 def test_entry_points_default_to_cuda(entry):
+    import importlib
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.model import LM
     from repro_torch.serving.engine import ServingEngine
@@ -54,5 +61,7 @@ def test_entry_points_default_to_cuda(entry):
     with pytest.raises(RuntimeError, match="cuda"):
         if entry == "LM":
             LM(cfg)
-        else:
+        elif entry == "ServingEngine":
             ServingEngine(LM(cfg, device="cpu"), slots=2, capacity=32)
+        else:     # an example's main, with no arguments, runs on the card
+            importlib.import_module(f"repro_torch.examples.{entry}").main([])
