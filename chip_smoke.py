@@ -13,7 +13,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
              path serves; elementwise tolerances of tests/test_kernels.py
              and a relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16
              per case. ``sweep`` is the flash attention (recurrentgemma's
-             windowed MQA head-dim-256 prefills among its cases); it logs
+             windowed MQA head-dim-256 prefills, the later paths' prefill
+             shapes, and non-causal cases with Sq = Sk, Sq < Sk (seamless-
+             m4t's cross-attention over 4096 frames) and Sq > Sk among its
+             cases); it logs
              which of its two kernels ran each case (tensor-core ``tc`` or
              FMA ``fma``) and fails if a bf16 case at head dim >= 64 ran
              the FMA kernel,
@@ -26,7 +29,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``sweep-bwd`` the flash backward (dq, dk, dv and the forward's
              log-sum-exp, over the flash sweep's small shapes, dtypes and
              variants and the two served S=2048 prefill shapes, beside the
-             plain backward in 64-row chunks as a witness and, at S=2048,
+             plain backward in 64-row chunks as a witness, non-causal
+             Sq > Sk cases among them, and, at S=2048,
              SDPA's backward as a second; each case's route, tensor-core
              ``tc`` (bf16 at head dims 64/128/256) or FMA ``fma``, held by
              the counters; then the FlashAttention Function against
@@ -41,7 +45,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``timing-ssd``, ``timing-rglru``), with the share of the bound
              and the host's time to issue a call beside the device's time
              for it; ``timing`` also gives the flash kernel's TFLOP/s and
-             ratio to SDPA, and times the fp32 FMA flash kernel at
+             ratio to SDPA, also at seamless-m4t's non-causal encoder and
+             cross shapes, and times the fp32 FMA flash kernel at
              deepseek-7b's shape; ``timing-bwd`` the flash backward at the
              two served shapes with its route, beside SDPA's backward
              (fwd+bwd less fwd).
@@ -61,6 +66,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
              2048-token window, d_ff 12288, vocab 256000) through the RG-LRU
              scan and the windowed flash attention, with a seventh,
              2176-token prompt that makes the window bind in prefill.
+             Then ``serve-gemma7b`` (28 layers, d_model 3072, 16x256 MHA,
+             GeGLU 24576, vocab 256000), ``serve-stablelm`` (24 layers,
+             2048, 32x64 heads, LayerNorm, rope_pct 0.25, vocab 100352) and
+             ``serve-gemma3`` (26 layers, 5 local (window 512) : 1 global
+             MQA 4x256, 4 core periods over 4 slots) on the engine, and
+             the multimodal paths through ``LM.prefill`` and
+             ``LM.decode_step`` one request at a time (the engine takes
+             tokens alone, as the reference's): ``serve-internvl``
+             (internvl2-76b at full width, 8 of its 80 layers, 64x128 GQA
+             over 8 kv heads, d_ff 28672; 256 seeded vision embeds ahead
+             of prompts {128, 512, 1536}) and ``serve-seamless``
+             (seamless-m4t-large-v2, 24 encoder + 24 decoder layers,
+             16x64 heads, gelu 8192, vocab 256206; 4096 seeded frames,
+             prompts {16, 128, 512}: 72 flash launches per request, 24
+             encoder, 24 self, 24 cross).
              Random weights from a seeded generator.
     logits — request 0's prefill through the kernel and the plain version,
              beside witnesses (correct codes: the plain code in other
@@ -75,14 +95,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
              steps gives a forward's next-token logits. ``logits-rg`` does
              the same for the RG-LRU scan (witness: the plain scan in
              64-row pieces carried through h0; control: the carry dropped
-             at every step).
+             at every step). ``logits-*`` of the later paths gate the bf16
+             hidden state after 4 layers and an fp32 twin's last-logits
+             (seamless-m4t: 2 encoder layers, 2 decoder layers over one
+             encoder output, the fp32 twin's 12 encoder layers and its
+             last-logits over one encoder output; its random-init encoder
+             carries rounding too far for later gates), with the SDPA
+             witness and a mask-fault control.
  6. migrate — the same requests again with a mid-decode state_dict dump to
              host memory and restore into a fresh engine; the streams must
              equal phase 5's (``migrate``, ``migrate-mamba``,
-             ``migrate-rg``).
+             ``migrate-rg``, and the later engine paths').
  7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
              device time by kernel and the device's idle share
-             (``profile``, ``profile-mamba``, ``profile-rg``).
+             (``profile``, ``profile-mamba``, ``profile-rg``; the later
+             paths are not profiled).
  8. train  — deepseek-7b at full width and 12 layers (fp32 params, bf16
              compute, full remat), B=1, S=2048: a step-1 gate of the kernel
              path against the plain path beside witnesses and controls, an
@@ -151,6 +178,10 @@ KERNEL_SOURCES = ("flash_attention", "ssd", "rglru")
 PROMPT_LENS = (128, 333, 512, 1000, 1536, 2048)
 # recurrentgemma-9b also serves a prompt longer than its 2048-token window
 RG_PROMPT_LENS = PROMPT_LENS + (2176,)
+# the multimodal paths' text prompts: internvl2-76b's follow its 256 vision
+# embeds, seamless-m4t's decoder attends to 4096 encoder frames
+VLM_PROMPT_LENS = (128, 512, 1536)
+ENCDEC_PROMPT_LENS = (16, 128, 512)
 MAX_NEW = 16
 SLOTS, CAPACITY = 4, 2304
 DEVICE = "cuda"
@@ -226,10 +257,14 @@ VARIANTS = ("causal", "bidir", "window", "softcap")
 RG_WINDOW = 2048       # recurrentgemma-9b's local_window
 
 
+GEMMA3_WINDOW = 512   # gemma3-1b's local_window
+
+
 def variant_kw(name, Sk):
     return {"causal": dict(causal=True), "bidir": dict(causal=False),
             "window": dict(causal=True, window=Sk // 3),
             "window2048": dict(causal=True, window=RG_WINDOW),
+            "window512": dict(causal=True, window=GEMMA3_WINDOW),
             "softcap": dict(causal=True, softcap=20.0)}[name]
 
 
@@ -272,6 +307,41 @@ FLASH_SHAPES = [(1, 128, 128, 4, 4, hd) for hd in (16, 32, 64, 128, 256)] + [
     (2, 77, 77, 4, 4, 256)]         # ragged, tiny, largest head dim
 
 
+def _served_flash_cases():
+    """The later paths' prefill shapes in bf16: gemma-7b, stablelm-1.6b,
+    gemma3-1b (local and global layers), internvl2-76b (vision embeds and
+    text) and seamless-m4t's causal self-attention."""
+    import torch
+    bf = torch.bfloat16
+    return ([((1, S, S, 16, 16, 256), bf, "causal") for S in PROMPT_LENS]
+            + [((1, S, S, 32, 32, 64), bf, "causal") for S in PROMPT_LENS]
+            + [((1, S, S, 4, 1, 256), bf, v) for S in PROMPT_LENS
+               for v in ("window512", "causal")]
+            + [((1, 256 + S, 256 + S, 64, 8, 128), bf, "causal")
+               for S in VLM_PROMPT_LENS]
+            + [((1, S, S, 16, 16, 64), bf, "causal")
+               for S in ENCDEC_PROMPT_LENS])
+
+
+def _noncausal_cases():
+    """Non-causal cases in both dtypes: Sq = Sk at head dims 64/128/256
+    and seamless-m4t's encoder shape; Sq < Sk, its cross shapes; Sq > Sk
+    (a decoder longer than its encoder), with Sk on and off the key
+    tile."""
+    import torch
+    dts = (torch.float32, torch.bfloat16)
+    shapes = [(1, 256, 256, 8, 8, hd) for hd in (64, 128, 256)] + [
+        (1, 4096, 4096, 16, 16, 64),                # the encoder
+        (1, 512, 4096, 16, 16, 64),                 # cross, Sq < Sk
+        (1, 96, 32, 16, 16, 64),                    # Sq > Sk
+        (1, 200, 77, 8, 2, 128),                    # Sq > Sk, ragged Sk
+        (1, 300, 100, 4, 1, 256)]                   # Sq > Sk, MQA, hd 256
+    cases = [(sh, dt, "bidir") for sh in shapes for dt in dts]
+    cases += [((1, S, 4096, 16, 16, 64), torch.bfloat16, "bidir")
+              for S in ENCDEC_PROMPT_LENS if S != 512]  # the other crosses
+    return cases
+
+
 def phase_sweep():
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -281,6 +351,7 @@ def phase_sweep():
               for S in PROMPT_LENS]            # deepseek-7b's prefills
     cases += [((1, S, S, 16, 1, 256), torch.bfloat16, "window2048")
               for S in RG_PROMPT_LENS]         # recurrentgemma-9b's prefills
+    cases += _served_flash_cases() + _noncausal_cases()
     bad = []
     worst = {}
     ran = {"tc": 0, "fma": 0}
@@ -343,13 +414,17 @@ def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-# flash timing shapes: (label, S, H, Kh, hd, window); the first three are
-# deepseek-7b's prefills, the last recurrentgemma-9b's windowed MQA one (at
-# S = window the window does not bind, so causal SDPA is a fair yardstick)
-FLASH_TIMING = (("deepseek", 128, 32, 32, 128, 0),
-                ("deepseek", 512, 32, 32, 128, 0),
-                ("deepseek", 2048, 32, 32, 128, 0),
-                ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
+# flash timing shapes: (label, Sq, Sk, H, Kh, hd, window, causal); the
+# first three are deepseek-7b's prefills, the fourth recurrentgemma-9b's
+# windowed MQA one (at S = window the window does not bind, so causal SDPA
+# is a fair yardstick), the last two seamless-m4t's encoder and its
+# decoder's cross-attention over 4096 frames, both non-causal
+FLASH_TIMING = (("deepseek", 128, 128, 32, 32, 128, 0, True),
+                ("deepseek", 512, 512, 32, 32, 128, 0, True),
+                ("deepseek", 2048, 2048, 32, 32, 128, 0, True),
+                ("recurrentgemma", 2048, 2048, 16, 1, 256, RG_WINDOW, True),
+                ("seamless encoder", 4096, 4096, 16, 16, 64, 0, False),
+                ("seamless cross", 512, 4096, 16, 16, 64, 0, False))
 
 
 def phase_timing():
@@ -357,15 +432,16 @@ def phase_timing():
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
-    for label, S, H, Kh, hd, window in FLASH_TIMING:
+    for label, S, Sk, H, Kh, hd, window, causal in FLASH_TIMING:
         B = 1
-        q, k, v = rand_qkv(100 + S + hd, B, S, S, H, Kh, hd, torch.bfloat16)
-        kw = dict(causal=True, window=window)
+        q, k, v = rand_qkv(100 + S + Sk + hd, B, S, Sk, H, Kh, hd,
+                           torch.bfloat16)
+        kw = dict(causal=causal, window=window)
         kern = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         plain = lambda: fa.attention_plain(q, k, v, **kw)  # noqa: E731
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=Kh != H)
+            qt, kt, vt, is_causal=causal, enable_gqa=Kh != H)
         err = (kern().float() - plain().float()).abs().max().item()
         lib_err = (kern().float() - lib().transpose(1, 2).float()
                    ).abs().max().item()
@@ -375,11 +451,13 @@ def phase_timing():
         lib_ms = time_ms(lib, iters)
         ms2 = time_ms(kern, iters)
         host = host_ms(kern, iters)
-        bound_ms, bound_by, flops = attention_bound(B, S, S, H, hd, 2, True,
-                                                    Kh=Kh, window=window)
-        shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "")
-        row = dict(path=label, S=S, shape=shape, window=window,
-                   dtype="bfloat16", ms=ms,
+        bound_ms, bound_by, flops = attention_bound(B, S, Sk, H, hd, 2,
+                                                    causal, Kh=Kh,
+                                                    window=window)
+        shape = f"[1,{S},{H},{hd}]" + (f" Kh={Kh}" if Kh != H else "") + \
+            (f" over Sk={Sk}" if Sk != S else "")
+        row = dict(path=label, S=S, Sk=Sk, shape=shape, window=window,
+                   causal=causal, dtype="bfloat16", ms=ms,
                    ms_repeat=ms2, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                    library_max_abs_diff=lib_err,
@@ -388,7 +466,8 @@ def phase_timing():
                    share_of_bound=bound_ms / ms, vs_sdpa=ms / lib_ms,
                    host_ms_per_call=host)
         rows.append(row)
-        log(f"timing {shape} bf16 causal window={window} ({row['kernel']} "
+        log(f"timing {shape} bf16 {'causal' if causal else 'non-causal'} "
+            f"window={window} ({row['kernel']} "
             f"kernel): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
             f"ms, SDPA yardstick {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}), {row['tflops']:.2f} TFLOP/s, "
@@ -672,6 +751,11 @@ def phase_sweep_bwd():
              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
     cases += [((1, 2048, 2048, 32, 32, 128), torch.bfloat16, "causal"),
               ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, "window2048")]
+    # non-causal with Sq > Sk (a decoder longer than its encoder), Sk on
+    # and off the key tiles
+    cases += [(s, dt, "bidir") for s in ((1, 96, 32, 16, 16, 64),
+                                         (1, 200, 77, 8, 2, 128))
+              for dt in (torch.float32, torch.bfloat16)]
     bad, worst, routes = [], {}, {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
         B, Sq, Sk, H, Kh, hd = shape
@@ -950,7 +1034,17 @@ def phase_timing_rglru():
 
 # the served paths and their phase labels
 PATHS = {"deepseek-7b": "serve", "mamba2-2.7b": "serve-mamba",
-         "recurrentgemma-9b": "serve-rg"}
+         "recurrentgemma-9b": "serve-rg", "gemma-7b": "serve-gemma7b",
+         "stablelm-1.6b": "serve-stablelm", "gemma3-1b": "serve-gemma3",
+         "internvl2-76b": "serve-internvl",
+         "seamless-m4t-large-v2": "serve-seamless"}
+# depth served where the full one does not fit: internvl2-76b's 80 layers
+# hold 76 B params; 8 layers are 8.95 B, 35.8 GB in fp32 at init and 17.9
+# GB after cast_weights (16 layers would need some 63 GB in fp32 at init)
+PATH_LAYERS = {"internvl2-76b": 8}
+PATH_PROMPT_LENS = {"recurrentgemma-9b": RG_PROMPT_LENS,
+                    "internvl2-76b": VLM_PROMPT_LENS,
+                    "seamless-m4t-large-v2": ENCDEC_PROMPT_LENS}
 # the kernel each layer's mixer launches once per prefill
 KERNEL_OF_MIXER = {"attn": "flash_attention_fwd",
                    "local": "flash_attention_fwd", "ssm": "ssd_scan",
@@ -960,17 +1054,34 @@ KERNEL_OF_MIXER = {"attn": "flash_attention_fwd",
 def make_prompts(cfg):
     import numpy as np
     rng = np.random.RandomState(0)
-    lens = RG_PROMPT_LENS if cfg.name == "recurrentgemma-9b" else \
-        PROMPT_LENS
     return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
-            for n in lens]
+            for n in PATH_PROMPT_LENS.get(cfg.name, PROMPT_LENS)]
+
+
+def request_batch(cfg, prompt, seed):
+    """One request's batch on the card: the prompt's tokens [1,S], and the
+    frontend stub's seeded embeddings, as ``data.pipeline``'s
+    ``frontend_stub_batch`` makes them (normal, std 0.02): internvl2-76b's
+    ``vision_embeds`` [1,256,D], seamless-m4t's ``frames`` [1,4096,D]."""
+    import torch
+    batch = {"tokens": torch.as_tensor(prompt, device=DEVICE)[None]}
+    if cfg.frontend != "none":
+        g = torch.Generator(device=DEVICE).manual_seed(1000 + seed)
+        key = "vision_embeds" if cfg.frontend == "vision" else "frames"
+        batch[key] = torch.randn((1, cfg.frontend_tokens, cfg.d_model),
+                                 generator=g, device=DEVICE) * 0.02
+    return batch
 
 
 def expected_launches(cfg, n_prefills):
-    """One launch of each layer's kernel per layer and prefill."""
+    """One launch of each layer's kernel per layer and prefill; an
+    encoder-decoder adds one per encoder layer and one per decoder layer's
+    cross-attention (seamless-m4t: 24 + 24 + 24 = 72 per prefill)."""
     want = dict.fromkeys(kernel_counts(), 0)
     for mixer in cfg.layer_kinds:
         want[KERNEL_OF_MIXER[mixer]] += n_prefills
+    want["flash_attention_fwd"] += n_prefills * (
+        cfg.encoder_layers + (cfg.num_layers if cfg.encoder_layers else 0))
     return want
 
 
@@ -1049,6 +1160,8 @@ def build_lm(arch):
     from repro_torch.models.model import LM
     label = PATHS[arch]
     cfg = get_config(arch)
+    if arch in PATH_LAYERS:
+        cfg = cfg.replace(num_layers=PATH_LAYERS[arch])
     t0 = time.perf_counter()
     lm = LM(cfg, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
@@ -1058,8 +1171,12 @@ def build_lm(arch):
     lm.cast_weights()
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
-    log(f"{label}: {arch} at full width, {n_params / 1e9:.3f} B params "
-        f"(n_periods={lm.decoder.n_periods}), init+cast "
+    depth = (f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
+             if arch in PATH_LAYERS else f"{cfg.num_layers} layers")
+    if cfg.encoder_layers:
+        depth += f" + {cfg.encoder_layers} encoder layers"
+    log(f"{label}: {arch} at full width, {depth}, {n_params / 1e9:.3f} B "
+        f"params (n_periods={lm.decoder.n_periods}), init+cast "
         f"{time.perf_counter() - t0:.1f} s, weights held in "
         f"{n_bytes / 2**30:.2f} GiB (matrices bf16, 1-D params fp32)")
     return lm
@@ -1123,6 +1240,92 @@ def phase_serve(lm):
     return streams, launches, summary
 
 
+def generate(lm, batch, n_new, timings=None):
+    """One request through ``LM.prefill`` and ``n_new - 1`` greedy
+    ``LM.decode_step``s (B=1); ``timings`` collects the prefill's and
+    each step's time and the kernel launches made inside decode steps."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = lm.prefill(batch, CAPACITY)
+    tok = logits.argmax(-1)
+    out = [int(tok[0])]
+    if timings is not None:
+        timings["prefill"].append((batch["tokens"].shape[1],
+                                   time.perf_counter() - t0))
+    before = sum(kernel_counts().values())
+    for _ in range(n_new - 1):
+        t0 = time.perf_counter()
+        cache, logits = lm.decode_step(cache, tok[:, None])
+        tok = logits.argmax(-1)
+        out.append(int(tok[0]))
+        if timings is not None:
+            timings["decode"].append((1, time.perf_counter() - t0))
+    if timings is not None:
+        timings["decode_launches"] = timings.get("decode_launches", 0) + \
+            sum(kernel_counts().values()) - before
+    return out
+
+
+def phase_serve_lm(lm):
+    """The multimodal paths (internvl2-76b, seamless-m4t) through
+    ``LM.prefill`` and ``LM.decode_step``, as tests/test_archs.py drives
+    them: the engine takes tokens alone, as the reference's does. Each
+    request alone (B=1): its text prompt with the frontend stub's seeded
+    embeddings, MAX_NEW greedy tokens. The counts are set to 0 just before
+    the run and read just after: the flash kernel launches once per
+    attention layer and prefill (seamless-m4t: and once per encoder layer
+    and per decoder layer's cross-attention), all on the tensor-core
+    kernel, and decode launches none."""
+    import torch
+    cfg = lm.cfg
+    label = PATHS[cfg.name]
+    prompts = make_prompts(cfg)
+    batches = [request_batch(cfg, p, i) for i, p in enumerate(prompts)]
+    # set-up, not request time: the first products pick their cuBLAS plans
+    t0 = time.perf_counter()
+    generate(lm, batches[0], 2)
+    log(f"{label}: warm-up (one {len(prompts[0])}-token request, 2 tokens) "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    timings = {"prefill": [], "decode": []}
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    streams = [generate(lm, b, MAX_NEW, timings) for b in batches]
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    flash = flash_counts()
+    ssd_by = ssd_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg, len(prompts))
+    assert launches == want, (launches, want)
+    assert flash == {"tc": want["flash_attention_fwd"], "fma": 0}, flash
+    assert timings["decode_launches"] == 0, timings["decode_launches"]
+    ahead = {"vision": f" after {cfg.frontend_tokens} vision embeds",
+             "audio": f" over {cfg.frontend_tokens} encoder frames"}.get(
+                 cfg.frontend, "")
+    for n, dt in timings["prefill"]:
+        log(f"{label}: prefill S={n:5d}{ahead} {dt * 1e3:.3f} ms")
+    dec = timings["decode"]
+    dec_s = sum(dt for _, dt in dec)
+    log(f"{label}: {len(dec)} decode steps (B=1), "
+        f"{dec_s / len(dec) * 1e3:.3f} ms per step, "
+        f"{len(dec) / dec_s:.1f} tokens/s decoded; {len(prompts)} requests "
+        f"in {wall:.2f} s; peak allocated {peak / 2**30:.2f} GiB; launches "
+        f"{json.dumps(launches)}, flash by kernel {json.dumps(flash)} "
+        f"({timings['decode_launches']} in decode steps)")
+    for i, (p, out) in enumerate(zip(prompts, streams)):
+        assert len(out) == MAX_NEW, out
+        log(f"{label}: request {i} (S={len(p)}) -> {out}")
+    summary = dict(
+        prefill_ms={str(n): dt * 1e3 for n, dt in timings["prefill"]},
+        decode_ms_per_step=dec_s / len(dec) * 1e3, decode_steps=len(dec),
+        decode_tokens_per_s=len(dec) / dec_s, decode_batch=1, wall_s=wall,
+        peak_allocated_gib=peak / 2**30, launches=launches,
+        flash_launches_by_kernel=flash, ssd_launches_by_kernel=ssd_by)
+    return streams, launches, summary
+
+
 @contextmanager
 def plain_attention_as(fn):
     """Route the port's ``impl="plain"`` attention through ``fn`` for the
@@ -1146,12 +1349,15 @@ def _sdpa_witness(orig, q, k, v, *, causal=True, window=0, softcap=0.0,
                   scale=None):
     """Witness: PyTorch's own attention (SDPA), a correct code that sums on
     the tensor cores and rounds P to bf16, as the tensor-core kernel does.
-    Only for what deepseek-7b's prefill asks: right-aligned queries as long
-    as the keys, no window, no softcap."""
+    Only for what the gated prefills ask: causal with queries as long as
+    the keys, or non-causal at any lengths (an encoder, a cross-attention);
+    no window that binds (gemma3-1b's 512 does not at its 128-token gate),
+    no softcap."""
     import torch.nn.functional as F
-    if q.shape[1] != k.shape[1] or window or softcap:
-        raise ValueError("the SDPA witness takes Sq == Sk, no window, no "
-                         "softcap")
+    Sq, Sk = q.shape[1], k.shape[1]
+    if (causal and Sq != Sk) or 0 < window < Sk or softcap:
+        raise ValueError("the SDPA witness takes causal Sq == Sk or "
+                         "non-causal calls, no binding window, no softcap")
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=causal, scale=scale,
@@ -1166,6 +1372,18 @@ def _plain_drops_diagonal(orig, q, k, v, **kw):
     head = orig(q[:, :1], k[:, :1], v[:, :1], **kw)
     rest = orig(q[:, 1:], k[:, :-1], v[:, :-1], **kw)
     return torch.cat([head, rest], 1)
+
+
+def _plain_mask_fault(orig, q, k, v, **kw):
+    """Control: a mask fault. A causal call takes the off-by-one diagonal
+    (``_plain_drops_diagonal``); a non-causal one (an encoder layer, a
+    cross-attention) the causal mask all the same, as a kernel that ignored
+    the flag would. The off-by-one mask drops one key in 4096 there, too
+    weak a fault to lie clearly over the bf16 limit after 2 encoder
+    layers."""
+    if kw.get("causal", True):
+        return _plain_drops_diagonal(orig, q, k, v, **kw)
+    return orig(q, k, v, **dict(kw, causal=True))
 
 
 @contextmanager
@@ -1354,20 +1572,30 @@ def _assert_gates(out, gates):
         assert out[f"{pre}_kernel_vs_plain"] <= limit, out
 
 
-def _hidden_after(lm, batch, n_layers, impl):
-    """The residual stream after the first ``n_layers`` layers of a prefill,
-    walking head, stacked core periods and tail in order."""
+def _hidden_after(lm, batch, n_layers, impl, stack="decoder",
+                  enc_out=None):
+    """The residual stream after the first ``n_layers`` layers of a
+    prefill, walking head, stacked core periods and tail in order: of the
+    decoder (an encoder-decoder runs its whole encoder first, through
+    ``LM._inputs``, unless ``enc_out`` is given), or of the encoder over the
+    batch's frames (``stack="encoder"``)."""
     import torch
     from repro_torch.models.model import layer_prefill, params_tree, periods
-    dec = lm.decoder
-    params = params_tree(dec)
-    layers = list(zip(dec.head_kinds, params["head"]))
-    for core in periods(params["core"], dec.n_periods):
-        layers += list(zip(dec.period_kinds, core))
-    layers += list(zip(dec.tail_kinds, params["tail"]))
-    x = lm._embed(batch["tokens"])
-    ctx = {"positions": lm._positions(*x.shape[:2]), "impl": impl}
+    st = getattr(lm, stack)
+    params = params_tree(st)
+    layers = list(zip(st.head_kinds, params["head"]))
+    for core in periods(params["core"], st.n_periods):
+        layers += list(zip(st.period_kinds, core))
+    layers += list(zip(st.tail_kinds, params["tail"]))
     with torch.no_grad():
+        if stack == "encoder":
+            x = batch["frames"].to(lm.compute_dtype)
+        elif enc_out is not None:
+            x = lm._embed(batch["tokens"])
+        else:
+            x, enc_out, _ = lm._inputs(batch, impl)
+        ctx = {"positions": lm._positions(*x.shape[:2]), "enc_out": enc_out,
+               "impl": impl}
         for k, p in layers[:n_layers]:
             x, _, _ = layer_prefill(lm.cfg, k, p, x, ctx)
     return x
@@ -1439,6 +1667,110 @@ def phase_logits_scan(lm):
     _assert_gates(out, ((gate, LOGITS_REL_L2),
                         ("fp32_logits", LOGITS_REL_L2_FP32)))
     assert carry <= CARRY_REL_L2, out
+    return out
+
+
+# seamless-m4t's gates. Its random-init encoder runs the residual stream
+# to an rms of 470 over 24 non-causal layers over 4096 frames, and carries
+# any rounding far (tools/seamless_depth_probe.py, on an H100 80GB HBM3 at
+# 700 W): two correct fp32 codes (the plain one in 512- and 64-wide chunks)
+# differ by 1.1e-2 on its output and by 0.40 on the last-logits; in bf16
+# the hidden state after 4 encoder layers reads 0.084 for SDPA (a correct
+# code), and after the encoder and 4 decoder layers 0.63 for the chunked
+# plain code. The gates sit where correct codes read under the limits: 2
+# encoder layers, and 2 decoder layers (fp32: the whole decoder) over one
+# encoder output, the plain code's, given to every run; the fp32 encoder
+# after 12 of its layers
+ENC_GATE_LAYERS, ENC_GATE_LAYERS_FP32, DEC_GATE_LAYERS_ENCDEC = 2, 12, 2
+
+
+def phase_logits_attn(lm):
+    """The later attention-only paths (gemma-7b, stablelm-1.6b, gemma3-1b,
+    internvl2-76b, seamless-m4t): request 0's prefill, with its frontend
+    embeddings, through the flash kernel and through the plain attention,
+    beside witnesses (the plain code in 64-wide chunks; SDPA, a correct
+    code on the tensor cores, in bf16) and a control (``_plain_mask_fault``:
+    the off-by-one causal mask, or the causal mask on a non-causal call).
+    Each gate has every witness under its limit, the control over it, the
+    kernel under it, and counts the kernel run's flash launches (bf16 on
+    the tensor-core kernel, fp32 on the FMA one):
+      * decoder-only paths: the served bf16 model's hidden state after its
+        first GATE_LAYERS layers at LOGITS_REL_L2; an fp32 twin with the
+        same weights (the same seeded draws before the bf16 cast),
+        last-logits at LOGITS_REL_L2_FP32;
+      * seamless-m4t: the bf16 hidden state after ENC_GATE_LAYERS encoder
+        layers and after DEC_GATE_LAYERS_ENCDEC decoder layers over one
+        encoder output, at LOGITS_REL_L2; the fp32 twin's after
+        ENC_GATE_LAYERS_FP32 encoder layers, and its last-logits over one
+        encoder output, at LOGITS_REL_L2_FP32.
+    The bf16 model's last-logits through the whole model are reported."""
+    import torch
+    from repro_torch.models.model import LM
+    cfg = lm.cfg
+    label = PATHS[cfg.name].replace("serve", "logits")
+    p0 = request_batch(cfg, make_prompts(cfg)[0], 0)
+    out = {}
+
+    gates = []
+
+    def gate(name, run, n_launches, limit, sdpa):
+        more = {"sdpa": plain_attention_as(_sdpa_witness)} if sdpa else {}
+        before = flash_counts()
+        errs, k, p = _kernel_witness_control(
+            run, plain_attention_as(_plain_small_chunks),
+            plain_attention_as(_plain_mask_fault), **more)
+        ran = {r: flash_counts()[r] - before[r] for r in before}
+        route = "tc" if sdpa else "fma"
+        out.update({f"{name}_{e}": v for e, v in errs.items()})
+        out[f"{name}_flash_launches_by_kernel"] = ran
+        if limit is not None:
+            out[f"{name}_limit"] = limit
+            gates.append((name, limit))
+            assert ran == {"tc": 0, "fma": 0, route: n_launches}, (name, ran)
+        return k, p
+
+    def last_logits(model, enc=None):
+        if enc is None:
+            return lambda impl: model.prefill(p0, CAPACITY, impl=impl)[1]
+        return lambda impl: model._logits(_hidden_after(
+            model, p0, model.cfg.num_layers, impl, enc_out=enc)[:, -1:])[:, 0]
+
+    encdec = cfg.encoder_layers > 0
+    if encdec:
+        enc = lm._inputs(p0, "plain")[1]
+        gate(f"bf16_enc{ENC_GATE_LAYERS}", lambda impl: _hidden_after(
+            lm, p0, ENC_GATE_LAYERS, impl, stack="encoder"),
+            ENC_GATE_LAYERS, LOGITS_REL_L2, True)
+        n = DEC_GATE_LAYERS_ENCDEC
+        gate(f"bf16_dec{n}_shared_enc", lambda impl: _hidden_after(
+            lm, p0, n, impl, enc_out=enc), 2 * n, LOGITS_REL_L2, True)
+        del enc
+    else:
+        gate(f"bf16_hidden{GATE_LAYERS}", lambda impl: _hidden_after(
+            lm, p0, GATE_LAYERS, impl), GATE_LAYERS, LOGITS_REL_L2, True)
+    lk, lp = gate("bf16_logits", last_logits(lm), None, None, True)
+    assert lk.shape == (1, cfg.padded_vocab)
+    lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
+              generator=torch.Generator(device=DEVICE).manual_seed(0))
+    if encdec:
+        n = min(ENC_GATE_LAYERS_FP32, cfg.encoder_layers)
+        gate(f"fp32_enc{n}", lambda impl: _hidden_after(
+            lm32, p0, n, impl, stack="encoder"), n, LOGITS_REL_L2_FP32,
+            False)
+        enc = lm32._inputs(p0, "plain")[1]
+        _, lp32 = gate("fp32_logits_shared_enc", last_logits(lm32, enc),
+                       2 * cfg.num_layers, LOGITS_REL_L2_FP32, False)
+        del enc
+    else:
+        _, lp32 = gate("fp32_logits", last_logits(lm32), cfg.num_layers,
+                       LOGITS_REL_L2_FP32, False)
+    del lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16_logits_kernel_vs_fp32"] = _rel(lk, lp32)
+    out["bf16_logits_plain_vs_fp32"] = _rel(lp, lp32)
+    log(f"{label}: request 0 prefill, relative L2 " + json.dumps(out))
+    _assert_gates(out, gates)
     return out
 
 
@@ -2348,17 +2680,25 @@ def main():
     timing_bwd = run("timing-bwd", phase_timing_bwd)
     run("grad-scan", phase_grad_scan)
     paths = {}
-    for arch, logits_fn in (("deepseek-7b", phase_logits),
-                            ("mamba2-2.7b", phase_logits_scan),
-                            ("recurrentgemma-9b", phase_logits_scan)):
+    logits_of = {"deepseek-7b": phase_logits,
+                 "mamba2-2.7b": phase_logits_scan,
+                 "recurrentgemma-9b": phase_logits_scan}
+    for arch in PATHS:
         label = PATHS[arch]
         sfx = label[len("serve"):]
+        # the multimodal paths run without the engine, which takes tokens
+        # alone; the later paths are not profiled (time on the card)
+        engine = arch not in ("internvl2-76b", "seamless-m4t-large-v2")
         lm = run("load" + sfx, build_lm, arch)
-        served = run(label, phase_serve, lm) if lm is not None else None
+        served = run(label, phase_serve if engine else phase_serve_lm,
+                     lm) if lm is not None else None
         if served is not None:
-            logits = run("logits" + sfx, logits_fn, lm)
-            run("migrate" + sfx, phase_migrate, lm, served[0])
-            profiled = run("profile" + sfx, phase_profile, lm)
+            logits = run("logits" + sfx,
+                         logits_of.get(arch, phase_logits_attn), lm)
+            if engine:
+                run("migrate" + sfx, phase_migrate, lm, served[0])
+            profiled = (run("profile" + sfx, phase_profile, lm)
+                        if arch in logits_of else None)
             served[2].update(logits_rel_l2=logits, profile=profiled)
             paths[arch] = served
         del lm                  # free the card for the next path

@@ -50,6 +50,9 @@
 //   q [B,Sq,H,hd], k/v [B,Sk,Kh,hd] -> o [B,Sq,H,hd] in q's dtype;
 //   GQA (kv head h / (H/Kh)); queries right-aligned in the keys
 //   (q_off = Sk - Sq); causal and sliding-window masks; tanh softcap.
+//   Only the masks read q_off: without one, Sq may exceed Sk (q_off < 0, a
+//   cross-attention over a shorter encoder output), and every key is
+//   visible to every query; the TMA boxes start at q0, never at q_off.
 //   Masked scores take the finite NEG = -1e30 of the TPU kernel, so a row
 //   that one tile masks completely gets exp(NEG - NEG) = 1 there and is
 //   wiped by the next tile's alpha = 0, exactly as in the reference.
@@ -1751,7 +1754,8 @@ extern "C" int flash_attention_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float softcap, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
+      (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
@@ -1778,7 +1782,8 @@ extern "C" int flash_attention_fwd_tc(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float softcap, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
+      (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
   const int bk = hd == 256 ? 64 : 128;
@@ -1808,7 +1813,8 @@ extern "C" int flash_attention_bwd(
     const void* dout, void* delta, void* dq, void* dk, void* dv,
     int dtype, int B, int Sq, int Sk, int H, int Kh, int hd, const long long* st,
     int causal, int window, float softcap, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
+      (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
   bwd::Args a;
   a.Sq = Sq;
@@ -1849,7 +1855,8 @@ extern "C" int flash_attention_bwd_tc(
     const void* dout, void* scratch, void* part, void* dq, void* dk, void* dv,
     int B, int Sq, int Sk, int H, int Kh, int hd, int n_split, const long long* st,
     int causal, int window, float softcap, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk < Sq || H <= 0 || Kh <= 0 || H % Kh != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
+      (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / Kh;

@@ -95,7 +95,7 @@ SMS = 132             # an H100's SMs: the dk/dv grid's target is 2 x SMS CTAs
 _fns: dict = {}
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal, window):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Sq,H,hd], k/v [B,Sk,Kh,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -104,9 +104,13 @@ def _check(q, k, v):
     if Bk != B or hdk != hd or Kh == 0 or H % Kh:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"agree (batch, head dim, H % Kh)")
-    if Sq > Sk:
-        raise ValueError(f"queries are right-aligned in the keys: Sq={Sq} "
-                         f"> Sk={Sk}")
+    # queries are right-aligned in the keys (offset Sk - Sq), which only a
+    # causal or windowed mask reads: without one, every key is visible to
+    # every query and Sq > Sk (a cross-attention over a shorter encoder
+    # output) is as good as any other
+    if Sq > Sk and (causal or window > 0):
+        raise ValueError(f"queries are right-aligned in the keys under a "
+                         f"causal or windowed mask: Sq={Sq} > Sk={Sk}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q, k, v must share float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -178,7 +182,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     scale=None):
     """q: [B,Sq,H,hd]; k,v: [B,Sk,Kh,hd] -> [B,Sq,H,hd] in q's dtype.
     Differentiable in q, k and v through ``FlashAttention``."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
     kw = _options(q, causal, window, softcap, scale)
@@ -229,7 +233,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     log-sum-exp ``lse`` [B,Sq,H] (fp32) and the output's gradient ``do``.
     The CUDA kernels for CUDA tensors, ``attention_bwd_plain`` for CPU
     tensors."""
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")

@@ -1,6 +1,7 @@
-"""GQA/MQA attention mixers, global (``"attn"``) and sliding-window
-(``"local"``) (mirrors the GQA part of ``repro/models/attention.py``; MLA
-and cross-attention come with the slices that run them).
+"""GQA/MQA attention mixers, global (``"attn"``), sliding-window
+(``"local"``) and the encoder's bidirectional ``"enc"``, and the
+encoder-decoder's cross-attention (mirrors ``repro/models/attention.py``
+but MLA, which comes with the slice that runs it).
 
 Full-sequence paths (prefill) route through ``repro_torch.kernels.ops``,
 with ``cfg.local_window`` as the window of ``"local"`` layers; decode
@@ -9,6 +10,11 @@ a new cache), which saves a copy of the whole KV cache per step. A local
 layer's cache is a ring of ``W = min(local_window, capacity)`` slots:
 position p lives in slot ``p % W``, and ``slot_pos`` records which
 position each slot holds (-1 for none).
+Cross-attention projects the encoder output to k/v once per prefill
+(``xattn_kv``) and keeps them in the decoder's cache as ``xk``/``xv``;
+its full-sequence path is ``ops.attention(causal=False)``, the flash
+kernel on CUDA tensors, and its decode reads the cached k/v without a
+write.
 The reference's sharding ``constrain`` calls and ``qkv_constraint`` have no
 counterpart on one card and are left out.
 """
@@ -148,3 +154,49 @@ def attn_prefill_cache(cfg: ModelConfig, k, v, capacity, *, kind="attn"):
     pad = torch.zeros((B, capacity - S, Kh, hd), dtype=k.dtype,
                       device=k.device)
     return {"k": torch.cat([k, pad], 1), "v": torch.cat([v, pad], 1)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def xattn_def(cfg: ModelConfig):
+    D = cfg.d_model
+    return {
+        "wq": ParamDef((D, cfg.q_dim), ("embed", "heads")),
+        "wk": ParamDef((D, cfg.kv_dim), ("embed", "heads")),
+        "wv": ParamDef((D, cfg.kv_dim), ("embed", "heads")),
+        "wo": ParamDef((cfg.q_dim, D), ("heads", "embed")),
+    }
+
+
+def xattn_kv(cfg: ModelConfig, p, enc_out):
+    """The encoder output [B,Se,D] as cross k, v [B,Se,Kh,hd] (no RoPE)."""
+    B, Se, _ = enc_out.shape
+    dt = enc_out.dtype
+    k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    return k, v
+
+
+def xattn_forward(cfg: ModelConfig, p, x, k, v, *, impl=None):
+    """x: [B,S,D] over the encoder's k, v: every query sees every frame."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    o = ops.attention(q, k, v, causal=False, impl=impl)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+
+
+def xattn_decode(cfg: ModelConfig, p, x, cache):
+    """Cross-attention decode over the cached encoder k/v (no cache write)."""
+    B = x.shape[0]
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    Se = cache["xk"].shape[1]
+    lengths = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+    o = ops.attention_decode(q, cache["xk"], cache["xv"], lengths)
+    return o.reshape(B, 1, cfg.q_dim) @ p["wo"].to(dt)

@@ -17,11 +17,17 @@ Public API:
     .materialize_cache(batch, capacity)
     .cast_weights()                 # matrices held in the compute dtype
 
-The port runs ``("attn", "dense")`` layers (the deepseek-7b family),
-``("ssm", "none")`` layers (mamba2-2.7b: a Mamba-2 mixer, no MLP),
-``("rec", "dense")`` layers (an RG-LRU mixer) and ``("local", "dense")``
-sliding-window attention layers (recurrentgemma-9b, gemma3-1b). MLA, MoE,
-encoder-decoder and vision inputs raise ``NotImplementedError`` naming
+The port runs ``("attn", "dense")`` layers (the deepseek-7b family,
+gemma-7b, stablelm-1.6b, internvl2-76b), ``("ssm", "none")`` layers
+(mamba2-2.7b: a Mamba-2 mixer, no MLP), ``("rec", "dense")`` layers (an
+RG-LRU mixer), ``("local", "dense")`` sliding-window attention layers
+(recurrentgemma-9b, gemma3-1b), and the encoder-decoder's
+bidirectional ``("enc", "dense")`` encoder layers and ``("xdec",
+"dense")`` decoder layers (self-attention, then cross-attention over the
+encoder output; seamless-m4t-large-v2). Inputs are ``tokens``, plus
+``frames`` for an encoder-decoder (run through the encoder) or
+``vision_embeds`` for a vision model (put ahead of the token embeddings;
+the loss skips them). MLA and MoE raise ``NotImplementedError`` naming
 their ROADMAP item. ``cfg.remat`` ("none", "full", "dots_saveable") maps
 to ``torch.utils.checkpoint`` per head and tail layer and per core period,
 as the reference remats its layers and ``period_body``; it applies only
@@ -47,17 +53,13 @@ from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        norm_def, tree_map)
 
 _LATER = {
-    "enc": "ROADMAP Queue 1, remaining attention-only architectures "
-           "(seamless-m4t encoder-decoder)",
-    "xdec": "ROADMAP Queue 1, remaining attention-only architectures "
-            "(seamless-m4t encoder-decoder)",
     "mla": "ROADMAP Queue 1, MoE and MLA",
     "moe": "ROADMAP Queue 1, MoE and MLA",
 }
 _KINDS = (("attn", "dense"), ("local", "dense"), ("rec", "dense"),
-          ("ssm", "none"))
-_MIXER_DEF = {"attn": A.attn_def, "local": A.attn_def, "rec": REC.rec_def,
-              "ssm": SSM.ssm_def}
+          ("ssm", "none"), ("enc", "dense"), ("xdec", "dense"))
+_MIXER_DEF = {"attn": A.attn_def, "local": A.attn_def, "enc": A.attn_def,
+              "xdec": A.attn_def, "rec": REC.rec_def, "ssm": SSM.ssm_def}
 
 
 def _supported(kind: Tuple[str, str]):
@@ -115,10 +117,19 @@ def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     _supported(kind)
     mixer, mlpk = kind
     d = {"ln1": norm_def(cfg), "mixer": _MIXER_DEF[mixer](cfg)}
+    if mixer == "xdec":
+        d["ln_x"] = norm_def(cfg)
+        d["cross"] = A.xattn_def(cfg)
     if mlpk == "dense":
         d["ln2"] = norm_def(cfg)
         d["mlp"] = mlp_def(cfg, cfg.d_ff)
     return d
+
+
+def _self_kind(mixer):
+    """The kind of a layer's self-attention: an ``xdec`` layer's is a
+    causal ``"attn"`` one."""
+    return "attn" if mixer == "xdec" else mixer
 
 
 def _mlp_residual(cfg, p, x):
@@ -128,8 +139,10 @@ def _mlp_residual(cfg, p, x):
 def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     """Full-sequence layer -> (x, cache, aux). With ``capacity`` it also
     emits this layer's decode cache from the same pass: attention projects
-    q/k/v once, SSM layers run the SSD once and RG-LRU layers the scan once
-    (the reference computes each twice)."""
+    q/k/v once, cross-attention its encoder k/v once, SSM layers run the
+    SSD once and RG-LRU layers the scan once (the reference computes each
+    twice). An ``xdec`` layer reads the encoder output ``ctx["enc_out"]``
+    and adds its cross k/v to the cache as ``xk``/``xv``."""
     mixer, mlpk = kind
     h = apply_norm(cfg, p["ln1"], x)
     cache = None
@@ -139,12 +152,22 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         if capacity is not None:
             cache = c
     else:
+        # the encoder's "enc" layers see every frame, with RoPE at the
+        # frames' positions
         q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
         if capacity is not None:
-            cache = A.attn_prefill_cache(cfg, k, v, capacity, kind=mixer)
-        mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=mixer,
-                         impl=ctx.get("impl"))
+            cache = A.attn_prefill_cache(cfg, k, v, capacity,
+                                         kind=_self_kind(mixer))
+        mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=_self_kind(mixer),
+                         causal=mixer != "enc", impl=ctx.get("impl"))
     x = x + mx
+    if mixer == "xdec":
+        xk, xv = A.xattn_kv(cfg, p["cross"], ctx["enc_out"])
+        if cache is not None:
+            cache = dict(cache, xk=xk, xv=xv)
+        x = x + A.xattn_forward(cfg, p["cross"],
+                                apply_norm(cfg, p["ln_x"], x), xk, xv,
+                                impl=ctx.get("impl"))
     if mlpk == "dense":
         x = _mlp_residual(cfg, p, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,6 +186,13 @@ def layer_cache_def(cfg, kind, batch, capacity, dtype):
         return SSM.ssm_cache_def(cfg, batch, dtype)
     if mixer == "rec":
         return REC.rec_cache_def(cfg, batch, dtype)
+    if mixer == "xdec":
+        # cross k/v for cfg.frontend_tokens frames, as the reference's
+        # LM.init_cache sizes them (a prefill's follow its frames)
+        d = A.attn_cache_def(cfg, "attn", batch, capacity, dtype)
+        shape = (batch, cfg.frontend_tokens, cfg.num_kv_heads, cfg.head_dim)
+        return dict(d, xk=torch.empty(shape, dtype=dtype, device="meta"),
+                    xv=torch.empty(shape, dtype=dtype, device="meta"))
     return A.attn_cache_def(cfg, mixer, batch, capacity, dtype)
 
 
@@ -176,8 +206,11 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
         mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache)
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
-                                  ctx["positions"], kind=mixer)
+                                  ctx["positions"], kind=_self_kind(mixer))
     x = x + mx
+    if mixer == "xdec":
+        x = x + A.xattn_decode(cfg, p["cross"], apply_norm(cfg, p["ln_x"], x),
+                               cache)
     if mlpk == "dense":
         x = _mlp_residual(cfg, p, x)
     return x, cache
@@ -364,14 +397,6 @@ class LM(nn.Module):
             raise RuntimeError("LM(device='cuda') but no CUDA device is "
                                "available; pass device='cpu' to run on the "
                                "CPU")
-        if cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder not ported yet, see "
-                f"{_LATER['enc']}")
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.frontend} inputs not ported yet, see "
-                f"ROADMAP Queue 1, remaining attention-only architectures")
         self.cfg = cfg
         mixers = cfg.layer_kinds
         kinds = [(mixers[i], "none" if (cfg.d_ff == 0 and cfg.moe is None)
@@ -379,15 +404,23 @@ class LM(nn.Module):
         head_n = cfg.moe.first_k_dense if cfg.moe is not None else 0
         self.compute_dtype = getattr(torch, cfg.dtype)
         self.param_dtype = getattr(torch, cfg.param_dtype)
+        if cfg.encoder_layers:
+            kinds = [("xdec", k[1]) for k in kinds]
+            self.encoder = Stack(cfg, [("enc", "dense")] * cfg.encoder_layers,
+                                 period=1)
+        else:
+            self.encoder = None
         self.decoder = Stack(cfg, kinds, period=len(cfg.layer_pattern),
                              head_n=head_n)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         params = init_params(self.defs(), generator, self.param_dtype,
                              self.device)
-        decoder = params.pop("decoder")
+        stacks = {name: params.pop(name) for name in ("decoder", "encoder")
+                  if name in params}
         _fill(self, params)
-        _fill(self.decoder, decoder)
+        for name, tree in stacks.items():
+            _fill(getattr(self, name), tree)
 
     # -- params -----------------------------------------------------------------
     def defs(self):
@@ -401,6 +434,9 @@ class LM(nn.Module):
         }
         if not cfg.tie_embeddings:
             d["head"] = ParamDef((D, V), ("embed", "vocab"))
+        if self.encoder is not None:
+            d["encoder"] = self.encoder.defs()
+            d["enc_norm"] = norm_def(cfg)
         return d
 
     @torch.no_grad()
@@ -444,19 +480,44 @@ class LM(nn.Module):
     def _positions(self, B, S):
         return torch.arange(S, device=self.device)[None].expand(B, S)
 
+    def _inputs(self, batch, impl=None):
+        """-> (x, enc_out, loss offset). An encoder-decoder runs its
+        ``frames`` [B,Se,D] through the encoder and ``enc_norm``; a vision
+        model puts its ``vision_embeds`` [B,Nv,D] ahead of the token
+        embeddings, and the loss starts after them. The reference's
+        encoder gets a ctx without ``impl`` (its default implementation);
+        the port's takes the caller's, so on the card the flash kernel runs
+        the encoder too, and ``impl="plain"`` holds all of it plain."""
+        cfg = self.cfg
+        if cfg.encoder_layers:
+            enc = batch["frames"].to(self.compute_dtype)
+            B, Se, _ = enc.shape
+            enc, _ = self.encoder(enc, {"positions": self._positions(B, Se),
+                                        "impl": impl})
+            enc = apply_norm(cfg, params_tree(self.enc_norm), enc)
+            return self._embed(batch["tokens"]), enc, 0
+        if cfg.frontend == "vision":
+            ve = batch["vision_embeds"].to(self.compute_dtype)
+            return (torch.cat([ve, self._embed(batch["tokens"])], 1), None,
+                    ve.shape[1])
+        return self._embed(batch["tokens"]), None, 0
+
     # -- full-sequence forward ------------------------------------------------------
     def forward(self, batch, *, impl=None, schedule="full"):
-        """batch["tokens"]: [B,S] -> (logits [B,S,V], aux, loss offset).
-        ``schedule`` is the reference's attention schedule: "full" and
-        "triangular" give the same numbers here, since the kernels and the
-        plain version already skip the blocks the mask rules out."""
+        """batch["tokens"]: [B,S] (with ``frames`` or ``vision_embeds`` as
+        the config asks) -> (logits [B,S',V], aux, loss offset), S' = Nv + S
+        for a vision model. ``schedule`` is the reference's attention
+        schedule: "full" and "triangular" give the same numbers here, since
+        the kernels and the plain version already skip the blocks the mask
+        rules out."""
         if schedule not in ("full", "triangular"):
             raise ValueError(f"unknown attention schedule {schedule!r}")
-        x = self._embed(batch["tokens"])
+        x, enc_out, off = self._inputs(batch, impl)
         B, S, _ = x.shape
-        ctx = {"positions": self._positions(B, S), "impl": impl}
+        ctx = {"positions": self._positions(B, S), "enc_out": enc_out,
+               "impl": impl}
         x, aux = self.decoder(x, ctx)
-        return self._logits(x), aux, 0
+        return self._logits(x), aux, off
 
     def loss(self, batch, *, impl=None, schedule="full"):
         """Next-token cross-entropy in fp32 over the text region and the
@@ -484,9 +545,13 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, capacity, *, impl=None):
-        x = self._embed(batch["tokens"])
+        """-> (cache, last logits [B,V]); the cache's ``lengths`` count the
+        vision embeds too, and an encoder-decoder's ``xdec`` layers hold the
+        cross k/v of the batch's frames as ``xk``/``xv``."""
+        x, enc_out, _ = self._inputs(batch, impl)
         B, S, _ = x.shape
-        ctx = {"positions": self._positions(B, S), "impl": impl}
+        ctx = {"positions": self._positions(B, S), "enc_out": enc_out,
+               "impl": impl}
         x, layer_cache, _ = self.decoder.prefill(x, ctx, capacity)
         cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
                                        device=self.device),

@@ -174,6 +174,7 @@ def test_cast_weights_keeps_bf16_numbers():
 
 
 def test_unported_layer_kinds_raise():
-    for arch in ("deepseek-moe-16b", "seamless-m4t-large-v2"):
+    """MoE (deepseek-moe-16b) and MLA (deepseek-v2-236b) are not ported."""
+    for arch in ("deepseek-moe-16b", "deepseek-v2-236b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(get_smoke_config(arch), device="cpu")
