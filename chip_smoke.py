@@ -14,9 +14,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
              and a relative L2 error of at most 1e-5 in f32 and 1e-2 in bf16
              per case. ``sweep`` is the flash attention (recurrentgemma's
              windowed MQA head-dim-256 prefills, the later paths' prefill
-             shapes, and non-causal cases with Sq = Sk, Sq < Sk (seamless-
-             m4t's cross-attention over 4096 frames) and Sq > Sk among its
-             cases); it logs
+             shapes, non-causal cases with Sq = Sk, Sq < Sk (seamless-
+             m4t's cross-attention over 4096 frames) and Sq > Sk, and head
+             dim 192 (deepseek-v2's MLA: causal MHA in both dtypes, and its
+             served [1,S,128,192] prefills with v's last 64 columns zero)
+             among its cases); it logs
              which of its two kernels ran each case (tensor-core ``tc`` or
              FMA ``fma``) and fails if a bf16 case at head dim >= 64 ran
              the FMA kernel,
@@ -46,7 +48,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              and the host's time to issue a call beside the device's time
              for it; ``timing`` also gives the flash kernel's TFLOP/s and
              ratio to SDPA, also at seamless-m4t's non-causal encoder and
-             cross shapes, and times the fp32 FMA flash kernel at
+             cross shapes and deepseek-v2's MLA prefill [1,2048,128,192],
+             and times the fp32 FMA flash kernel at
              deepseek-7b's shape; ``timing-bwd`` the flash backward at the
              two served shapes with its route, beside SDPA's backward
              (fwd+bwd less fwd).
@@ -80,7 +83,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
              (seamless-m4t-large-v2, 24 encoder + 24 decoder layers,
              16x64 heads, gelu 8192, vocab 256206; 4096 seeded frames,
              prompts {16, 128, 512}: 72 flash launches per request, 24
-             encoder, 24 self, 24 cross).
+             encoder, 24 self, 24 cross). Then the MoE paths on the
+             engine: ``serve-moe`` (deepseek-moe-16b, 28 layers: 1 dense
+             (d_ff 10944) + 27 MoE of 64 routed experts top-6 plus 2
+             shared (1408 each), 16x128 MHA, d_model 2048; 28 flash
+             launches per request) and ``serve-v2`` (deepseek-v2-236b at
+             4 of its 60 layers: 1 dense (12288) + 3 MoE of 160 experts
+             top-6 plus 2 shared (1536 each), MLA with 128 heads,
+             kv_lora_rank 512, q_lora_rank 1536, d_model 5120; the flash
+             kernel at head dim 192, 4 launches per request, and a cache
+             of compressed ckv/kpe rows).
              Random weights from a seeded generator.
     logits — request 0's prefill through the kernel and the plain version,
              beside witnesses (correct codes: the plain code in other
@@ -101,7 +113,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
              encoder output, the fp32 twin's 12 encoder layers and its
              last-logits over one encoder output; its random-init encoder
              carries rounding too far for later gates), with the SDPA
-             witness and a mask-fault control.
+             witness and a mask-fault control. The MoE paths gate the
+             hidden state after layer 0 (dense: routing is discontinuous)
+             and an fp32 twin of 8 (deepseek-moe-16b) or 2 (deepseek-v2)
+             layers' last-logits, and log the share of the first MoE
+             layer's (token, expert) assignments and kept copies that
+             differ from the plain path's.
  6. migrate — the same requests again with a mid-decode state_dict dump to
              host memory and restore into a fresh engine; the streams must
              equal phase 5's (``migrate``, ``migrate-mamba``,
@@ -261,7 +278,10 @@ GEMMA3_WINDOW = 512   # gemma3-1b's local_window
 
 
 def variant_kw(name, Sk):
+    """The flash call's keywords of a sweep variant; ``mla`` is causal, its
+    v zero-padded from 128 to 192 as MLA gives it (``phase_sweep``)."""
     return {"causal": dict(causal=True), "bidir": dict(causal=False),
+            "mla": dict(causal=True),
             "window": dict(causal=True, window=Sk // 3),
             "window2048": dict(causal=True, window=RG_WINDOW),
             "window512": dict(causal=True, window=GEMMA3_WINDOW),
@@ -323,6 +343,18 @@ def _served_flash_cases():
                for S in ENCDEC_PROMPT_LENS])
 
 
+def _mla_cases():
+    """Head dim 192 (deepseek-v2's MLA: qk_nope 128 + qk_rope 64): causal
+    MHA in both dtypes (bf16 on the tensor-core kernel, fp32 on the FMA
+    one) at S = 128, 333, 2048, and the served bf16 prefill shape
+    [1,S,128,192] at every prompt length, v's last 64 columns zero."""
+    import torch
+    return ([((1, S, S, 8, 8, 192), dt, "causal") for S in (128, 333, 2048)
+             for dt in (torch.float32, torch.bfloat16)]
+            + [((1, S, S, 128, 128, 192), torch.bfloat16, "mla")
+               for S in PROMPT_LENS])
+
+
 def _noncausal_cases():
     """Non-causal cases in both dtypes: Sq = Sk at head dims 64/128/256
     and seamless-m4t's encoder shape; Sq < Sk, its cross shapes; Sq > Sk
@@ -351,13 +383,15 @@ def phase_sweep():
               for S in PROMPT_LENS]            # deepseek-7b's prefills
     cases += [((1, S, S, 16, 1, 256), torch.bfloat16, "window2048")
               for S in RG_PROMPT_LENS]         # recurrentgemma-9b's prefills
-    cases += _served_flash_cases() + _noncausal_cases()
+    cases += _served_flash_cases() + _noncausal_cases() + _mla_cases()
     bad = []
     worst = {}
     ran = {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
         B, Sq, Sk, H, Kh, hd = shape
         q, k, v = rand_qkv(seed, B, Sq, Sk, H, Kh, hd, dt)
+        if var == "mla":
+            v[..., 128:] = 0
         kw = variant_kw(var, Sk)
         before = flash_counts()
         got = fa.flash_attention(q, k, v, **kw)
@@ -378,7 +412,8 @@ def phase_sweep():
         right_kernel = kern == ("tc" if dt == torch.bfloat16 and hd >= 64
                                 else "fma")
         ok = (excess <= 0 and rel <= REL_L2[name] and right_kernel
-              and torch.isfinite(got).all().item())
+              and torch.isfinite(got).all().item()
+              and (var != "mla" or not got[..., 128:].any().item()))
         key = f"{name}_{kern}"
         worst[key] = max(worst.get(key, 0.0), err)
         worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
@@ -418,13 +453,15 @@ def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0,
 # first three are deepseek-7b's prefills, the fourth recurrentgemma-9b's
 # windowed MQA one (at S = window the window does not bind, so causal SDPA
 # is a fair yardstick), the last two seamless-m4t's encoder and its
-# decoder's cross-attention over 4096 frames, both non-causal
+# decoder's cross-attention over 4096 frames, both non-causal, the last
+# deepseek-v2's MLA prefill at head dim 192 (v zero-padded from 128)
 FLASH_TIMING = (("deepseek", 128, 128, 32, 32, 128, 0, True),
                 ("deepseek", 512, 512, 32, 32, 128, 0, True),
                 ("deepseek", 2048, 2048, 32, 32, 128, 0, True),
                 ("recurrentgemma", 2048, 2048, 16, 1, 256, RG_WINDOW, True),
                 ("seamless encoder", 4096, 4096, 16, 16, 64, 0, False),
-                ("seamless cross", 512, 4096, 16, 16, 64, 0, False))
+                ("seamless cross", 512, 4096, 16, 16, 64, 0, False),
+                ("deepseek-v2 MLA", 2048, 2048, 128, 128, 192, 0, True))
 
 
 def phase_timing():
@@ -436,6 +473,8 @@ def phase_timing():
         B = 1
         q, k, v = rand_qkv(100 + S + Sk + hd, B, S, Sk, H, Kh, hd,
                            torch.bfloat16)
+        if hd == 192:
+            v[..., 128:] = 0
         kw = dict(causal=causal, window=window)
         kern = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         plain = lambda: fa.attention_plain(q, k, v, **kw)  # noqa: E731
@@ -1037,17 +1076,26 @@ PATHS = {"deepseek-7b": "serve", "mamba2-2.7b": "serve-mamba",
          "recurrentgemma-9b": "serve-rg", "gemma-7b": "serve-gemma7b",
          "stablelm-1.6b": "serve-stablelm", "gemma3-1b": "serve-gemma3",
          "internvl2-76b": "serve-internvl",
-         "seamless-m4t-large-v2": "serve-seamless"}
+         "seamless-m4t-large-v2": "serve-seamless",
+         "deepseek-moe-16b": "serve-moe", "deepseek-v2-236b": "serve-v2"}
 # depth served where the full one does not fit: internvl2-76b's 80 layers
 # hold 76 B params; 8 layers are 8.95 B, 35.8 GB in fp32 at init and 17.9
-# GB after cast_weights (16 layers would need some 63 GB in fp32 at init)
-PATH_LAYERS = {"internvl2-76b": 8}
+# GB after cast_weights (16 layers would need some 63 GB in fp32 at init).
+# deepseek-v2-236b's 60 layers hold 236 B; 4 layers (1 dense + 3 MoE of
+# 160 experts) are 13.3 B, 53 GB in fp32 at init, some 61 GB while
+# cast_weights holds the stacked experts' wi_gate [3,160,5120,1536] in both
+# dtypes, 26.6 GB after (8 layers: 29 B, 117 GB in fp32 at init).
+# deepseek-moe-16b runs all 28 (16.4 B: 65.5 GB at init, some 75 GB at
+# the cast's peak beside its [27,64,2048,1408] wi_gate in bf16, 32.7 GB
+# after)
+PATH_LAYERS = {"internvl2-76b": 8, "deepseek-v2-236b": 4}
 PATH_PROMPT_LENS = {"recurrentgemma-9b": RG_PROMPT_LENS,
                     "internvl2-76b": VLM_PROMPT_LENS,
                     "seamless-m4t-large-v2": ENCDEC_PROMPT_LENS}
 # the kernel each layer's mixer launches once per prefill
 KERNEL_OF_MIXER = {"attn": "flash_attention_fwd",
-                   "local": "flash_attention_fwd", "ssm": "ssd_scan",
+                   "local": "flash_attention_fwd",
+                   "mla": "flash_attention_fwd", "ssm": "ssd_scan",
                    "rec": "rglru_scan"}
 
 
@@ -1162,23 +1210,28 @@ def build_lm(arch):
     cfg = get_config(arch)
     if arch in PATH_LAYERS:
         cfg = cfg.replace(num_layers=PATH_LAYERS[arch])
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
     n_params = sum(p.numel() for p in lm.parameters())
+    init_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     # the reference casts each fp32 weight matrix to bf16 at every use; one
     # cast at load gives the same numbers and halves the weights' bytes
     lm.cast_weights()
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    peak = torch.cuda.max_memory_allocated()
     depth = (f"{cfg.num_layers} of {get_config(arch).num_layers} layers"
              if arch in PATH_LAYERS else f"{cfg.num_layers} layers")
     if cfg.encoder_layers:
         depth += f" + {cfg.encoder_layers} encoder layers"
     log(f"{label}: {arch} at full width, {depth}, {n_params / 1e9:.3f} B "
         f"params (n_periods={lm.decoder.n_periods}), init+cast "
-        f"{time.perf_counter() - t0:.1f} s, weights held in "
-        f"{n_bytes / 2**30:.2f} GiB (matrices bf16, 1-D params fp32)")
+        f"{time.perf_counter() - t0:.1f} s, weights {init_bytes / 2**30:.2f} "
+        f"GiB at init, held in {n_bytes / 2**30:.2f} GiB after the cast "
+        f"(matrices bf16, 1-D params and MoE routers fp32); peak allocated "
+        f"during init+cast {peak / 2**30:.2f} GiB")
     return lm
 
 
@@ -1682,6 +1735,66 @@ def phase_logits_scan(lm):
 # encoder output, the plain code's, given to every run; the fp32 encoder
 # after 12 of its layers
 ENC_GATE_LAYERS, ENC_GATE_LAYERS_FP32, DEC_GATE_LAYERS_ENCDEC = 2, 12, 2
+# the MoE paths' gates. Routing is discontinuous: a last-bit difference in
+# a layer's output can change a token's top-k experts or push a copy past
+# its expert's capacity, which moves that token by a whole expert's share.
+# So the bf16 model is gated on its hidden state after layer 0, the dense
+# layer before any router, and the first MoE layer's routing is reported:
+# the share of (token, expert) assignments and of kept copies that differ
+# from the plain path's, for the kernel and for the witnesses. A
+# full-depth fp32 twin does not fit the card beside the served bf16 model
+# (deepseek-moe-16b: 61 GiB more), so the twin is cut to TWIN_LAYERS
+# (its own seeded draws) and gated on its last-logits
+HIDDEN_GATE_LAYERS = {"deepseek-moe-16b": 1, "deepseek-v2-236b": 1}
+TWIN_LAYERS = {"deepseek-moe-16b": 8, "deepseek-v2-236b": 2}
+
+
+def _first_moe_routing(lm, batch, impl):
+    """The first MoE layer's routing in a prefill of ``batch`` through
+    ``impl``: the sets of (token, expert) assignments and of kept
+    (token, expert) copies, each pair as ``token * E + expert``."""
+    import torch
+    from repro_torch.models import moe as MOE
+    seen = []
+    orig = MOE.moe_apply
+
+    def record(cfg, p, x):
+        seen.append((cfg, p, x))
+        return orig(cfg, p, x)
+    MOE.moe_apply = record
+    try:
+        _hidden_after(lm, batch, lm.cfg.moe.first_k_dense + 1, impl)
+    finally:
+        MOE.moe_apply = orig
+    cfg, p, x = seen[0]
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    T = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        _, _, eidx = MOE.route(cfg, p, x.reshape(T, -1))
+        order, keep, _ = MOE.dispatch(eidx, E, MOE._capacity(T, cfg))
+    e_flat = eidx.reshape(-1)
+    pairs = torch.arange(T * K, device=x.device) // K * E + e_flat
+    return set(pairs.tolist()), set(pairs[order[keep]].tolist())
+
+
+def _routing_shares(lm, batch):
+    """The share of the first MoE layer's assignments and kept copies that
+    differ from the plain path's (``|A ^ B| / (|A| + |B|)``): through the
+    kernel, and through the plain code inside each witness context."""
+    from contextlib import nullcontext
+    assign, kept = _first_moe_routing(lm, batch, "plain")
+    runs = {"kernel": (None, nullcontext()),
+            "witness": ("plain", plain_attention_as(_plain_small_chunks)),
+            "witness_sdpa": ("plain", plain_attention_as(_sdpa_witness))}
+    out = {"moe1_assignments": len(assign), "moe1_kept": len(kept)}
+    for name, (impl, ctx) in runs.items():
+        with ctx:
+            a, k = _first_moe_routing(lm, batch, impl)
+        out[f"moe1_{name}_assign_diff_share"] = len(a ^ assign) / (
+            len(a) + len(assign))
+        out[f"moe1_{name}_kept_diff_share"] = len(k ^ kept) / (
+            len(k) + len(kept))
+    return out
 
 
 def phase_logits_attn(lm):
@@ -1695,9 +1808,11 @@ def phase_logits_attn(lm):
     kernel under it, and counts the kernel run's flash launches (bf16 on
     the tensor-core kernel, fp32 on the FMA one):
       * decoder-only paths: the served bf16 model's hidden state after its
-        first GATE_LAYERS layers at LOGITS_REL_L2; an fp32 twin with the
-        same weights (the same seeded draws before the bf16 cast),
-        last-logits at LOGITS_REL_L2_FP32;
+        first GATE_LAYERS layers (the MoE paths: HIDDEN_GATE_LAYERS, the
+        dense layer, with the first MoE layer's routing shares logged) at
+        LOGITS_REL_L2; an fp32 twin with the same weights (the same seeded
+        draws before the bf16 cast; the MoE paths: a twin of TWIN_LAYERS
+        layers), last-logits at LOGITS_REL_L2_FP32;
       * seamless-m4t: the bf16 hidden state after ENC_GATE_LAYERS encoder
         layers and after DEC_GATE_LAYERS_ENCDEC decoder layers over one
         encoder output, at LOGITS_REL_L2; the fp32 twin's after
@@ -1746,11 +1861,17 @@ def phase_logits_attn(lm):
             lm, p0, n, impl, enc_out=enc), 2 * n, LOGITS_REL_L2, True)
         del enc
     else:
-        gate(f"bf16_hidden{GATE_LAYERS}", lambda impl: _hidden_after(
-            lm, p0, GATE_LAYERS, impl), GATE_LAYERS, LOGITS_REL_L2, True)
+        n = HIDDEN_GATE_LAYERS.get(cfg.name, GATE_LAYERS)
+        gate(f"bf16_hidden{n}", lambda impl: _hidden_after(lm, p0, n, impl),
+             n, LOGITS_REL_L2, True)
     lk, lp = gate("bf16_logits", last_logits(lm), None, None, True)
     assert lk.shape == (1, cfg.padded_vocab)
-    lm32 = LM(cfg.replace(dtype="float32"), device=DEVICE,
+    if cfg.moe is not None:
+        out.update(_routing_shares(lm, p0))
+    twin = cfg.replace(dtype="float32",
+                       num_layers=TWIN_LAYERS.get(cfg.name, cfg.num_layers))
+    out["fp32_twin_layers"] = twin.num_layers
+    lm32 = LM(twin, device=DEVICE,
               generator=torch.Generator(device=DEVICE).manual_seed(0))
     if encdec:
         n = min(ENC_GATE_LAYERS_FP32, cfg.encoder_layers)
@@ -1762,13 +1883,14 @@ def phase_logits_attn(lm):
                        2 * cfg.num_layers, LOGITS_REL_L2_FP32, False)
         del enc
     else:
-        _, lp32 = gate("fp32_logits", last_logits(lm32), cfg.num_layers,
+        _, lp32 = gate("fp32_logits", last_logits(lm32), twin.num_layers,
                        LOGITS_REL_L2_FP32, False)
     del lm32
     gc.collect()
     torch.cuda.empty_cache()
-    out["bf16_logits_kernel_vs_fp32"] = _rel(lk, lp32)
-    out["bf16_logits_plain_vs_fp32"] = _rel(lp, lp32)
+    if twin.num_layers == cfg.num_layers:       # the same weights
+        out["bf16_logits_kernel_vs_fp32"] = _rel(lk, lp32)
+        out["bf16_logits_plain_vs_fp32"] = _rel(lp, lp32)
     log(f"{label}: request 0 prefill, relative L2 " + json.dumps(out))
     _assert_gates(out, gates)
     return out
@@ -2748,10 +2870,12 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         if kname == "flash_attention_fwd":
             entry["design"] = (
-                "bf16 at head dims 64/128/256: flash_fwd_tc_kernel, wgmma "
-                "for q.k^T and P.v, TMA into a two-stage k/v ring, online "
-                "softmax in registers; fp32 and bf16 at 16/32: "
-                "flash_fwd_kernel, fp32 FMA")
+                "bf16 at head dims 64/128/192/256: flash_fwd_tc_kernel, "
+                "wgmma for q.k^T and P.v, TMA into a two-stage k/v ring "
+                "(128-key tiles, 64 at head dims 192 and 256; 192 is "
+                "deepseek-v2's MLA with v zero-padded from 128), online "
+                "softmax in registers; fp32 at every head dim and bf16 at "
+                "16/32: flash_fwd_kernel, fp32 FMA")
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["flash_launches_by_kernel"][k]
                        for p in paths.values())

@@ -65,14 +65,14 @@
 // ~295 FLOP/byte ridge, so the bf16 tensor cores (989 TFLOP/s) set the
 // bound.
 //
-// flash_fwd_tc_kernel (bf16, head dims 64/128/256; entry
+// flash_fwd_tc_kernel (bf16, head dims 64/128/192/256; entry
 // flash_attention_fwd_tc) does both products on the tensor cores:
 //   * one CTA of three warpgroups per (b, h, 128-query tile): warpgroup 0
 //     is the producer (one thread issues TMA loads, setmaxnreg gives its
 //     registers away), warpgroups 1 and 2 are consumers of 64 query rows
 //     each, with 240 registers per thread;
 //   * the q tile is loaded once; k and v tiles of BK keys (128 at head dim
-//     64/128, 64 at 256) come through a two-stage ring in shared memory,
+//     64/128, 64 at 192/256) come through a two-stage ring in shared memory,
 //     each stage with full (k, v) and empty mbarriers, so the next tile's
 //     loads overlap this tile's products;
 //   * S = q.k^T is wgmma m64nBKk16 with both operands in shared memory,
@@ -377,6 +377,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
     case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    case 192: return launch<T, 192>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -397,7 +398,9 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct Cfg {
-  static constexpr int BK = HD == 256 ? 64 : 128;   // keys per tile
+  // keys per tile: at head dim 192 a 128-key ring would take the q tile's
+  // 48 KiB plus 4 x 48 KiB, over the 227 KiB a block may have
+  static constexpr int BK = HD >= 192 ? 64 : 128;
   static constexpr int CHUNKS = HD / 64;            // 64-wide columns of a row
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;      // one k or one v tile
@@ -427,6 +430,11 @@ template <> struct Wgmma<128> {
   }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a, uint64_t b) {
     sm90::wgmma_rs_n128(d, a, b, 1);
+  }
+};
+template <> struct Wgmma<192> {
+  static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t* a, uint64_t b) {
+    sm90::wgmma_rs_n192(d, a, b, 1);
   }
 };
 template <> struct Wgmma<256> {
@@ -1771,7 +1779,7 @@ extern "C" int flash_attention_fwd(
   return static_cast<int>(err);
 }
 
-// bf16 only, head dim 64, 128 or 256. Strides are in elements; the last
+// bf16 only, head dim 64, 128, 192 or 256. Strides are in elements; the last
 // dimension of every tensor must have stride 1, q, k and v must start on
 // 16 bytes and their other strides be multiples of 8 elements (TMA).
 extern "C" int flash_attention_fwd_tc(
@@ -1785,8 +1793,9 @@ extern "C" int flash_attention_fwd_tc(
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
       (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
-  const int bk = hd == 256 ? 64 : 128;
+  if (hd != 64 && hd != 128 && hd != 192 && hd != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bk = hd >= 192 ? 64 : 128;             // tc::Cfg<hd>::BK
   CUtensorMap tq, tk, tv;
   int res = sm90::encode_bf16_4d(&tq, q, hd, H, Sq, B, q_sh, q_ss, q_sb, tc::BQ);
   if (res == 0) res = sm90::encode_bf16_4d(&tk, k, hd, Kh, Sk, B, k_sh, k_ss, k_sb, bk);
@@ -1798,6 +1807,7 @@ extern "C" int flash_attention_fwd_tc(
   switch (hd) {
     case 64: err = tc::launch<64>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
     case 128: err = tc::launch<128>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
+    case 192: err = tc::launch<192>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
     default: err = tc::launch<256>(tq, tk, tv, o, static_cast<float*>(lse), B, Sq, Sk, H, G, o_sb, o_ss, o_sh, causal, window, softcap, scale, s); break;
   }
   return static_cast<int>(err);

@@ -5,16 +5,17 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py::_kernel``
 (Pallas). ``csrc/flash_attention.cu`` holds two kernels of the same
 function, chosen by dtype and head dim alone (``kernel_for``):
 
-* ``"tc"`` — bf16 at head dims 64, 128, 256 (every full-width config with
-  attention): both products on the tensor cores (``wgmma``), k/v fed by TMA
+* ``"tc"`` — bf16 at head dims 64, 128, 192, 256 (every full-width config
+  with attention; 192 is deepseek-v2's MLA, ``qk_nope + qk_rope``, with v
+  zero-padded to it): both products on the tensor cores (``wgmma``), k/v fed by TMA
   into a two-stage shared-memory ring, the online softmax in registers,
   P rounded to bf16 for P.v (outputs within about 2e-3, relative L2, of
   the plain version's fp32 P).
   TMA reads q, k and v in place, so each must start on 16 bytes and have
   strides that are multiples of 16 bytes (``check_tma``); the wrapper
   raises otherwise and never copies.
-* ``"fma"`` — fp32 at every head dim (the tensor cores would round it to
-  TF32) and bf16 at head dims 16 and 32 (only the smoke configs): the
+* ``"fma"`` — fp32 at every head dim of ``HEAD_DIMS`` (the tensor cores
+  would round it to TF32) and bf16 at head dims 16 and 32 (only the smoke configs): the
   first design, fp32 FMA loops out of shared memory.
 
 What bounds it on an H100: at long prefill, compute — ``4*B*H*Sq*Sk*hd``
@@ -36,8 +37,10 @@ it saves ``(out, lse)`` and recomputes the scores block by block. Here
 forward runs the forward kernel with the log-sum-exp as a second output
 (``[B,Sq,H]`` fp32) and saves ``q, k, v, o, lse``; its backward is
 ``flash_attention_bwd``, kernels of ``csrc/flash_attention.cu`` on one
-stream, chosen by dtype and head dim alone (``bwd_kernel_for``, the same
-rule as the forward's) and counted once per call in ``launches_bwd_tc`` or
+stream, chosen by dtype and head dim alone (``bwd_kernel_for``, the
+forward's rule but for head dim 192, which has no backward yet: a call
+that needs one raises ``NotImplementedError`` before the forward runs on
+a CUDA tensor) and counted once per call in ``launches_bwd_tc`` or
 ``launches_bwd_fma`` and in ``launches_bwd``, their sum:
 
 * ``"tc"`` — bf16 at head dims 64, 128, 256: ``delta = rowsum(do o)`` and
@@ -80,8 +83,9 @@ import ctypes
 import torch
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
-TC_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+TC_HEAD_DIMS = (64, 128, 192, 256)
+BWD_LATER = {192: "ROADMAP Queue 1, MoE/MLA training"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset by the caller; launches is the sum
@@ -127,7 +131,12 @@ def kernel_for(dtype, hd):
 
 def bwd_kernel_for(dtype, hd):
     """The backward kernels that run a CUDA call: "tc" (bf16 at head dims
-    64, 128, 256) or "fma", by the forward's rule."""
+    64, 128, 256) or "fma", by the forward's rule; head dim 192 (MLA) has
+    neither yet and raises NotImplementedError naming its ROADMAP item."""
+    if hd in BWD_LATER:
+        raise NotImplementedError(f"flash attention backward at head dim "
+                                  f"{hd}: not ported yet, see "
+                                  f"{BWD_LATER[hd]}")
     return kernel_for(dtype, hd)
 
 
@@ -188,6 +197,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     kw = _options(q, causal, window, softcap, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.device.type == "cuda":
+            bwd_kernel_for(q.dtype, q.shape[-1])   # raise before the forward
         return FlashAttention.apply(q, k, v, kw)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **kw)

@@ -21,14 +21,18 @@ The port runs ``("attn", "dense")`` layers (the deepseek-7b family,
 gemma-7b, stablelm-1.6b, internvl2-76b), ``("ssm", "none")`` layers
 (mamba2-2.7b: a Mamba-2 mixer, no MLP), ``("rec", "dense")`` layers (an
 RG-LRU mixer), ``("local", "dense")`` sliding-window attention layers
-(recurrentgemma-9b, gemma3-1b), and the encoder-decoder's
+(recurrentgemma-9b, gemma3-1b), the encoder-decoder's
 bidirectional ``("enc", "dense")`` encoder layers and ``("xdec",
 "dense")`` decoder layers (self-attention, then cross-attention over the
-encoder output; seamless-m4t-large-v2). Inputs are ``tokens``, plus
+encoder output; seamless-m4t-large-v2), and the MoE families' ``("attn",
+"moe")`` (deepseek-moe-16b) and ``("mla", "dense")``/``("mla", "moe")``
+layers (deepseek-v2-236b: Multi-head Latent Attention). An MoE model's
+first ``moe.first_k_dense`` layers are dense, of width
+``moe.d_ff_dense``, and form the unrolled head of the stack; each MoE
+layer adds its load-balance loss to ``aux``. Inputs are ``tokens``, plus
 ``frames`` for an encoder-decoder (run through the encoder) or
 ``vision_embeds`` for a vision model (put ahead of the token embeddings;
-the loss skips them). MLA and MoE raise ``NotImplementedError`` naming
-their ROADMAP item. ``cfg.remat`` ("none", "full", "dots_saveable") maps
+the loss skips them). ``cfg.remat`` ("none", "full", "dots_saveable") maps
 to ``torch.utils.checkpoint`` per head and tail layer and per core period,
 as the reference remats its layers and ``period_body``; it applies only
 while grad is enabled. Sharding constraints have no counterpart on one
@@ -46,29 +50,27 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as REC
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        flatten_paths, init_params, mlp_def,
                                        norm_def, tree_map)
 
-_LATER = {
-    "mla": "ROADMAP Queue 1, MoE and MLA",
-    "moe": "ROADMAP Queue 1, MoE and MLA",
-}
 _KINDS = (("attn", "dense"), ("local", "dense"), ("rec", "dense"),
-          ("ssm", "none"), ("enc", "dense"), ("xdec", "dense"))
+          ("ssm", "none"), ("enc", "dense"), ("xdec", "dense"),
+          ("attn", "moe"), ("mla", "dense"), ("mla", "moe"))
 _MIXER_DEF = {"attn": A.attn_def, "local": A.attn_def, "enc": A.attn_def,
-              "xdec": A.attn_def, "rec": REC.rec_def, "ssm": SSM.ssm_def}
+              "xdec": A.attn_def, "mla": A.mla_def, "rec": REC.rec_def,
+              "ssm": SSM.ssm_def}
 
 
-def _supported(kind: Tuple[str, str]):
-    for part in kind:
-        if part in _LATER:
-            raise NotImplementedError(f"layer kind {kind}: not ported yet, "
-                                      f"see {_LATER[part]}")
-    if kind not in _KINDS:
-        raise ValueError(kind)
+def _mlp_width(cfg: ModelConfig, mlpk: str) -> int:
+    """A dense MLP's width: an MoE model's dense layers take
+    ``moe.d_ff_dense`` (``cfg.d_ff`` is its experts' width)."""
+    if cfg.moe is not None and mlpk == "dense":
+        return cfg.moe.d_ff_dense or cfg.d_ff
+    return cfg.d_ff
 
 
 # ---------------------------------------------------------------------------
@@ -114,15 +116,19 @@ def params_tree(module: nn.Module):
 
 
 def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
-    _supported(kind)
+    if kind not in _KINDS:
+        raise ValueError(kind)
     mixer, mlpk = kind
     d = {"ln1": norm_def(cfg), "mixer": _MIXER_DEF[mixer](cfg)}
     if mixer == "xdec":
         d["ln_x"] = norm_def(cfg)
         d["cross"] = A.xattn_def(cfg)
-    if mlpk == "dense":
+    if mlpk == "moe":
         d["ln2"] = norm_def(cfg)
-        d["mlp"] = mlp_def(cfg, cfg.d_ff)
+        d["mlp"] = MOE.moe_def(cfg)
+    elif mlpk == "dense":
+        d["ln2"] = norm_def(cfg)
+        d["mlp"] = mlp_def(cfg, _mlp_width(cfg, mlpk))
     return d
 
 
@@ -132,8 +138,16 @@ def _self_kind(mixer):
     return "attn" if mixer == "xdec" else mixer
 
 
-def _mlp_residual(cfg, p, x):
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+def _mlp_residual(cfg, mlpk, p, x):
+    """x plus the layer's MLP (dense or MoE) -> (x, aux). The dense MLP
+    takes its width from its weights."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mlpk == "moe":
+        y, aux = MOE.moe_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        x = x + y
+    elif mlpk == "dense":
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return x, aux
 
 
 def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
@@ -141,8 +155,10 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     emits this layer's decode cache from the same pass: attention projects
     q/k/v once, cross-attention its encoder k/v once, SSM layers run the
     SSD once and RG-LRU layers the scan once (the reference computes each
-    twice). An ``xdec`` layer reads the encoder output ``ctx["enc_out"]``
-    and adds its cross k/v to the cache as ``xk``/``xv``."""
+    twice), MLA layers their compressed ``ckv``/``kpe`` rows once. An
+    ``xdec`` layer reads the encoder output ``ctx["enc_out"]`` and adds its
+    cross k/v to the cache as ``xk``/``xv``. ``aux`` is an MoE layer's
+    load-balance loss, else 0."""
     mixer, mlpk = kind
     h = apply_norm(cfg, p["ln1"], x)
     cache = None
@@ -151,6 +167,9 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         mx, c = prefill(cfg, p["mixer"], h, impl=ctx.get("impl"))
         if capacity is not None:
             cache = c
+    elif mixer == "mla":
+        mx, cache = A.mla_prefill(cfg, p["mixer"], h, ctx["positions"],
+                                  capacity=capacity, impl=ctx.get("impl"))
     else:
         # the encoder's "enc" layers see every frame, with RoPE at the
         # frames' positions
@@ -168,9 +187,7 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         x = x + A.xattn_forward(cfg, p["cross"],
                                 apply_norm(cfg, p["ln_x"], x), xk, xv,
                                 impl=ctx.get("impl"))
-    if mlpk == "dense":
-        x = _mlp_residual(cfg, p, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _mlp_residual(cfg, mlpk, p, x)
     return x, cache, aux
 
 
@@ -186,6 +203,8 @@ def layer_cache_def(cfg, kind, batch, capacity, dtype):
         return SSM.ssm_cache_def(cfg, batch, dtype)
     if mixer == "rec":
         return REC.rec_cache_def(cfg, batch, dtype)
+    if mixer == "mla":
+        return A.mla_cache_def(cfg, batch, capacity, dtype)
     if mixer == "xdec":
         # cross k/v for cfg.frontend_tokens frames, as the reference's
         # LM.init_cache sizes them (a prefill's follow its frames)
@@ -204,6 +223,8 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
         mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache)
     elif mixer == "rec":
         mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache)
+    elif mixer == "mla":
+        mx, cache = A.mla_decode(cfg, p["mixer"], h, cache, ctx["positions"])
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
                                   ctx["positions"], kind=_self_kind(mixer))
@@ -211,8 +232,7 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
     if mixer == "xdec":
         x = x + A.xattn_decode(cfg, p["cross"], apply_norm(cfg, p["ln_x"], x),
                                cache)
-    if mlpk == "dense":
-        x = _mlp_residual(cfg, p, x)
+    x, _ = _mlp_residual(cfg, mlpk, p, x)
     return x, cache
 
 
@@ -448,10 +468,12 @@ class LM(nn.Module):
         ``dt_bias``, ``A_log`` and ``D``, RG-LRU's ``a_log``), which it reads
         in fp32, stay as they are. RG-LRU's gate biases ``b_ga``/``b_gx``
         stay too; the reference casts them at each use, as the port does.
-        Halves the bytes of an fp32-param model held in bf16."""
+        So does an MoE layer's ``router``, which the reference reads in
+        fp32. Halves the bytes of an fp32-param model held in bf16."""
         defs = dict(flatten_paths(self.defs()))
         for name, p in self.named_parameters():
-            if sum(a != "layers" for a in defs[name].axes) >= 2:
+            if sum(a != "layers" for a in defs[name].axes) >= 2 and \
+                    not name.endswith(".router"):
                 p.data = p.data.to(self.compute_dtype)
         return self
 

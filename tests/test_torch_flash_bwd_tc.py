@@ -35,6 +35,15 @@ def test_bwd_kernel_for_routes_by_dtype_and_head_dim(dtype, hd, want):
     assert fa.bwd_kernel_for(dtype, hd) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernel_for_raises_at_mla_head_dim_192(dtype):
+    """The forward takes head dim 192 (MLA); the backward has no kernel
+    there on either route yet and names its ROADMAP item."""
+    assert fa.kernel_for(dtype, 192) in ("tc", "fma")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        fa.bwd_kernel_for(dtype, 192)
+
+
 @pytest.mark.parametrize("B,Sk,Kh,G,hd,want", [
     (1, 2048, 32, 1, 128, 1),      # deepseek-7b's trained shape: 512 CTAs
     (1, 2048, 1, 16, 256, 16),     # recurrentgemma-9b's MQA: 32 key tiles

@@ -7,8 +7,9 @@ of 16 bytes) as pure functions on CPU tensors, and a test-local emulation
 of the kernel's arithmetic (fp32 scores and online softmax over its
 128-query by 128- or 64-key tiles, P rounded to bf16 before P.v, one
 rounding of the output) held against the JAX reference attention at
-deepseek-like (MHA, head dim 128) and recurrentgemma-like (MQA, head dim
-256, sliding window) shapes, within chip_smoke.py's bf16 limits:
+deepseek-like (MHA, head dim 128), recurrentgemma-like (MQA, head dim
+256, sliding window) and deepseek-v2-like (MLA: head dim 192, v
+zero-padded from 128) shapes, within chip_smoke.py's bf16 limits:
 2e-2 elementwise (rtol and atol) and a relative L2 error of 1e-2.
 """
 from types import SimpleNamespace
@@ -36,7 +37,8 @@ def J():
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "fma"),
     (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 128, "fma"), (torch.float32, 256, "fma")])
+    (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
+    (torch.bfloat16, 192, "tc"), (torch.float32, 192, "fma")])
 def test_kernel_for_routes_by_dtype_and_head_dim(dtype, hd, want):
     assert fa.kernel_for(dtype, hd) == want
 
@@ -74,6 +76,16 @@ def test_check_tma_raises_on_stride_off_16_bytes():
         fa.check_tma(q=q)
 
 
+def test_check_tma_at_mla_head_dim_192():
+    """MLA's q and k are concatenations and v a zero-padded copy, each
+    contiguous at head dim 192 (384-byte rows): TMA reads them in place.
+    A head-dim slice of a 196-wide row (392-byte head stride) cannot be."""
+    fa.check_tma(q=_bf16(1, 77, 128, 192), k=_bf16(1, 77, 128, 192),
+                 v=torch.nn.functional.pad(_bf16(1, 77, 128, 128), (0, 64)))
+    with pytest.raises(ValueError, match="v's stride 196 in dim 2"):
+        fa.check_tma(v=_bf16(1, 77, 4, 196)[..., :192])
+
+
 def test_tma_strides_ignore_size_one_dims():
     t = torch.zeros((1, 40, 1, 256), dtype=torch.bfloat16)[:, :, :, :]
     t = t.as_strided(t.shape, (3, 256, 7, 1))            # strides never used
@@ -99,7 +111,7 @@ def emulate_tc(q, k, v, *, causal=True, window=0, softcap=0.0, p_terms=1):
     B, Sq, H, hd = q.shape
     _, Sk, Kh, _ = k.shape
     G = H // Kh
-    BQ, BK = 128, (64 if hd == 256 else 128)
+    BQ, BK = 128, (64 if hd >= 192 else 128)
     scale = hd ** -0.5
     off = Sk - Sq
     qf = q.float().reshape(B, Sq, Kh, G, hd)
@@ -188,3 +200,24 @@ def test_p_rounding_sits_inside_the_bf16_limits(shape):
     two = _rel(emulate_tc(q, k, v, p_terms=2), plain)
     assert 1e-3 < one < REL_L2_BF16 / 4
     assert two < one / 10
+
+
+def test_tc_numerics_at_mla_head_dim_192(J):
+    """deepseek-v2's MLA prefill at a small size: q and k at head dim 192
+    (qk_nope 128 + qk_rope 64), v zero-padded from 128, causal, scale
+    192**-0.5; 64-key tiles. Within the bf16 limits of the JAX reference,
+    and the padded columns come out 0."""
+    B, S, H, hd = 1, 200, 4, 192
+    rng = np.random.RandomState(17)
+    q, k, v = [rng.standard_normal((B, S, H, hd)).astype(np.float32)
+               for _ in range(3)]
+    v[..., 128:] = 0.0
+    tq, tk, tv = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = emulate_tc(tq, tk, tv)
+    jq, jk, jv = [J.jnp.asarray(a).astype("bfloat16") for a in (q, k, v)]
+    want = torch.from_numpy(np.asarray(
+        J.ref.attention_ref(jq, jk, jv, causal=True, scale=hd ** -0.5),
+        dtype=np.float32))
+    assert bool((got[..., 128:] == 0).all())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), **TOL_BF16)
+    assert _rel(got, want) <= REL_L2_BF16

@@ -172,9 +172,3 @@ def test_cast_weights_keeps_bf16_numbers():
     assert torch.equal(got_last, want_last)
     assert torch.equal(got_dec, want_dec)
 
-
-def test_unported_layer_kinds_raise():
-    """MoE (deepseek-moe-16b) and MLA (deepseek-v2-236b) are not ported."""
-    for arch in ("deepseek-moe-16b", "deepseek-v2-236b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(get_smoke_config(arch), device="cpu")
