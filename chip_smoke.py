@@ -18,7 +18,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              m4t's cross-attention over 4096 frames) and Sq > Sk, and head
              dim 192 (deepseek-v2's MLA: causal MHA in both dtypes, and its
              served [1,S,128,192] prefills with v's last 64 columns zero)
-             among its cases); it logs
+             and deepseek-moe-16b's [1,S,16,128] prefills among its
+             cases); it logs
              which of its two kernels ran each case (tensor-core ``tc`` or
              FMA ``fma``) and fails if a bf16 case at head dim >= 64 ran
              the FMA kernel,
@@ -30,12 +31,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
              RG-LRU scan (the same, ragged D and S among its shapes),
              ``sweep-bwd`` the flash backward (dq, dk, dv and the forward's
              log-sum-exp, over the flash sweep's small shapes, dtypes and
-             variants and the two served S=2048 prefill shapes, beside the
+             variants and the trained or served S=2048 prefill shapes
+             (deepseek-7b's and deepseek-moe-16b's causal MHA,
+             recurrentgemma-9b's windowed MQA), beside the
              plain backward in 64-row chunks as a witness, non-causal
-             Sq > Sk cases among them, and, at S=2048,
-             SDPA's backward as a second; each case's route, tensor-core
-             ``tc`` (bf16 at head dims 64/128/256) or FMA ``fma``, held by
-             the counters; then the FlashAttention Function against
+             Sq > Sk cases among them, head dim 192 (deepseek-v2's MLA:
+             both dtypes, v and do zero-padded from 128 with dv's padded
+             columns exactly 0, and its trained [1,2048,128,192]) too,
+             and, at S=2048, SDPA's backward as a second; each case's
+             route, tensor-core ``tc`` (bf16 at head dims 64/128/192/256)
+             or FMA ``fma``, held by the counters; then the FlashAttention Function against
              autograd through the plain forward, SDPA as a second witness
              in bf16), ``grad-scan`` the
              SSD and RG-LRU Functions' input gradients against autograd
@@ -51,7 +56,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              cross shapes and deepseek-v2's MLA prefill [1,2048,128,192],
              and times the fp32 FMA flash kernel at
              deepseek-7b's shape; ``timing-bwd`` the flash backward at the
-             two served shapes with its route, beside SDPA's backward
+             two served shapes and deepseek-v2's trained MLA shape
+             [1,2048,128,192] with its route, beside SDPA's backward
              (fwd+bwd less fwd).
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
@@ -129,12 +135,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
              paths are not profiled).
  8. train  — deepseek-7b at full width and 12 layers (fp32 params, bf16
              compute, full remat), B=1, S=2048: a step-1 gate of the kernel
-             path against the plain path beside witnesses and controls, an
-             fp32 twin at 2 layers, then 3 AdamW steps through
+             path against the plain path beside witnesses and controls
+             (each run also read against the plain path in fp32 compute on
+             the same weights), an fp32 twin at 2 layers, then 3 AdamW steps through
              ``optim.adamw.make_train_step`` with the counts set to 0 just
              before (2 x layers flash forwards and layers backwards per
              step, all on the tensor-core kernels; the fp32 twin's backward
-             on the FMA ones): ms per step, tokens/s, peak memory.
+             on the FMA ones): ms per step, tokens/s, peak memory, the loss
+             of a second seeded batch before and after the steps. Then the
+             MoE paths the same way: ``train-moe``, deepseek-moe-16b at 5
+             layers (1 dense + 4 MoE; 2.855 B params, fp32 twin at 2), and
+             ``train-mla``, deepseek-v2-236b's dense layer 0 (MLA through
+             the flash kernels at head dim 192; 1.387 B params, fp32 twin
+             at 1), each also taking two steps from one state (the seeded
+             initial state, built twice) that must agree bit for bit on
+             every leaf of params, m and v (64-bit digests on the card).
  9. ckpt   — deepseek-7b's training state at full width and 2 layers
              ({step, params, m, v}: 1.24 B params, 14.92 GB in 37 leaves),
              batches from the port's TokenPipeline: 2 AdamW steps, an
@@ -159,12 +174,13 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
 import time
 import traceback
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -275,6 +291,7 @@ RG_WINDOW = 2048       # recurrentgemma-9b's local_window
 
 
 GEMMA3_WINDOW = 512   # gemma3-1b's local_window
+MLA_V_HEAD = 128      # deepseek-v2's v_head_dim, zero-padded to head dim 192
 
 
 def variant_kw(name, Sk):
@@ -383,6 +400,8 @@ def phase_sweep():
               for S in PROMPT_LENS]            # deepseek-7b's prefills
     cases += [((1, S, S, 16, 1, 256), torch.bfloat16, "window2048")
               for S in RG_PROMPT_LENS]         # recurrentgemma-9b's prefills
+    cases += [((1, S, S, 16, 16, 128), torch.bfloat16, "causal")
+              for S in PROMPT_LENS]            # deepseek-moe-16b's prefills
     cases += _served_flash_cases() + _noncausal_cases() + _mla_cases()
     bad = []
     worst = {}
@@ -771,15 +790,20 @@ def phase_sweep_rglru():
 def phase_sweep_bwd():
     """The flash backward kernel against ``attention_bwd_plain`` on dq, dk
     and dv, over the flash sweep's small shapes, dtypes and variants and
-    the two served prefill shapes at S=2048 (deepseek-7b causal,
-    recurrentgemma-9b MQA window 2048). Both backwards get the forward
-    kernel's o and log-sum-exp (the lse itself is held against the plain
-    forward's); per case the forward's limits (TOL elementwise, REL_L2).
+    the trained or served prefill shapes at S=2048 (deepseek-7b and
+    deepseek-moe-16b causal, recurrentgemma-9b MQA window 2048), and head
+    dim 192 (deepseek-v2's
+    MLA: the small shape under every variant, causal MHA with v and do
+    zero-padded from 128, where dv's padded columns must come out exactly
+    0, and the trained shape [1,2048,128,192]). Both backwards get the
+    forward kernel's o and log-sum-exp (the lse itself is held against the
+    plain forward's); per case the forward's limits (TOL elementwise,
+    REL_L2).
     Each case asserts its route by the counters: bf16 at head dims
-    64/128/256 on the tensor-core kernels (``tc``), the rest on the FMA
+    64/128/192/256 on the tensor-core kernels (``tc``), the rest on the FMA
     ones. Beside each case a witness, the plain backward in 64-row chunks (a
     correct code that sums in another order), is read against the plain
-    one; at the two S=2048 shapes SDPA's backward (a correct code on the
+    one; at the S=2048 shapes SDPA's backward (a correct code on the
     tensor cores, rounding P and dS to bf16) is a second witness. Then
     once: the FlashAttention Function's gradients (forward and backward
     kernels) against autograd through ``attention_plain``, with SDPA's
@@ -789,7 +813,16 @@ def phase_sweep_bwd():
     cases = [(s, dt, v) for s in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
     cases += [((1, 2048, 2048, 32, 32, 128), torch.bfloat16, "causal"),
+              ((1, 2048, 2048, 16, 16, 128), torch.bfloat16, "causal"),
               ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, "window2048")]
+    # head dim 192 (deepseek-v2's MLA) in both dtypes: the small shape
+    # under every variant, then causal MHA with v and do zero-padded from
+    # 128 as MLA gives them, and its trained bf16 shape [1,2048,128,192]
+    cases += [((1, 128, 128, 4, 4, 192), dt, v)
+              for dt in (torch.float32, torch.bfloat16) for v in VARIANTS]
+    cases += [((1, S, S, 8, 8, 192), dt, "mla") for S in (128, 333)
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [((1, 2048, 2048, 128, 128, 192), torch.bfloat16, "mla")]
     # non-causal with Sq > Sk (a decoder longer than its encoder), Sk on
     # and off the key tiles
     cases += [(s, dt, "bidir") for s in ((1, 96, 32, 16, 16, 64),
@@ -802,6 +835,9 @@ def phase_sweep_bwd():
         do = torch.randn(q.shape, device=DEVICE,
                          generator=torch.Generator(device=DEVICE)
                          .manual_seed(900 + seed)).to(dt)
+        if var == "mla":
+            v[..., MLA_V_HEAD:] = 0
+            do[..., MLA_V_HEAD:] = 0
         kw = dict(variant_kw(var, Sk), scale=hd ** -0.5)
         kw = {"causal": True, "window": 0, "softcap": 0.0, **kw}
         o, lse = fa._launch(q, k, v, want_lse=True, **kw)
@@ -834,6 +870,8 @@ def phase_sweep_bwd():
                            _rel(sdpa[i - 1], b) if sdpa and i else None)
             ok = ok and excess <= 0 and rel <= REL_L2[name] and \
                 bool(torch.isfinite(a).all())
+            if var == "mla" and label == "dv":   # p^T.do over zero columns
+                ok = ok and bool((a[..., MLA_V_HEAD:] == 0).all())
             key = f"{name}_{label}"
             worst[key] = max(worst.get(key, 0.0), diff.max().item())
             worst[key + "_rel_l2"] = max(worst.get(key + "_rel_l2", 0.0), rel)
@@ -911,14 +949,18 @@ def attention_bwd_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None,
             "operations" if t_ops >= t_bytes else "bytes", flops)
 
 
-# backward timing shapes: (label, S, H, Kh, hd, window), bf16 causal
+# backward timing shapes: (label, S, H, Kh, hd, window), bf16 causal;
+# deepseek-v2's MLA with v and do zero-padded from MLA_V_HEAD
 BWD_TIMING = (("deepseek", 2048, 32, 32, 128, 0),
-              ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW))
+              ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW),
+              ("deepseek-v2", 2048, 128, 128, 192, 0))
 
 
 def phase_timing_bwd():
     """The flash backward's device time at the two served prefill shapes
-    (the route that ran them, ``tc`` or ``fma``), beside the plain
+    and deepseek-v2's trained MLA shape [1,2048,128,192] (v and do
+    zero-padded from 128; the route that ran them, ``tc`` or ``fma``),
+    beside the plain
     backward's, a library yardstick (SDPA's backward: SDPA forward plus
     backward by autograd, less SDPA's forward) and the bound; the host's
     time to issue a call beside it."""
@@ -931,6 +973,9 @@ def phase_timing_bwd():
         do = torch.randn(q.shape, device=DEVICE,
                          generator=torch.Generator(device=DEVICE)
                          .manual_seed(601)).to(torch.bfloat16)
+        if hd == 192:
+            v[..., MLA_V_HEAD:] = 0
+            do[..., MLA_V_HEAD:] = 0
         kw = dict(causal=True, window=window, softcap=0.0, scale=hd ** -0.5)
         o, lse = fa._launch(q, k, v, want_lse=True, **kw)
         kern = lambda: fa.flash_attention_bwd(  # noqa: E731
@@ -1907,7 +1952,8 @@ TRAIN_PEAK_GIB = 75            # above it, the depth is too large for the card
 TRAIN_REL = 1e-2               # step 1, kernel vs plain: loss and grad_norm
 # step-1 gradients, kernel vs plain, relative L2: wq/wk/wv of layer 0
 # ("l0") and of the last layer ("last"), and the head. Each limit lies
-# between the witnesses (correct codes) and the controls (faults).
+# between the witnesses (correct codes) and the controls (faults). A leaf
+# names its path and its index into a stacked leaf (None: not stacked)
 GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.0.mixer.{w}", i)
                for at, i in (("l0", 0), ("last", -1))
                for w in ("wq", "wk", "wv")}
@@ -1924,36 +1970,126 @@ GRAD_REL_L2_FP32 = 5e-3
 # gradients of layer 0 and the last layer are reported
 GRAD_REL_L2_BF16 = 0.1
 BF16_GATED = ("head",)
-# bf16 grad_norm: the witnesses read 0.033 (plain code, 64-row chunks) and
-# 0.039 (SDPA), the off-by-one control 0.077
+# bf16 grad_norm: the witnesses read 0.033 (plain code, 64-row chunks),
+# 0.00094 (the plain flash VJP) and 0.038 (SDPA), the off-by-one control
+# 0.077; against the fp32 code's, the correct codes 0.0072-0.046, the
+# control 0.084 (on an H100)
 GRAD_NORM_REL_BF16 = 0.05
+# the MoE paths: layer 0 is dense (attention, or MLA, and a dense MLP).
+# deepseek-moe-16b's first MoE layer is the stacked core's period 0 at 5
+# layers, the unstacked tail's layer 0 in the 2-layer twin
+MOE_GRAD_LEAVES = {"l0.wq": ("decoder.head.0.mixer.wq", None),
+                   "l0.wk": ("decoder.head.0.mixer.wk", None),
+                   "moe.router": ("decoder.core.0.mlp.router", 0),
+                   "moe.e0.wi_gate": ("decoder.core.0.mlp.wi_gate", (0, 0)),
+                   "head": ("head", None)}
+MOE_TWIN_LEAVES = dict(MOE_GRAD_LEAVES,
+                       **{"moe.router": ("decoder.tail.0.mlp.router", None),
+                          "moe.e0.wi_gate": ("decoder.tail.0.mlp.wi_gate",
+                                             0)})
+MLA_GRAD_LEAVES = {f"l0.{w}": (f"decoder.head.0.mixer.{w}", None)
+                   for w in ("wq_a", "wq_b", "wkv_a", "wkv_b")}
+MLA_GRAD_LEAVES["head"] = ("head", None)
+# leaves whose gradient comes only through ds (q, and k alone): the
+# dropped-delta control gates them, the off-by-one mask the rest
+DS_ONLY = (".wq", ".wk", ".wq_a", ".wq_b")
+# grad_norm of the MoE paths' fp32 twins and of deepseek-v2's bf16 layer 0:
+# the off-by-one mask moves it by 5.5e-5 (v2's twin) to 1.2e-3 (moe-16b's)
+# only, the dropped delta by 6.07e-3 and 1.70e-2; the witnesses read 0 to
+# 2.4e-5. v2's bf16 layer 0 against the fp32 code's: the correct codes
+# 5.4e-4 to 5.7e-4, the dropped delta 5.5e-3 (on an H100)
+MOE_NORM_REL = 1e-3
+# deepseek-v2's bf16 layer 0, every leaf: the witnesses read at most 8.3e-3
+# (SDPA, wkv_a), the controls at least 7.4e-2 (the off-by-one mask, wq_a)
+MLA_GRAD_REL_L2_BF16 = 3e-2
+# deepseek-moe-16b's bf16 model at 5 layers, routing pinned to the plain
+# run's (``pinned_routing``): its random-init MoE layers carry the
+# roundings further than deepseek-7b's 12 (grad_norm 1392 against 608).
+# The head: SDPA, a correct tensor-core code, reads 0.376 (the chunked
+# plain code 0.144), the off-by-one control 1.01. grad_norm is layer 0's
+# and the embedding's (all of the fp32 squared norm), each leaf of them
+# scaled by one factor a code: the witnesses read 0.036, 0.00047 (the
+# plain flash VJP) and 0.128, the control 0.49; against the fp32 code's,
+# the correct codes 0.065-0.153 (the kernel the most), the control 0.589
+# (on an H100)
+MOE_GRAD_REL_L2_BF16 = 0.6
+MOE_GRAD_NORM_REL_BF16 = 0.3
+# the train paths, run in this order: arch, depth, the fp32 twin's depth
+# (routing is discontinuous, so the MoE twins are cut to their first MoE
+# layer), the gradient leaves of the model and of the twin (the same
+# labels), the limits of the twin's grad_norm, the bf16 model's gated
+# leaves and its limits
+TRAIN_PATHS = {
+    "train": dict(arch=TRAIN_ARCH, label=TRAIN_LABEL, layers=TRAIN_LAYERS,
+                  twin_layers=TRAIN_TWIN_LAYERS, leaves=GRAD_LEAVES,
+                  twin_leaves=GRAD_LEAVES,
+                  twin_norm=(TRAIN_REL, "drops_diagonal"),
+                  bf16_gated=BF16_GATED, grad_bf16=GRAD_REL_L2_BF16,
+                  bf16_norm=(GRAD_NORM_REL_BF16, "drops_diagonal")),
+    # deepseek-moe-16b: 5 layers (1 dense + 4 MoE), 2.855 B params, 42.5
+    # GiB at 16 B/param; 6 layers would take 51.3 GiB before activations
+    "train-moe": dict(arch="deepseek-moe-16b", label="train-moe", layers=5,
+                      twin_layers=2, leaves=MOE_GRAD_LEAVES,
+                      twin_leaves=MOE_TWIN_LEAVES,
+                      twin_norm=(MOE_NORM_REL, "drops_delta"),
+                      bf16_gated=BF16_GATED, grad_bf16=MOE_GRAD_REL_L2_BF16,
+                      bf16_norm=(MOE_GRAD_NORM_REL_BF16, "drops_diagonal")),
+    # deepseek-v2-236b: its dense layer 0 alone (MLA and a 12288-wide MLP),
+    # 1.387 B params, 20.7 GiB; with its first MoE layer 5.359 B, 79.9 GiB
+    "train-mla": dict(arch="deepseek-v2-236b", label="train-mla", layers=1,
+                      twin_layers=1, leaves=MLA_GRAD_LEAVES,
+                      twin_leaves=MLA_GRAD_LEAVES,
+                      twin_norm=(MOE_NORM_REL, "drops_delta"),
+                      bf16_gated=tuple(MLA_GRAD_LEAVES),
+                      grad_bf16=MLA_GRAD_REL_L2_BF16,
+                      bf16_norm=(MOE_NORM_REL, "drops_delta")),
+}
+
+
+def _plain_vjp(q, k, v, kw, keep_delta):
+    """The plain forward and the plain flash backward
+    (``attention_bwd_plain``), which takes delta = rowsum(do o) from the
+    rounded output o, as the reference's ``_flash_bwd`` and both
+    tensor-core backwards do; without ``keep_delta`` it gets o = 0, so
+    delta drops out of ds = p (dp - delta)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    class PlainVJP(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = fa.attention_fwd_lse_plain(q, k, v, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return fa.attention_bwd_plain(
+                q, k, v, o if keep_delta else torch.zeros_like(do), lse, do,
+                **kw)
+    return PlainVJP.apply(q, k, v)
+
+
+def _plain_flash_vjp(orig, q, k, v, **kw):
+    """Witness: the reference's flash VJP in plain code, delta from the
+    rounded output (autograd through the plain forward sums p dp in
+    fp32 instead)."""
+    return _plain_vjp(q, k, v, kw, keep_delta=True)
 
 
 def _plain_drops_delta(orig, q, k, v, **kw):
     """Control: the plain forward with a backward that drops delta =
     rowsum(do o) from ds = p (dp - delta), as a backward kernel that lost
     that term would (dv is untouched)."""
-    import torch
-    from repro_torch.kernels import flash_attention as fa
-
-    class DropsDelta(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v):
-            o, lse = fa.attention_fwd_lse_plain(q, k, v, **kw)
-            ctx.save_for_backward(q, k, v, lse)
-            return o
-
-        @staticmethod
-        def backward(ctx, do):
-            q, k, v, lse = ctx.saved_tensors
-            return fa.attention_bwd_plain(q, k, v, torch.zeros_like(do), lse,
-                                          do, **kw)
-    return DropsDelta.apply(q, k, v)
+    return _plain_vjp(q, k, v, kw, keep_delta=False)
 
 
-def _step1_grads(lm, batch, impl):
-    """Loss, global gradient norm and the GRAD_LEAVES' gradients (layer 0
-    of a stacked leaf) of one forward and backward; the gradients are
+def _step1_grads(lm, batch, impl, leaves):
+    """Loss, global gradient norm, the gradients of ``leaves`` (label ->
+    path and index into a stacked leaf; a path the model lacks raises) and
+    every parameter's squared gradient norm (a stacked core leaf's by
+    period, ``path[i]``) of one forward and backward; the gradients are
     dropped after."""
     import torch
     for p in lm.parameters():
@@ -1961,58 +2097,153 @@ def _step1_grads(lm, batch, impl):
     loss, _ = lm.loss(batch, impl=impl)
     loss.backward()
     params = dict(lm.named_parameters())
-    gn = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
-                        for p in params.values())).item()
+    sq = {}
+    for n, p in params.items():
+        g = p.grad.float()
+        if n.startswith("decoder.core."):
+            sq.update((f"{n}[{i}]", s) for i, s in
+                      enumerate(g.square().flatten(1).sum(1).tolist()))
+        else:
+            sq[n] = g.square().sum().item()
     picked = {}
-    for label, (path, i) in GRAD_LEAVES.items():
+    for label, (path, i) in leaves.items():
+        if path not in params:
+            raise KeyError(f"leaf {label}: the model has no {path}")
         g = params[path].grad
         picked[label] = (g if i is None else g[i]).detach().clone()
     for p in lm.parameters():
         p.grad = None
-    return loss.item(), gn, picked
+    return loss.item(), math.sqrt(sum(sq.values())), picked, sq
 
 
-def _train_gate(lm, batch):
+@contextmanager
+def pinned_routing(record):
+    """The MoE layers' expert choices recorded, or replayed. While
+    ``record`` (a list) is empty, each ``moe.route`` call appends its
+    ``eidx``; else each call takes the next recorded one (in call order:
+    the forward's layers, then their recompute under remat) and its gates
+    at those experts from its own probabilities, renormalised as
+    ``route`` does, so the router's gradient still flows. Every recorded
+    choice must be taken once."""
+    import torch
+    from repro_torch.models import moe as MOE
+    orig, replay = MOE.route, bool(record)
+    todo = list(record)
+
+    def route(cfg, p, xf):
+        probs, gates, eidx = orig(cfg, p, xf)
+        if not replay:
+            record.append(eidx)
+            return probs, gates, eidx
+        eidx = todo.pop(0)
+        top = torch.gather(probs, 1, eidx)
+        return probs, top / torch.clamp_min(top.sum(-1, keepdim=True),
+                                            1e-9), eidx
+    MOE.route = route
+    try:
+        yield
+    finally:
+        MOE.route = orig
+    assert not todo, f"{len(todo)} recorded routings not replayed"
+
+
+def _train_gate(lm, batch, leaves):
     """Step 1 through the kernels (``impl=None``) and through the plain
-    code, beside witnesses (the plain code in 64-row chunks; SDPA in bf16)
-    and controls (a backward that drops delta; an off-by-one causal mask):
-    relative errors of loss, grad_norm and each leaf's gradient against the
-    plain code's."""
-    ref_loss, ref_gn, ref = _step1_grads(lm, batch, "plain")
+    code, beside witnesses (the plain code in 64-row chunks; the plain
+    flash VJP, delta from the rounded output; SDPA in bf16) and controls
+    (a backward that drops delta; an off-by-one causal mask): relative
+    errors of loss, grad_norm and each leaf's gradient against the plain
+    code's. A model with MoE layers replays the plain run's routing in
+    every other run (``pinned_routing``): routing is discontinuous, and in
+    bf16 a correct attention code otherwise moves copies to other experts,
+    which moves the gradients as far as a fault does (PERF.md). The bf16
+    model also runs the plain code in fp32 compute on the same weights and
+    routing; each run's grad_norm (gated) and leaves (read) are held
+    against that too (``fp32_*``), and where the squared norm lies by
+    leaf (``_norm_by_leaf``): how far bf16 carries every code, the plain
+    one included, from the fp32 gradient."""
+    moe = lm.cfg.moe
+    has_moe = moe is not None and lm.cfg.num_layers > moe.first_k_dense
+    record = []
+
+    def pin():
+        return pinned_routing(record) if has_moe else nullcontext()
+
+    with pin():
+        ref_loss, ref_gn, ref, ref_sq = _step1_grads(lm, batch, "plain",
+                                                     leaves)
     runs = {"kernel": None,
             "witness_chunks": plain_attention_as(_plain_small_chunks),
+            "witness_flash_vjp": plain_attention_as(_plain_flash_vjp),
             "control_drops_delta": plain_attention_as(_plain_drops_delta),
             "control_drops_diagonal": plain_attention_as(
                 _plain_drops_diagonal)}
+    out = {"plain_loss": ref_loss, "plain_grad_norm": ref_gn,
+           "routings_pinned": len(record)}
+    f32, sqs = None, {"plain": ref_sq}
     if lm.compute_dtype != lm.param_dtype:         # the bf16 model
         runs["witness_sdpa"] = plain_attention_as(_sdpa_witness)
-    out = {"plain_loss": ref_loss, "plain_grad_norm": ref_gn}
+        dt, lm.compute_dtype = lm.compute_dtype, lm.param_dtype
+        try:
+            with pin():
+                _, f32_gn, f32, f32_sq = _step1_grads(lm, batch, "plain",
+                                                      leaves)
+        finally:
+            lm.compute_dtype = dt
+        out["fp32_grad_norm"] = f32_gn
+        out["fp32_plain_grad_norm_rel"] = abs(ref_gn - f32_gn) / f32_gn
+        for n in leaves:
+            out[f"fp32_plain_{n}_rel_l2"] = _rel(ref[n], f32[n])
     for run, ctx in runs.items():
-        if ctx is None:
-            loss, gn, got = _step1_grads(lm, batch, None)
-        else:
-            with ctx:
-                loss, gn, got = _step1_grads(lm, batch, "plain")
+        with ctx or nullcontext(), pin():
+            loss, gn, got, sq = _step1_grads(
+                lm, batch, None if ctx is None else "plain", leaves)
+        sqs[run] = sq
         out[f"{run}_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
         out[f"{run}_grad_norm_rel"] = abs(gn - ref_gn) / ref_gn
-        for n in GRAD_LEAVES:
+        for n in leaves:
             out[f"{run}_{n}_rel_l2"] = _rel(got[n], ref[n])
+        if f32 is not None:
+            out[f"fp32_{run}_grad_norm_rel"] = abs(gn - f32_gn) / f32_gn
+            for n in leaves:
+                out[f"fp32_{run}_{n}_rel_l2"] = _rel(got[n], f32[n])
         if run == "kernel":
             out["kernel_loss"], out["kernel_grad_norm"] = loss, gn
+    if f32 is not None:
+        out["fp32_norm_by_leaf"] = _norm_by_leaf(f32_sq, sqs)
     return out
 
 
-def _assert_train_gate(out, grad_limit, norm_limit, leaves):
+def _norm_by_leaf(f32_sq, sqs):
+    """Where each run's squared gradient norm departs from the fp32
+    code's: the leaves (a stacked leaf by period) that carry at least 1% of
+    the fp32 squared norm, or whose squared norm some run moves by that
+    much (a correct code: the controls' are reported, not chosen by),
+    each with its share of the fp32 squared norm and each run's norm of
+    that leaf over the fp32 code's."""
+    tot = sum(f32_sq.values())
+    keep = [n for n in f32_sq if f32_sq[n] >= 0.01 * tot or any(
+        abs(sq[n] - f32_sq[n]) >= 0.01 * tot for run, sq in sqs.items()
+        if not run.startswith("control"))]
+    keep.sort(key=lambda n: -f32_sq[n])
+    return {n: {"fp32_share": f32_sq[n] / tot,
+                **{run: math.sqrt(sq[n] / f32_sq[n]) if f32_sq[n] else None
+                   for run, sq in sqs.items()}} for n in keep}
+
+
+def _assert_train_gate(out, grad_limit, norm, leaves):
     """The kernel's loss within TRAIN_REL of the plain code's. For the
-    grad_norm (at ``norm_limit``) and each leaf of ``leaves`` (at
-    ``grad_limit``): every witness under the limit, the control over it,
-    the kernel under it. The control is the dropped delta for wq and wk
-    (their gradient comes only through ds), the off-by-one mask for the
-    rest (delta does not reach the head, nor the last layer's wv)."""
+    grad_norm (at ``norm = (limit, control)``) and each leaf of ``leaves``
+    (at ``grad_limit``): every witness under the limit, the control over
+    it, the kernel under it; the bf16 model's grad_norm likewise against
+    the fp32 code's (``fp32_*``). A leaf's control is the dropped delta
+    when its gradient comes only through ds (``DS_ONLY``: q's projections,
+    k's alone), the off-by-one mask for the rest (delta does not reach the
+    head, nor a v projection)."""
     assert out["kernel_loss_rel"] <= TRAIN_REL, out
-    checks = [("grad_norm_rel", norm_limit, "drops_diagonal")] + [
+    checks = [("grad_norm_rel", *norm)] + [
         (f"{n}_rel_l2", grad_limit,
-         "drops_delta" if n.endswith((".wq", ".wk")) else "drops_diagonal")
+         "drops_delta" if n.endswith(DS_ONLY) else "drops_diagonal")
         for n in leaves]
     for suffix, limit, control in checks:
         for key in out:
@@ -2020,13 +2251,23 @@ def _assert_train_gate(out, grad_limit, norm_limit, leaves):
                 assert out[key] <= limit, (key, limit, out)
         assert out[f"control_{control}_{suffix}"] > limit, (suffix, out)
         assert out[f"kernel_{suffix}"] <= limit, (suffix, limit, out)
+    if "fp32_grad_norm" in out:
+        # the bf16 model's grad_norm against the fp32 code's, at the same
+        # limit: every correct bf16 code under it (the plain one too), the
+        # control over it
+        limit, control = norm
+        for key, val in out.items():
+            if key.startswith("fp32_") and key.endswith("_grad_norm_rel") \
+                    and not key.startswith("fp32_control_"):
+                assert val <= limit, (key, limit, out)
+        assert out[f"fp32_control_{control}_grad_norm_rel"] > limit, out
 
 
-def _train_lm(layers, dtype):
+def _train_lm(layers, dtype, arch=TRAIN_ARCH):
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import LM
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=layers, dtype=dtype)
+    cfg = get_config(arch).replace(num_layers=layers, dtype=dtype)
     lm = LM(cfg, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
     g = torch.Generator(device=DEVICE).manual_seed(1)
@@ -2035,57 +2276,133 @@ def _train_lm(layers, dtype):
     return lm, {"tokens": tokens}
 
 
-def phase_train():
-    """deepseek-7b at full width (d_model 4096, 32x128 MHA, d_ff 11008,
-    vocab 102400) and TRAIN_LAYERS layers, fp32 params, bf16 compute, full
-    remat; B=1, S=2048 seeded tokens.
+DIGEST_CHUNK = 1 << 24
+# two odd 64-bit multipliers (as signed int64) of the digests' weights
+_DIGEST_MULS = (-7046029254386353131, 0x2545F4914F6CDD1D)
+
+
+def digest(t):
+    """Two 64-bit digests of a tensor's bits: the sums, mod 2^64, of each
+    word of its storage (32-bit, or 16-bit for a 2-byte dtype) times one of
+    two odd weights of its position. One changed word always changes both
+    (an odd weight times a nonzero difference under 2^33 is not 0 mod
+    2^64); several changed words leave them unchanged only if their
+    weighted differences cancel in both. Held on the card, chunk by chunk,
+    so a full-width train state needs no second copy."""
+    import torch
+    flat = t.detach().reshape(-1)
+    words = flat.view(torch.int32 if flat.element_size() == 4
+                      else torch.int16)
+    acc = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for s0 in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[s0:s0 + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(s0 + 1, s0 + 1 + w.numel(), dtype=torch.int64,
+                           device=t.device)
+        for j, mul in enumerate(_DIGEST_MULS):
+            acc[j] += torch.sum(w * ((pos * mul) | 1))
+    return tuple(acc.tolist())
+
+
+def state_digests(state):
+    """Digests of every leaf of a train state's params, m and v, and its
+    step."""
+    out = {"step": int(state["step"])}
+    for part in ("params", "m", "v"):
+        out.update({f"{part}.{n}": digest(t) for n, t in state[part].items()})
+    return out
+
+
+def _digest_control(state):
+    """Control: one bit of one word of the smallest parameter flipped in a
+    copy changes its digest."""
+    import torch
+    t = min(state["params"].values(), key=lambda x: x.numel()).detach()
+    bad = t.clone()
+    bad.view(-1).view(torch.int32)[0] ^= 1
+    return digest(bad) != digest(t)
+
+
+def phase_train(name="train"):
+    """One train path of ``TRAIN_PATHS``: its arch at full width and cut
+    depth, fp32 params, bf16 compute, full remat; B=1, S=2048 seeded
+    tokens (``train``: deepseek-7b at 12 layers; ``train-moe``:
+    deepseek-moe-16b at 5, the flash kernels at head dim 128; ``train-mla``:
+    deepseek-v2-236b's dense layer 0, MLA through the flash kernels at head
+    dim 192 with v zero-padded from 128).
       * Step-1 gate: the kernel path against ``impl="plain"`` from the same
         initial weights (gradients only, so the weights need no restore),
-        beside witnesses (the plain code in 64-row chunks, SDPA) and
-        controls (a backward that drops delta; an off-by-one causal mask):
-        the loss within TRAIN_REL, grad_norm at GRAD_NORM_REL_BF16 and the
-        head's gradient at GRAD_REL_L2_BF16, each limit between the
-        witnesses and the control; the wq/wk/wv gradients of layer 0 and
-        the last layer are reported.
-      * An fp32 twin at TRAIN_TWIN_LAYERS layers of the same width (FMA
-        forward and the FMA backward kernels): loss and grad_norm within
-        TRAIN_REL, and every leaf (wq/wk/wv of both layers, the head) at
+        beside witnesses (the plain code in 64-row chunks, the plain flash
+        VJP, SDPA) and controls (a backward that drops delta; an
+        off-by-one causal mask):
+        the loss within TRAIN_REL, grad_norm and the gated leaves' gradients
+        (the head; every leaf of deepseek-v2's layer 0) at the path's bf16
+        limits, each limit between the witnesses and the control; the
+        other leaves' gradients are reported. The MoE layers replay the
+        plain run's routing (``pinned_routing``). Every run is also read
+        against the plain code in fp32 compute on the same weights.
+      * An fp32 twin (FMA forward and the FMA backward kernels) at the
+        path's twin depth: the loss within TRAIN_REL, grad_norm at the
+        path's twin limit, and every leaf of the path (q/k(/v)
+        projections, MLA's low-rank ones, for deepseek-moe-16b the first
+        MoE layer's router and expert 0's ``wi_gate``, the head) at
         GRAD_REL_L2_FP32. Each gate's kernel run is counted by backward
         route: the twin's on ``fma``, the bf16 model's on ``tc``.
       * TRAIN_STEPS AdamW steps on the same batch through
-        ``make_train_step``: the loss falls; the counts, set to 0 just
+        ``make_train_step``: the loss falls (the loss of a second seeded
+        batch, not trained on, is read before and after); the counts, set
+        to 0 just
         before, read 2 x layers forward launches per step (remat runs each
         layer's forward twice), all on the tensor-core kernel, and layers
-        backward launches, all on the tensor-core route; ms per step (CUDA events), tokens/s and the
-        peak allocated memory, which must stay under TRAIN_PEAK_GIB; then
-        a fourth step under ``torch.profiler`` (device time by kernel, the
-        device's idle share)."""
+        backward launches, all on the tensor-core route; ms per step (CUDA
+        events), tokens/s and the peak allocated memory, which must stay
+        under TRAIN_PEAK_GIB; then a fourth step under ``torch.profiler``
+        (device time by kernel, the device's idle share).
+      * Two steps from one state, bit for bit. The digests (``digest``) of
+        every leaf of params, m and v after the first step are kept; the
+        LM is then rebuilt from its seed (its initial state's digests equal
+        the first build's) and steps once more: every digest must equal
+        the first step's. A control flips one bit of a copy. (A copy of
+        the state kept on the card would not fit beside deepseek-moe-16b's
+        step; one in host memory would take some 15 s each way.)"""
     import torch
     from repro_torch.optim import adamw
-    out = {"layers": TRAIN_LAYERS, "seq": TRAIN_S, "batch": 1}
+    spec = TRAIN_PATHS[name]
+    arch, layers, leaves = spec["arch"], spec["layers"], spec["leaves"]
+    out = {"arch": arch, "layers": layers, "seq": TRAIN_S, "batch": 1}
 
-    lm, batch = _train_lm(TRAIN_TWIN_LAYERS, "float32")
+    lm, batch = _train_lm(spec["twin_layers"], "float32", arch)
     reset_kernel_counts()
-    twin = _train_gate(lm, batch)
+    twin = _train_gate(lm, batch, spec["twin_leaves"])
     twin_bwd = bwd_counts()
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"train: fp32 twin ({TRAIN_TWIN_LAYERS} layers) step 1, relative "
+    log(f"{name}: fp32 twin ({spec['twin_layers']} layers) step 1, relative "
         f"to the plain path {json.dumps(twin)}")
 
-    lm, batch = _train_lm(TRAIN_LAYERS, "bfloat16")
+    lm, batch = _train_lm(layers, "bfloat16", arch)
     n_params = sum(p.numel() for p in lm.parameters())
     reset_kernel_counts()
-    gate = _train_gate(lm, batch)
+    gate = _train_gate(lm, batch, leaves)
     gate_bwd = bwd_counts()
-    log(f"train: {TRAIN_ARCH} at full width, {TRAIN_LAYERS} layers, "
+    log(f"{name}: {arch} at full width, {layers} layers, "
         f"{n_params / 1e9:.3f} B params; bf16 step 1, relative to the plain "
         f"path {json.dumps(gate)}")
 
+    # a second seeded batch, never trained on: its loss before the steps
+    # and after them tells learning from memorising the one batch
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    unseen = {"tokens": torch.randint(0, lm.cfg.vocab_size, (1, TRAIN_S),
+                                      generator=g, device=DEVICE)}
+
+    def unseen_loss():
+        with torch.no_grad():
+            return lm.loss(unseen)[0].item()
+    unseen_losses = [unseen_loss()]
     cfg = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
     state = adamw.init_state(lm)
     step = adamw.make_train_step(lm, cfg)
+    digests = [state_digests(state)]     # the initial state, after step 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
@@ -2100,21 +2417,29 @@ def phase_train():
         torch.cuda.synchronize()
         steps.append(dict(step=int(state["step"]), loss=met["loss"].item(),
                           grad_norm=met["grad_norm"].item(),
+                          aux=met["aux"].item(),
                           lr=met["lr"].item(), ms=e0.elapsed_time(e1),
                           host_ms=(time.perf_counter() - h0) * 1e3))
-        log(f"train: step {steps[-1]['step']}: loss {steps[-1]['loss']:.6f}, "
+        log(f"{name}: step {steps[-1]['step']}: loss "
+            f"{steps[-1]['loss']:.6f} (aux {steps[-1]['aux']:.6f}), "
             f"grad_norm {steps[-1]['grad_norm']:.6f}, lr "
             f"{steps[-1]['lr']:.3e}, {steps[-1]['ms']:.3f} ms (CUDA events; "
             f"host clock {steps[-1]['host_ms']:.3f} ms)")
+        if i == 0:                      # outside the timed steps
+            digests.append(state_digests(state))
     launches = kernel_counts()
     flash = flash_counts()
     flash_bwd = bwd_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    unseen_losses.append(unseen_loss())    # after the counts are read
+    log(f"{name}: loss on a second seeded batch, not trained on: "
+        f"{unseen_losses[0]:.6f} before the steps, {unseen_losses[1]:.6f} "
+        f"after {TRAIN_STEPS}")
     # one more step under the profiler, after the counts are read
-    prof = log_profile("train: profiled step 4", profiled(
+    prof = log_profile(f"{name}: profiled step 4", profiled(
         lambda: step(state, batch), top_n=12))
-    want_fwd = TRAIN_STEPS * 2 * TRAIN_LAYERS
-    want_bwd = TRAIN_STEPS * TRAIN_LAYERS
+    want_fwd = TRAIN_STEPS * 2 * layers
+    want_bwd = TRAIN_STEPS * layers
     ms = [r["ms"] for r in steps[1:]]
     out.update(n_params=n_params, steps=steps, launches=launches,
                flash_launches_by_kernel=flash,
@@ -2124,15 +2449,34 @@ def phase_train():
                peak_allocated_gib=peak,
                ms_per_step=sum(ms) / len(ms),
                tokens_per_s=TRAIN_S / (sum(ms) / len(ms) / 1e3),
-               gate=gate, twin=twin, twin_layers=TRAIN_TWIN_LAYERS,
+               unseen_batch_loss=unseen_losses,
+               gate=gate, twin=twin, twin_layers=spec["twin_layers"],
                profile=prof)
-    log(f"train: {TRAIN_STEPS} steps, {out['ms_per_step']:.3f} ms per step "
+    log(f"{name}: {TRAIN_STEPS} steps, {out['ms_per_step']:.3f} ms per step "
         f"after the first (CUDA events), {out['tokens_per_s']:.1f} tokens/s; "
         f"peak allocated {peak:.2f} GiB; launches {json.dumps(launches)}, "
         f"flash forward by kernel {json.dumps(flash)}, backward by route "
         f"{json.dumps(flash_bwd)} (want {want_fwd} forward, {want_bwd} "
         f"backward); the gates' backward by route: fp32 twin "
         f"{json.dumps(twin_bwd)}, bf16 {json.dumps(gate_bwd)}")
+    control = _digest_control(state)
+    del state, step, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, _ = _train_lm(layers, "bfloat16", arch)
+    state = adamw.init_state(lm)
+    step = adamw.make_train_step(lm, cfg)
+    initial = state_digests(state)
+    state, _ = step(state, batch)
+    again = state_digests(state)
+    differ = [k for k, d in again.items() if digests[1][k] != d]
+    bit_equal = dict(leaves=len(again) - 1,
+                     initial_equal=initial == digests[0],
+                     differing=differ[:10], n_differing=len(differ),
+                     control_caught=control)
+    out["two_steps_from_one_state"] = bit_equal
+    log(f"{name}: two steps from one state (the seeded initial state, "
+        f"built twice): {json.dumps(bit_equal)}")
     del state, step, lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2142,13 +2486,15 @@ def phase_train():
     assert flash == {"tc": want_fwd, "fma": 0}, flash
     assert launches["flash_attention_bwd"] == want_bwd, launches
     assert flash_bwd == {"tc": want_bwd, "fma": 0}, flash_bwd
-    assert twin_bwd == {"tc": 0, "fma": TRAIN_TWIN_LAYERS}, twin_bwd
-    assert gate_bwd == {"tc": TRAIN_LAYERS, "fma": 0}, gate_bwd
+    assert twin_bwd == {"tc": 0, "fma": spec["twin_layers"]}, twin_bwd
+    assert gate_bwd == {"tc": layers, "fma": 0}, gate_bwd
     assert launches["ssd_scan"] == launches["rglru_scan"] == 0, launches
     assert peak <= TRAIN_PEAK_GIB, peak
-    _assert_train_gate(twin, GRAD_REL_L2_FP32, TRAIN_REL, GRAD_LEAVES)
-    _assert_train_gate(gate, GRAD_REL_L2_BF16, GRAD_NORM_REL_BF16,
-                       BF16_GATED)
+    assert bit_equal["initial_equal"] and bit_equal["control_caught"] \
+        and not bit_equal["n_differing"], bit_equal
+    _assert_train_gate(twin, GRAD_REL_L2_FP32, spec["twin_norm"], leaves)
+    _assert_train_gate(gate, spec["grad_bf16"], spec["bf16_norm"],
+                       spec["bf16_gated"])
     return out
 
 
@@ -2826,12 +3172,12 @@ def main():
         del lm                  # free the card for the next path
         gc.collect()
         torch.cuda.empty_cache()
-    train = run("train", phase_train)
+    trains = {t: run(t, phase_train, t) for t in TRAIN_PATHS}
     saved = run("ckpt", phase_ckpt)
     examples = run("examples", phase_examples)
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
-            or train is None or saved is None or examples is None:
+            or None in trains.values() or saved is None or examples is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
@@ -2853,8 +3199,10 @@ def main():
     for kname, (src, replaces) in meta.items():
         row = rows[kname]
         by_path = {a: p[1][kname] for a, p in paths.items() if p[1][kname]}
-        if train["launches"][kname]:
-            by_path[TRAIN_LABEL] = train["launches"][kname]
+        for tname, train in trains.items():
+            if train["launches"][kname]:
+                by_path[TRAIN_PATHS[tname]["label"]] = \
+                    train["launches"][kname]
         if saved["launches"][kname]:
             by_path[CKPT_LABEL] = saved["launches"][kname]
         for ex in EXAMPLES:
@@ -2879,7 +3227,8 @@ def main():
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["flash_launches_by_kernel"][k]
                        for p in paths.values())
-                + train["flash_launches_by_kernel"][k]
+                + sum(t["flash_launches_by_kernel"][k]
+                      for t in trains.values())
                 + saved["flash_launches_by_kernel"][k]
                 + sum(examples[ex]["flash"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -2890,21 +3239,26 @@ def main():
                 for r in timing]
         if kname == "flash_attention_bwd":
             entry["design"] = (
-                "bf16 at head dims 64/128/256 (route tc): delta and "
+                "bf16 at head dims 64/128/192/256 (route tc): delta and "
                 "lse*log2(e) into [B,H,Sq] scratch; "
                 "flash_bwd_dkdv_tc_kernel, one CTA per (b, kv head x head "
                 "split, key tile), a TMA producer warpgroup and two wgmma "
                 "consumers, S^T = K.Q^T and dP^T = V.dO^T from shared "
                 "memory, P^T and dS^T rounded to bf16 as register operands "
                 "of dV += P^T.dO and dK += dS^T.Q, q/do through a two-stage "
-                "ring; at GQA/MQA the group's heads split across CTAs and "
+                "ring; 128-key tiles (each consumer 64 keys, dk and dv) at "
+                "64/128, one shared 64-key tile at 192 (deepseek-v2's MLA, "
+                "v zero-padded from 128; m64n192k16 over three 64-wide "
+                "chunks) and 256, one consumer holding dv, the other dk; "
+                "at GQA/MQA the group's heads split across CTAs and "
                 "flash_bwd_reduce_kernel sums the fp32 partials in order; "
                 "flash_bwd_dq_tc_kernel, one CTA per (b, head, 128 queries), "
                 "k/v through the ring, dQ += dS.K by wgmma. fp32 and bf16 at "
                 "16/32 (route fma): flash_bwd_{delta,dkdv,dq}_kernel, fp32 "
                 "FMA. No atomics; masked tiles skipped")
             entry["launches_by_kernel"] = {
-                k: train["flash_bwd_launches_by_route"][k]
+                k: sum(t["flash_bwd_launches_by_route"][k]
+                       for t in trains.values())
                 + saved["flash_bwd_launches_by_route"][k]
                 + sum(examples[ex]["bwd"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -2940,7 +3294,7 @@ def main():
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
                     "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
                     "serving": {a: p[2] for a, p in paths.items()},
-                    "train": train, "ckpt": saved, "examples": examples}))
+                    "train": trains, "ckpt": saved, "examples": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@
 // products' work for five, so every sum has one order) and skip the tiles
 // the mask rules out.
 //   * Tensor cores (entry flash_attention_bwd_tc; bf16 at head dims 64,
-//     128, 256): a delta kernel writes rowsum(do o) and lse log2(e) as
+//     128, 192, 256): a delta kernel writes rowsum(do o) and lse log2(e) as
 //     [B,H,Sq] scratch, so a tile's 64 values of one head are one bulk
 //     copy. flash_bwd_dkdv_tc_kernel: one CTA per (kv head x head split,
 //     key tile, b) of a TMA producer warpgroup and two wgmma consumer
@@ -29,10 +29,12 @@
 //     P^T and dS^T in registers with the queries along the accumulator's
 //     columns, rounded to bf16 as the register A operands of dV += P^T.dO
 //     and dK += dS^T.Q. At head dim 64/128 each consumer owns 64 of 128
-//     keys and holds dk and dv; at 256 dk and dv of 64 keys do not fit one
-//     warpgroup's registers, so one consumer computes P^T and holds dv and
-//     hands P^T (1 - t^2) scale through shared memory to the other, which
-//     forms dS^T and holds dk. At GQA/MQA a group's heads are split across
+//     keys and holds dk and dv; at 192 (MLA) and 256 dk and dv of 64 keys
+//     do not fit one warpgroup's registers, so both consumers share a
+//     64-key tile: one computes P^T and holds dv and hands P^T (1 - t^2)
+//     scale through shared memory to the other, which forms dS^T and holds
+//     dk. At 192, dV += P^T.dO and dQ += dS.K are the forward's
+//     m64n192k16 form over three 64-wide column chunks. At GQA/MQA a group's heads are split across
 //     CTAs (the second grid dimension; one CTA per key tile would leave 64
 //     CTAs at Kh = 1) whose fp32 partials flash_bwd_reduce_kernel sums in
 //     split order. flash_bwd_dq_tc_kernel: the forward's shape, one CTA per
@@ -1109,6 +1111,7 @@ cudaError_t run(int hd, const void* q, const void* k, const void* v, const void*
     case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    case 192: return launch<T, 192>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     case 256: return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1147,9 +1150,11 @@ template <int HD> struct QCfg {
 };
 
 template <int HD> struct KvCfg {
-  // head dim 256: both consumers share one 64-key tile (one holds dv, the
-  // other dk); else each owns 64 of the CTA's 128 keys and holds both
-  static constexpr bool SHARED = HD == 256;
+  // head dims 192 and 256: both consumers share one 64-key tile (one holds
+  // dv, the other dk); else each owns 64 of the CTA's 128 keys and holds
+  // both. At 192 holding both would take 2 x 96 accumulators a thread
+  // beside S^T and dP^T (32 each), over the 240 registers a consumer gets
+  static constexpr bool SHARED = HD >= 192;
   static constexpr int BK = SHARED ? 64 : 128;
   static constexpr int BOX = QCfg<HD>::BK;           // rows per k/v box
   static constexpr int KV_BYTES = BK * HD * 2;       // one of k, v
@@ -1416,7 +1421,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     store_rows<HD>(acc_k, dk + b * dk_sb + kvh * dk_sh, dk_ss, pk, prow, key, a.Sk, t4);
     store_rows<HD>(acc_v, dv + b * dv_sb + kvh * dv_sh, dv_ss, pv, prow, key, a.Sk, t4);
   } else {
-    // head dim 256: warpgroup 0 computes S^T and P^T and holds dV; it hands
+    // head dims 192 and 256: warpgroup 0 computes S^T and P^T and holds dV; it hands
     // P^T (1 - t^2) scale to warpgroup 1 through shared memory in fragment
     // order (named barrier 1: written; 2: read), which computes dP^T, forms
     // dS^T and holds dK
@@ -1851,7 +1856,7 @@ extern "C" int flash_attention_bwd(
   return static_cast<int>(err);
 }
 
-// The tensor-core backward: bf16 only, head dim 64, 128 or 256. st: the 24
+// The tensor-core backward: bf16 only, head dim 64, 128, 192 or 256. st: the 24
 // element strides (b, s, h) of q, k, v, o, do, dq, dk, dv as
 // flash_attention_bwd's; q, k, v and do are read by TMA, so each must start
 // on 16 bytes with strides that are multiples of 8 elements. lse [B,Sq,H]
@@ -1868,7 +1873,8 @@ extern "C" int flash_attention_bwd_tc(
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kh <= 0 || H % Kh != 0 ||
       (Sk < Sq && (causal || window > 0)))   // masks right-align the queries
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd != 64 && hd != 128 && hd != 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 64 && hd != 128 && hd != 192 && hd != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / Kh;
   if (n_split <= 0 || G % n_split != 0 || (n_split > 1) != (part != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1907,6 +1913,7 @@ extern "C" int flash_attention_bwd_tc(
   switch (hd) {
     case 64: err = tcb::launch<64>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
     case 128: err = tcb::launch<128>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
+    case 192: err = tcb::launch<192>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
     default: err = tcb::launch<256>(tq, tk, tv, tdo, lse2, delta, pf, dq, dk, dv, st, a, s); break;
   }
   return static_cast<int>(err);

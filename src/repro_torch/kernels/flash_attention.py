@@ -38,22 +38,23 @@ forward runs the forward kernel with the log-sum-exp as a second output
 (``[B,Sq,H]`` fp32) and saves ``q, k, v, o, lse``; its backward is
 ``flash_attention_bwd``, kernels of ``csrc/flash_attention.cu`` on one
 stream, chosen by dtype and head dim alone (``bwd_kernel_for``, the
-forward's rule but for head dim 192, which has no backward yet: a call
-that needs one raises ``NotImplementedError`` before the forward runs on
-a CUDA tensor) and counted once per call in ``launches_bwd_tc`` or
+forward's rule) and counted once per call in ``launches_bwd_tc`` or
 ``launches_bwd_fma`` and in ``launches_bwd``, their sum:
 
-* ``"tc"`` — bf16 at head dims 64, 128, 256: ``delta = rowsum(do o)`` and
-  ``lse * log2(e)`` into ``[B,H,Sq]`` scratch (a tile's rows contiguous);
-  ``flash_bwd_dkdv_tc_kernel``, one CTA per (b, kv head x head split, key
-  tile) with a TMA producer warpgroup and two consumer warpgroups on
-  ``wgmma``: ``S^T = K.Q^T`` and ``dP^T = V.dO^T`` from shared memory,
-  ``P^T`` and ``dS^T`` in registers, rounded to bf16 for
-  ``dV += P^T.dO`` and ``dK += dS^T.Q`` (as SDPA's backward rounds them;
-  gradients within about 3e-3, relative L2, of the plain version's);
-  q and do stream through a two-stage ring. At GQA/MQA the group's heads
-  are split across ``bwd_head_splits`` CTAs whose fp32 partials a small
-  kernel sums in split order. ``flash_bwd_dq_tc_kernel``, one CTA per (b,
+* ``"tc"`` — bf16 at head dims 64, 128, 192, 256: ``delta = rowsum(do
+  o)`` and ``lse * log2(e)`` into ``[B,H,Sq]`` scratch (a tile's rows
+  contiguous); ``flash_bwd_dkdv_tc_kernel``, one CTA per (b, kv head x
+  head split, key tile of ``bwd_key_tile`` keys) with a TMA producer
+  warpgroup and two consumer warpgroups on ``wgmma``: ``S^T = K.Q^T`` and
+  ``dP^T = V.dO^T`` from shared memory, ``P^T`` and ``dS^T`` in
+  registers, rounded to bf16 for ``dV += P^T.dO`` and ``dK += dS^T.Q``
+  (as SDPA's backward rounds them; gradients within about 3e-3, relative
+  L2, of the plain version's); q and do stream through a two-stage ring.
+  At head dims 192 (MLA; v zero-padded, so dv's padded columns come out
+  0) and 256 the two consumers share a 64-key tile, one holding dv, the
+  other dk. At GQA/MQA the group's heads are split across
+  ``bwd_head_splits`` CTAs whose fp32 partials a small kernel sums in
+  split order. ``flash_bwd_dq_tc_kernel``, one CTA per (b,
   head, 128-query tile), q and do loaded once and k/v through the ring,
   ``dQ += dS.K`` on the tensor cores. TMA reads q, k, v and do in place
   (``check_tma``); the wrapper raises on a layout it cannot read.
@@ -85,7 +86,6 @@ import torch
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 TC_HEAD_DIMS = (64, 128, 192, 256)
-BWD_LATER = {192: "ROADMAP Queue 1, MoE/MLA training"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset by the caller; launches is the sum
@@ -131,18 +131,14 @@ def kernel_for(dtype, hd):
 
 def bwd_kernel_for(dtype, hd):
     """The backward kernels that run a CUDA call: "tc" (bf16 at head dims
-    64, 128, 256) or "fma", by the forward's rule; head dim 192 (MLA) has
-    neither yet and raises NotImplementedError naming its ROADMAP item."""
-    if hd in BWD_LATER:
-        raise NotImplementedError(f"flash attention backward at head dim "
-                                  f"{hd}: not ported yet, see "
-                                  f"{BWD_LATER[hd]}")
+    64, 128, 192, 256) or "fma", by the forward's rule."""
     return kernel_for(dtype, hd)
 
 
 def bwd_key_tile(hd):
-    """Keys per CTA of the tensor-core dk/dv kernel."""
-    return 64 if hd == 256 else 128
+    """Keys per CTA of the tensor-core dk/dv kernel: one 64-key tile that
+    both consumers share at head dims 192 and 256, else 64 keys each."""
+    return 64 if hd >= 192 else 128
 
 
 def bwd_head_splits(B, Sk, Kh, G, bk):
@@ -197,8 +193,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     kw = _options(q, causal, window, softcap, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.device.type == "cuda":
-            bwd_kernel_for(q.dtype, q.shape[-1])   # raise before the forward
         return FlashAttention.apply(q, k, v, kw)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, **kw)

@@ -20,7 +20,15 @@ the reference's selection:
   copies, so each weighted expert output is put back at its copy's
   unsorted slot, viewed as ``[T, K, D]`` and summed over K. The reference
   adds them by scatter (``.at[tok].add``), which on CUDA (``index_add_``)
-  would sum in an order that changes between runs.
+  would sum in an order that changes between runs;
+* the dispatch gathers each token's K copies from ``xf`` broadcast to
+  ``[T, K, D]`` (a view, not a copy) and indexed at the (token, k) pairs
+  of the permutation ``order``, not by
+  ``xf[order // K]`` (the reference's ``xf[tok]``): the backward of that
+  index adds K gradients into each token's row by an accumulating index
+  write, whose order CUDA does not fix; here it writes a permutation
+  (unique rows) and sums over K by a reduction, so a training step is
+  the same bit for bit from run to run.
 
 Dropped copies are written to one spare row (``E * C``), which is thrown
 away; no other row receives two copies. An engine's idle slots route
@@ -112,7 +120,7 @@ def moe_apply(cfg: ModelConfig, p, x):
     C = _capacity(T, cfg)
     order, keep, dest = dispatch(eidx, E, C)
     buf = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
-    buf[dest] = xf[order // K]
+    buf[dest] = xf.unsqueeze(1).expand(T, K, D)[order // K, order % K]
     eb = buf[:E * C].reshape(E, C, D)
     h = F.silu(torch.bmm(eb, p["wi_gate"].to(dt))) * \
         torch.bmm(eb, p["wi_up"].to(dt))

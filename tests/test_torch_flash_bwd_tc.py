@@ -9,8 +9,10 @@ summed over 64-query tiles per head split with the splits' fp32 partials
 added in split order, dq over key tiles of 64 (32 at head dim 256). It is
 held against the gradients of the JAX package's flash custom_vjp
 (``repro.kernels.ops.attention(impl="flash")``) at deepseek-like (MHA,
-head dim 128, causal) and recurrentgemma-like (MQA, head dim 256,
-sliding window) small shapes and the softcap variant, within
+head dim 128, causal), recurrentgemma-like (MQA, head dim 256, sliding
+window) and deepseek-v2-like (MLA: MHA at head dim 192, v and do
+zero-padded from 128, so dv's padded columns must come out exactly 0)
+small shapes and the softcap variant, within
 chip_smoke.py's bf16 limits: 2e-2 elementwise (rtol and atol) and a
 relative L2 error of 1e-2.
 """
@@ -28,26 +30,30 @@ CHUNK = 32            # the JAX side's chunk_q and chunk_k
 
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "fma"),
-    (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 128, "fma"), (torch.float32, 256, "fma")])
+    (torch.bfloat16, 192, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 32, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 192, "fma"), (torch.float32, 256, "fma")])
 def test_bwd_kernel_for_routes_by_dtype_and_head_dim(dtype, hd, want):
-    assert fa.bwd_kernel_for(dtype, hd) == want
+    """The forward's rule, head dim 192 (MLA) included: bf16 at 64 to 256
+    on the tensor cores, fp32 (the twins) and the smoke head dims on FMA."""
+    assert fa.bwd_kernel_for(dtype, hd) == want == fa.kernel_for(dtype, hd)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_bwd_kernel_for_raises_at_mla_head_dim_192(dtype):
-    """The forward takes head dim 192 (MLA); the backward has no kernel
-    there on either route yet and names its ROADMAP item."""
-    assert fa.kernel_for(dtype, 192) in ("tc", "fma")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        fa.bwd_kernel_for(dtype, 192)
+@pytest.mark.parametrize("hd,want", [(64, 128), (128, 128), (192, 64),
+                                     (256, 64)])
+def test_bwd_key_tile_by_head_dim(hd, want):
+    """The dk/dv kernel's key tile: 128 keys (64 a consumer) at head dims
+    64 and 128; one shared 64-key tile at 192 and 256, where dk and dv of
+    a consumer's own 64 keys would not fit its registers."""
+    assert fa.bwd_key_tile(hd) == want
 
 
 @pytest.mark.parametrize("B,Sk,Kh,G,hd,want", [
     (1, 2048, 32, 1, 128, 1),      # deepseek-7b's trained shape: 512 CTAs
     (1, 2048, 1, 16, 256, 16),     # recurrentgemma-9b's MQA: 32 key tiles
     (2, 2048, 2, 8, 256, 4),       # 2 x 32 x 2 = 128 CTAs; x2 = 256 < 264
+    (1, 2048, 128, 1, 192, 1),     # deepseek-v2's MLA: 32 x 128 CTAs
     (1, 64, 1, 6, 128, 6)])        # never 2 x SMS: G itself
 def test_bwd_head_splits_divide_the_group(B, Sk, Kh, G, hd, want):
     d = fa.bwd_head_splits(B, Sk, Kh, G, fa.bwd_key_tile(hd))
@@ -130,7 +136,7 @@ def emulate_bwd_tc(q, k, v, o, lse, do, *, causal=True, window=0,
                 pk += torch.einsum("bkcq,bqkd->bckd", rnd(ds), qt)
         dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
 
-    bk = 32 if hd == 256 else 64
+    bk = 32 if hd == 256 else 64           # the dq kernel's key tile
     qh = qf.reshape(B, Sq, Kh, G, hd)
     doh = dof.reshape(B, Sq, Kh, G, hd)
     l2 = lse2.reshape(B, Sq, Kh, G).permute(0, 2, 3, 1)[..., None]
@@ -149,10 +155,16 @@ def emulate_bwd_tc(q, k, v, o, lse, do, *, causal=True, window=0,
 
 # (B, Sq, Sk, H, Kh, hd): deepseek-like MHA at head dim 128 (Sq ragged in
 # 64-query tiles and the dq kernel's 128), recurrentgemma-like MQA at head
-# dim 256 (Sq < Sk, Sk ragged in 64-key tiles, four head splits)
+# dim 256 (Sq < Sk, Sk ragged in 64-key tiles, four head splits),
+# deepseek-v2-like MLA at head dim 192 (ragged in the shared 64-key tile)
 SHAPES = {"deepseek": (1, 224, 224, 4, 4, 128),
-          "recurrentgemma": (1, 160, 288, 4, 1, 256)}
+          "recurrentgemma": (1, 160, 288, 4, 1, 256),
+          "mla": (1, 160, 160, 4, 4, 192)}
+# MLA's v is zero-padded from 128 to 192 and its output sliced back, so
+# the output's gradient do is zero in those columns too
+V_HEAD = {"mla": 128}
 CASES = {"deepseek-causal": ("deepseek", dict(causal=True)),
+         "mla-causal": ("mla", dict(causal=True)),
          "deepseek-softcap": ("deepseek", dict(causal=True, softcap=20.0)),
          "recurrentgemma-window": ("recurrentgemma",
                                    dict(causal=True, window=96)),
@@ -160,12 +172,16 @@ CASES = {"deepseek-causal": ("deepseek", dict(causal=True)),
                                     dict(causal=True, softcap=20.0))}
 
 
-def _inputs(shape, seed):
-    """q, k, v, do as numpy fp32 arrays holding bf16 values."""
+def _inputs(shape, seed, v_head=None):
+    """q, k, v, do as numpy fp32 arrays holding bf16 values; v and do zero
+    past ``v_head`` columns when it is given (MLA)."""
     B, Sq, Sk, H, Kh, hd = shape
     rng = np.random.RandomState(seed)
     out = [rng.standard_normal(s).astype(np.float32) for s in
            ((B, Sq, H, hd), (B, Sk, Kh, hd), (B, Sk, Kh, hd), (B, Sq, H, hd))]
+    if v_head is not None:
+        out[2][..., v_head:] = 0.0
+        out[3][..., v_head:] = 0.0
     return [torch.from_numpy(a).bfloat16().float().numpy() for a in out]
 
 
@@ -186,11 +202,11 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _emulated(shape, variant, seed, rounding=True):
+def _emulated(shape, variant, seed, rounding=True, v_head=None):
     """The kernel path's inputs in bf16, the plain forward's o (bf16) and
     lse, and the emulated gradients (fp32)."""
     q, k, v, do = [torch.from_numpy(a).bfloat16()
-                   for a in _inputs(shape, seed)]
+                   for a in _inputs(shape, seed, v_head)]
     kw = {"causal": True, "window": 0, "softcap": 0.0, **variant}
     o, lse = fa.attention_fwd_lse_plain(q, k, v, **kw)
     return (q, k, v, o, lse, do, kw,
@@ -200,18 +216,23 @@ def _emulated(shape, variant, seed, rounding=True):
 @pytest.mark.parametrize("case", list(CASES))
 def test_tc_backward_numerics_within_sweep_limits_of_jax_flash_vjp(case):
     shape_name, variant = CASES[case]
-    shape = SHAPES[shape_name]
-    *_, got = _emulated(shape, variant, seed=21)
-    want = _jax_grads(*_inputs(shape, 21), variant)
+    shape, v_head = SHAPES[shape_name], V_HEAD.get(shape_name)
+    *_, got = _emulated(shape, variant, seed=21, v_head=v_head)
+    want = _jax_grads(*_inputs(shape, 21, v_head), variant)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g = g.bfloat16()                       # the kernels' one rounding
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), **TOL_BF16,
                                    err_msg=name)
         assert _rel(g, w) <= REL_L2_BF16, (name, _rel(g, w))
+    if v_head is not None:        # p^T.do over do's zero columns: exact 0
+        assert bool((got[2][..., v_head:] == 0).all())
+        assert bool((want[2][..., v_head:] == 0).all())
+        assert bool((got[2][..., :v_head] != 0).any())
 
 
-@pytest.mark.parametrize("case", ["deepseek-causal", "recurrentgemma-window"])
+@pytest.mark.parametrize("case", ["deepseek-causal", "recurrentgemma-window",
+                                  "mla-causal"])
 def test_p_and_ds_rounding_sits_inside_the_bf16_limits(case):
     """Rounding P and dS to bf16 moves the gradients by a few 1e-3
     (relative L2) from the fp32 plain backward on the same o and lse, well
@@ -219,7 +240,8 @@ def test_p_and_ds_rounding_sits_inside_the_bf16_limits(case):
     plain backward up to the order of its sums."""
     shape_name, variant = CASES[case]
     q, k, v, o, lse, do, kw, got = _emulated(SHAPES[shape_name], variant,
-                                             seed=23)
+                                             seed=23,
+                                             v_head=V_HEAD.get(shape_name))
     exact = emulate_bwd_tc(q, k, v, o, lse, do, rounding=False, **kw)
     f32 = [t.float() for t in (q, k, v)]
     want = fa.attention_bwd_plain(*f32, o.float(), lse, do.float(), **kw)

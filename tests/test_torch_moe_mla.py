@@ -14,10 +14,11 @@ and each element within 1e-4 of itself plus 2e-4 of the array's scale
 same experts (ties to the lower index, as ``jax.lax.top_k``), the same
 kept and dropped token copies. The port's combine sums each token's K
 expert outputs in top-k order where the reference adds them by scatter
-in expert order, inside that tolerance. The ``gpu`` tests hold the flash
-kernels at MLA's head dim 192 to their plain version on a card. JAX is
-imported inside the tests, so that a host without it (the card's) can
-collect this file.
+in expert order, inside that tolerance. One AdamW step of each model is
+held at ``test_torch_archs.py``'s train-step limits. The ``gpu`` tests
+hold the flash kernels at MLA's head dim 192, forward and backward, to
+their plain versions on a card. JAX is imported inside the tests, so that
+a host without it (the card's) can collect this file.
 """
 import copy
 import dataclasses
@@ -385,6 +386,53 @@ def test_decode_matches_forward(arch):
                                atol=2e-2)
 
 
+OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(arch):
+    """One AdamW step through ``LM.loss`` (ce plus the MoE aux loss) and
+    ``optim.adamw.make_train_step`` against the reference's jitted step,
+    with the limits of ``test_torch_archs.py::test_train_step_matches_jax``:
+    loss, ce, aux and grad_norm at 1e-4, every param within 2 * lr of
+    JAX's (at step 1 a gradient near 0 may take the other sign). The
+    gradients reach the router, the experts, the shared experts and, for
+    deepseek-v2, MLA's low-rank projections through the flash backward at
+    the smoke head dim (qk 16 + 8, v zero-padded from 16 to 24)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw
+    jlm, params, lm = _pair(arch)
+    tokens = _batch(lm.cfg, 6)
+    jstate = jadamw.init_state(params)
+    jstate, jm = jax.jit(jadamw.make_train_step(
+        jlm, jadamw.OptConfig(**OPT)))(jstate, {"tokens": jnp.asarray(tokens)})
+    state = adamw.init_state(lm)
+    before = {n: p.detach().clone() for n, p in state["params"].items()}
+    state, m = adamw.make_train_step(lm, adamw.OptConfig(**OPT))(
+        state, {"tokens": torch.from_numpy(tokens)})
+    assert int(state["step"]) == int(jstate["step"]) == 1
+    assert float(m["aux"]) > 0
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=TOL,
+                                   err_msg=key)
+    lr = float(jm["lr"])
+    want = dict(flatten_paths(jax.tree.map(np.asarray, jstate["params"])))
+    assert want.keys() == state["params"].keys()
+    for name, p in state["params"].items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name], rtol=0,
+                                   atol=2 * lr, err_msg=name)
+    moved = {n for n, p in state["params"].items()
+             if not torch.equal(p, before[n])}
+    leaves = ["decoder.core.0.mlp.router", "decoder.core.0.mlp.wi_gate",
+              "decoder.core.0.mlp.shared.wo", "head"]
+    leaves += (["decoder.head.0.mixer.wq_a", "decoder.head.0.mixer.wkv_a",
+                "decoder.head.0.mixer.wkv_b"] if lm.cfg.mla is not None
+               else ["decoder.head.0.mixer.wq", "decoder.head.0.mixer.wk"])
+    assert set(leaves) <= moved, set(leaves) - moved
+
+
 def _serve(eng, reqs, hand_off=None):
     """Submit in order as slots free up; step until every request is done.
     ``hand_off(eng)`` runs after the third step and returns the engine that
@@ -399,15 +447,19 @@ def _serve(eng, reqs, hand_off=None):
     return [r.out for r in reqs]
 
 
-def test_engine_streams_match_jax_engine_across_a_hand_off():
-    """deepseek-moe-16b's port engine against the JAX engine, slots (3) !=
-    n_periods (2): the same streams, and again with the state dumped to
-    host memory and restored into a fresh engine after the third step.
-    Idle slots route their tokens too, in both."""
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_streams_match_jax_engine_across_a_hand_off(arch):
+    """The port's engine against the JAX engine, slots (3) != n_periods
+    (2): the same streams, and again with the state dumped to host memory
+    and restored into a fresh engine after the third step. Idle slots
+    route their tokens too, in both. deepseek-moe-16b's cache holds k/v
+    rows, deepseek-v2's MLA layers compressed ``ckv``/``kpe`` rows."""
     from repro.serving.engine import Request as JaxRequest
     from repro.serving.engine import ServingEngine as JaxEngine
-    jlm, params, lm = _pair("deepseek-moe-16b")
+    jlm, params, lm = _pair(arch)
     assert lm.decoder.n_periods == 2
+    assert ("ckv" in lm.init_cache(1, 8)["layers"]["core"][0]) == \
+        (lm.cfg.mla is not None)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, 512, rng.randint(5, 14)).astype(np.int32)
                for _ in range(4)]
@@ -563,20 +615,54 @@ def test_cuda_forward_at_head_dim_192_matches_plain_version():
 
 
 @pytest.mark.gpu
-def test_cuda_backward_at_head_dim_192_raises():
-    """A flash call at head dim 192 that would need a backward raises on
-    the card before any launch, on both routes; it never hands back an
-    output without gradients. Without grad the forward runs."""
+def test_cuda_backward_at_head_dim_192_matches_plain_version():
+    """Both backward routes at head dim 192 against ``attention_bwd_plain``
+    on the card, through the FlashAttention Function (the forward kernel
+    with its log-sum-exp, then the backward kernels): bf16 on the
+    tensor-core kernels (one shared 64-key tile), fp32 on the FMA ones;
+    causal MHA with v and the output's gradient zero-padded from 128 as
+    MLA gives them (dv's padded columns come out exactly 0), ragged S, GQA
+    with a head split and the other masks; each case's route counted by
+    its own counter. Limits of chip_smoke.py's ``sweep-bwd``: 2e-2 (bf16)
+    or 2e-5 (fp32) elementwise and a relative L2 error of 1e-2 or
+    1e-5."""
     _cuda()
+    tol = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 1e-5)}
+    cases = [((1, S_, S_, 8, 8), dict(causal=True), True)
+             for S_ in (128, 333)]
+    cases += [((2, 77, 77, 4, 2), dict(causal=False), False),
+              ((1, 100, 333, 8, 2), dict(causal=True, window=111), False),
+              ((1, 128, 128, 4, 4), dict(causal=True, softcap=20.0), False)]
+    g = torch.Generator(device="cuda").manual_seed(1)
     for dt in (torch.bfloat16, torch.float32):
-        q = torch.randn((1, 64, 2, 192), device="cuda").to(dt)
-        k, v = q.clone(), q.clone()
-        before = fa.launches
-        for t in (q, k, v):
-            t.requires_grad_(True)
-            with pytest.raises(NotImplementedError, match="head dim 192"):
-                fa.flash_attention(q, k, v)
-            t.requires_grad_(False)
-        assert fa.launches == before
-        assert fa.flash_attention(q, k, v).shape == q.shape
-        assert fa.launches == before + 1
+        for (B_, Sq, Sk, H, Kh), kw, pad in cases:
+            q = torch.randn((B_, Sq, H, 192), generator=g, device="cuda")
+            k = torch.randn((B_, Sk, Kh, 192), generator=g, device="cuda")
+            v = torch.randn((B_, Sk, Kh, 192), generator=g, device="cuda")
+            do = torch.randn((B_, Sq, H, 192), generator=g, device="cuda")
+            if pad:
+                v[..., 128:] = 0.0
+                do[..., 128:] = 0.0
+            q, k, v, do = q.to(dt), k.to(dt), v.to(dt), do.to(dt)
+            route = fa.bwd_kernel_for(dt, 192)
+            assert route == ("tc" if dt == torch.bfloat16 else "fma")
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            before = (fa.launches_bwd_tc, fa.launches_bwd_fma)
+            out = fa.flash_attention(*leaves, **kw)
+            got = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            assert (fa.launches_bwd_tc - before[0],
+                    fa.launches_bwd_fma - before[1]) == \
+                ((1, 0) if route == "tc" else (0, 1))
+            o, lse = fa.attention_fwd_lse_plain(q, k, v, **kw)
+            want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            elem, rel_l2 = tol[dt]
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                np.testing.assert_allclose(
+                    a.float().cpu().numpy(), b.float().cpu().numpy(),
+                    rtol=elem, atol=elem, err_msg=f"{name} {dt} {Sq} {kw}")
+                rel = ((a.float() - b.float()).norm() /
+                       b.float().norm()).item()
+                assert rel <= rel_l2, (name, dt, Sq, kw, rel)
+            if pad:
+                assert bool((got[2][..., 128:] == 0).all())

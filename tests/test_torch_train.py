@@ -10,6 +10,8 @@ take the other sign in the other framework and move its weight by up to
 ``2 * lr`` the other way. JAX is imported inside the tests, so that a host
 without it (the card's) can collect this file.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from repro_torch.bridge import load_jax_numpy, load_jax_opt_state
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.layers import flatten_paths
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw
 
@@ -137,7 +140,8 @@ def test_resume_from_jax_opt_state():
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b",
-                                  "recurrentgemma-9b", "gemma3-1b"])
+                                  "recurrentgemma-9b", "gemma3-1b",
+                                  "deepseek-moe-16b", "deepseek-v2-236b"])
 def test_smoke_train_step(arch):
     """tests/test_archs.py::test_smoke_train_step for the ported layer
     kinds: one step, finite loss, step 1, params moved."""
@@ -155,7 +159,8 @@ def test_smoke_train_step(arch):
 
 
 @pytest.mark.parametrize("remat", ["full", "dots_saveable"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "recurrentgemma-9b",
+                                  "deepseek-moe-16b", "deepseek-v2-236b"])
 def test_remat_gives_the_gradients_of_none(arch, remat):
     cfg = get_smoke_config(arch)
     tok = torch.from_numpy(_batch(2, S=48, vocab=cfg.vocab_size))
@@ -166,6 +171,44 @@ def test_remat_gives_the_gradients_of_none(arch, remat):
         grads[r] = {n: p.grad for n, p in lm.named_parameters()}
     for n, g in grads["none"].items():
         torch.testing.assert_close(grads[remat][n], g, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+def test_moe_backward_is_the_same_bit_for_bit(cf):
+    """Two backwards of ``moe_apply`` from one input and one set of weights
+    give the same gradients bit for bit, at a capacity factor that drops
+    copies (1.25, on tokens crowded onto few experts) and at one that
+    drops none. Each token's K copies reach the experts through a
+    permutation of the broadcast input, so the input's gradient sums over
+    K by a reduction, not by an accumulating index write. The CPU sums
+    either way in one order, so this pins the property on the CPU path
+    only; on the card, chip_smoke.py's two steps from one state are its
+    witness."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import init_params, tree_map
+    cfg = get_smoke_config("deepseek-moe-16b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    params = init_params(MOE.moe_def(cfg),
+                         torch.Generator().manual_seed(0), torch.float32,
+                         "cpu")
+    rng = np.random.RandomState(7)
+    common = rng.standard_normal(cfg.d_model)
+    x0 = rng.standard_normal((2, 48, cfg.d_model)) + \
+        3 * common / np.linalg.norm(common)
+    runs = []
+    for _ in range(2):
+        p = tree_map(lambda t: t.clone().requires_grad_(), params)
+        x = torch.tensor(x0, dtype=torch.float32, requires_grad=True)
+        y, aux = MOE.moe_apply(cfg, p, x)
+        (y.square().mean() + aux).backward()
+        leaves = [x.grad] + [t.grad for t in
+                             dict(flatten_paths(p)).values()]
+        runs.append((y.detach(), leaves))
+    (y1, g1), (y2, g2) = runs
+    assert torch.equal(y1, y2)
+    assert len(g1) == len(g2) > 1 and all(torch.equal(a, b)
+                                          for a, b in zip(g1, g2))
+    assert float(g1[0].abs().max()) > 0
 
 
 @pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2)])
@@ -385,3 +428,29 @@ def test_scan_function_with_one_output_used():
     assert got[4] is None and want[4] is None     # C reaches y only
     for g, w in zip(got[:4], want[:4]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("path", ["train", "train-moe", "train-mla"])
+def test_chip_smoke_gradient_leaves_exist_at_each_depth(path):
+    """Each gradient leaf that chip_smoke.py's train path gates names a
+    parameter of its arch at the path's depth, and of the fp32 twin at the
+    twin's depth, with an index that picks one matrix; the card run raises
+    on a missing one. The smoke configs keep the reference's layer layout
+    (the dense first layer of the MoE archs), so the paths are the card's."""
+    import importlib.util
+    from pathlib import Path
+    spec_ = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(chip_smoke)
+    spec = chip_smoke.TRAIN_PATHS[path]
+    assert set(spec["leaves"]) == set(spec["twin_leaves"])
+    assert set(spec["bf16_gated"]) <= set(spec["leaves"])
+    for layers, leaves in ((spec["layers"], spec["leaves"]),
+                           (spec["twin_layers"], spec["twin_leaves"])):
+        cfg = get_smoke_config(spec["arch"]).replace(num_layers=layers)
+        params = dict(LM(cfg, device="cpu").named_parameters())
+        for label, (name, i) in leaves.items():
+            assert name in params, (layers, label, name)
+            leaf = params[name] if i is None else params[name][i]
+            assert leaf.dim() == 2, (layers, label, name, leaf.shape)
