@@ -150,6 +150,28 @@ Phases, in order (any failure exits non-zero and prints no result line):
              at 1), each also taking two steps from one state (the seeded
              initial state, built twice) that must agree bit for bit on
              every leaf of params, m and v (64-bit digests on the card).
+             Then the scan models, each through its scan kernel's forward
+             (2 x its scan layers a step, SSD on ``tc``; backward by plain
+             recompute, timed on its own), with its scan's witness (the
+             plain scan in other chunks, or in pieces carried through h0)
+             and control (the carry dropped) in the step-1 gate:
+             ``train-mamba`` (mamba2-2.7b at its full 64 layers, 2.703 B
+             params, fp32 twin at 2) and ``train-rg`` (recurrentgemma-9b at
+             3 of its (rec, rec, local) periods, 9 layers, 2.829 B params,
+             the windowed flash kernels too; fp32 twin one period).
+    dist   — ``dist-train``: a world-1 NCCL process group in this process
+             and the ("data", "model") = (1, 1) mesh; deepseek-moe-16b at
+             full width and 4 layers takes 3 AdamW steps through the
+             mesh-aware ``make_train_step`` from a state placed by
+             ``remesh_state(state, logical, None, mesh)``, every leaf of
+             params, m and v bit-equal to the same steps without a mesh
+             (64-bit digests), ms per step and peak beside the unsharded
+             steps'. ``dist-ep``: four spawned processes share the card
+             through gloo on a (1, 4) mesh; deepseek-moe-16b's MoE layer
+             at full width over 2048 tokens through ``moe._moe_ep``
+             against the local path (y, aux, every gradient; fp32), the
+             share of routings that differ and, in bf16 at capacity
+             factor 1.25, of copies dropped, and gloo's host-staged times.
  9. ckpt   — deepseek-7b's training state at full width and 2 layers
              ({step, params, m, v}: 1.24 B params, 14.92 GB in 37 leaves),
              batches from the port's TokenPipeline: 2 AdamW steps, an
@@ -172,6 +194,7 @@ The line before the last holds the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -2014,11 +2037,48 @@ MLA_GRAD_REL_L2_BF16 = 3e-2
 # (on an H100)
 MOE_GRAD_REL_L2_BF16 = 0.6
 MOE_GRAD_NORM_REL_BF16 = 0.3
+# the scan models: mamba2-2.7b's layers are all SSD (a stacked core of 64
+# periods, the twin's of 2), recurrentgemma-9b's (rec, rec, local)
+# periods (a stacked core of 3 at 9 layers; the twin's one period is
+# unstacked, in the tail). Each leaf is one matrix; tied embeddings: the
+# embedding's gradient carries the head's
+SCAN_GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.0.mixer.{w}", i)
+                    for at, i in (("l0", 0), ("last", -1))
+                    for w in ("in_proj", "out_proj")}
+SCAN_GRAD_LEAVES["embed"] = ("embed", None)
+RG_GRAD_LEAVES = {f"l{j}.{w}": (f"decoder.core.{j}.mixer.{w}", 0)
+                  for j, ws in ((0, ("wx", "wg", "wo")), (2, ("wq", "wk")))
+                  for w in ws}
+RG_GRAD_LEAVES["embed"] = ("embed", None)
+RG_TWIN_LEAVES = {k: (p.replace("core", "tail"), None)
+                  for k, (p, _) in RG_GRAD_LEAVES.items() if k != "embed"}
+RG_TWIN_LEAVES["embed"] = ("embed", None)
+# the leaves that feed a scan: their control is the scan that drops its
+# carry (the attention controls leave them nearly alone)
+SCAN_FED = (".in_proj", ".out_proj", ".wx", ".wg", ".wo", "embed")
+# the scan paths' limits (on an H100). The fp32 twins' grad_norm: the
+# witnesses read at most 1.2e-5 (mamba2's plain SSD in 64-row chunks) and
+# 1.5e-8 (recurrentgemma's), the kernels 2.9e-5 and 1.8e-8, the dropped
+# carry 0.078 and 0.038; their leaves keep GRAD_REL_L2_FP32 (the kernels at
+# most 4.9e-4, the witnesses 4.3e-4, the controls 0.36 and more)
+SCAN_NORM_REL = 1e-2
+# the bf16 models: no code keeps a digit of any leaf's gradient (0.79 to
+# 1.50, the plain code's own witnesses aside), so no leaf is gated.
+# recurrentgemma-9b's grad_norm (9 layers): the witnesses read 4.3e-5
+# (scan pieces) to 0.066 (SDPA), the kernel 0.070, the dropped carry 0.92;
+# against the fp32 code's, the correct codes 0.086-0.185, the control 0.93
+RG_NORM_REL_BF16 = 0.3
+# mamba2-2.7b's grad_norm (64 layers, 95% of it the embedding's) cannot
+# tell the dropped carry (6.4e-3) from the kernel (0.014): its loss can,
+# the witness 2.0e-4, the kernel 1.4e-4, the dropped carry 1.6e-3
+SCAN_LOSS_REL_BF16 = 5e-4
 # the train paths, run in this order: arch, depth, the fp32 twin's depth
 # (routing is discontinuous, so the MoE twins are cut to their first MoE
 # layer), the gradient leaves of the model and of the twin (the same
 # labels), the limits of the twin's grad_norm, the bf16 model's gated
-# leaves and its limits
+# leaves and its limits (grad_norm's None where it cannot tell the control;
+# then a limit of the loss, ``bf16_loss``), and the scan (``scan``) whose
+# witness and control join the gates
 TRAIN_PATHS = {
     "train": dict(arch=TRAIN_ARCH, label=TRAIN_LABEL, layers=TRAIN_LAYERS,
                   twin_layers=TRAIN_TWIN_LAYERS, leaves=GRAD_LEAVES,
@@ -2043,6 +2103,24 @@ TRAIN_PATHS = {
                       bf16_gated=tuple(MLA_GRAD_LEAVES),
                       grad_bf16=MLA_GRAD_REL_L2_BF16,
                       bf16_norm=(MOE_NORM_REL, "drops_delta")),
+    # mamba2-2.7b at full depth: 64 layers, 2.703 B params, 40.3 GiB at 16
+    # B/param; the SSD forward on the kernels, its backward by plain
+    # recompute
+    "train-mamba": dict(arch="mamba2-2.7b", label="train-mamba", layers=64,
+                        twin_layers=2, leaves=SCAN_GRAD_LEAVES,
+                        twin_leaves=SCAN_GRAD_LEAVES, scan="ssd",
+                        twin_norm=(SCAN_NORM_REL, "drops_carry"),
+                        bf16_gated=(), grad_bf16=None, bf16_norm=None,
+                        bf16_loss=(SCAN_LOSS_REL_BF16, "drops_carry")),
+    # recurrentgemma-9b: 3 of its 12 (rec, rec, local) periods, 9 layers,
+    # 2.829 B params, 42.2 GiB; 4 periods would take 51.1 GiB, beside a
+    # 256000-wide head whose fp32 logits and gradient take 2 GiB each
+    "train-rg": dict(arch="recurrentgemma-9b", label="train-rg", layers=9,
+                     twin_layers=3, leaves=RG_GRAD_LEAVES,
+                     twin_leaves=RG_TWIN_LEAVES, scan="rglru",
+                     twin_norm=(SCAN_NORM_REL, "drops_carry"),
+                     bf16_gated=(), grad_bf16=None,
+                     bf16_norm=(RG_NORM_REL_BF16, "drops_carry")),
 }
 
 
@@ -2147,13 +2225,16 @@ def pinned_routing(record):
     assert not todo, f"{len(todo)} recorded routings not replayed"
 
 
-def _train_gate(lm, batch, leaves):
+def _train_gate(lm, batch, leaves, scan=None):
     """Step 1 through the kernels (``impl=None``) and through the plain
     code, beside witnesses (the plain code in 64-row chunks; the plain
     flash VJP, delta from the rounded output; SDPA in bf16) and controls
     (a backward that drops delta; an off-by-one causal mask): relative
     errors of loss, grad_norm and each leaf's gradient against the plain
-    code's. A model with MoE layers replays the plain run's routing in
+    code's. A model with a ``scan`` (``"ssd"``, ``"rglru"``) adds its
+    scan's witness (``SCAN_CHECKS``: the plain scan in other chunks, or
+    in pieces carried through h0) and control (the carry dropped,
+    ``drops_carry``); one without attention layers runs only those. A model with MoE layers replays the plain run's routing in
     every other run (``pinned_routing``): routing is discontinuous, and in
     bf16 a correct attention code otherwise moves copies to other experts,
     which moves the gradients as far as a fault does (PERF.md). The bf16
@@ -2172,17 +2253,25 @@ def _train_gate(lm, batch, leaves):
     with pin():
         ref_loss, ref_gn, ref, ref_sq = _step1_grads(lm, batch, "plain",
                                                      leaves)
-    runs = {"kernel": None,
+    attn = any(k in ("attn", "local", "mla") for k in lm.cfg.layer_kinds)
+    runs = {"kernel": None}
+    if attn:
+        runs.update({
             "witness_chunks": plain_attention_as(_plain_small_chunks),
             "witness_flash_vjp": plain_attention_as(_plain_flash_vjp),
             "control_drops_delta": plain_attention_as(_plain_drops_delta),
             "control_drops_diagonal": plain_attention_as(
-                _plain_drops_diagonal)}
+                _plain_drops_diagonal)})
+    if scan is not None:
+        witness, control = SCAN_CHECKS[scan]
+        runs.update({"witness_scan": plain_scan_as(scan, witness),
+                     "control_drops_carry": plain_scan_as(scan, control)})
     out = {"plain_loss": ref_loss, "plain_grad_norm": ref_gn,
            "routings_pinned": len(record)}
     f32, sqs = None, {"plain": ref_sq}
-    if lm.compute_dtype != lm.param_dtype:         # the bf16 model
+    if lm.compute_dtype != lm.param_dtype and attn:   # the bf16 model
         runs["witness_sdpa"] = plain_attention_as(_sdpa_witness)
+    if lm.compute_dtype != lm.param_dtype:
         dt, lm.compute_dtype = lm.compute_dtype, lm.param_dtype
         try:
             with pin():
@@ -2231,27 +2320,36 @@ def _norm_by_leaf(f32_sq, sqs):
                    for run, sq in sqs.items()}} for n in keep}
 
 
-def _assert_train_gate(out, grad_limit, norm, leaves):
+def _leaf_control(n):
+    """A gated leaf's control: the dropped delta when its gradient comes
+    only through ds (``DS_ONLY``: q's projections, k's alone), the dropped
+    scan carry for a leaf that feeds a scan (``SCAN_FED``; an attention
+    layer's q/k aside), the off-by-one mask for the rest (delta does not
+    reach the head, nor a v projection)."""
+    if n.endswith(DS_ONLY):
+        return "drops_delta"
+    return "drops_carry" if n.endswith(SCAN_FED) else "drops_diagonal"
+
+
+def _assert_train_gate(out, grad_limit, norm, leaves, loss=None):
     """The kernel's loss within TRAIN_REL of the plain code's. For the
-    grad_norm (at ``norm = (limit, control)``) and each leaf of ``leaves``
-    (at ``grad_limit``): every witness under the limit, the control over
-    it, the kernel under it; the bf16 model's grad_norm likewise against
-    the fp32 code's (``fp32_*``). A leaf's control is the dropped delta
-    when its gradient comes only through ds (``DS_ONLY``: q's projections,
-    k's alone), the off-by-one mask for the rest (delta does not reach the
-    head, nor a v projection)."""
+    grad_norm (at ``norm = (limit, control)``, unless None), each leaf of
+    ``leaves`` (at ``grad_limit``) and the loss (at ``loss``, a (limit,
+    control) pair, if given): every witness under the limit, the control
+    over it, the kernel under it; the bf16 model's grad_norm likewise
+    against the fp32 code's (``fp32_*``). Each leaf's control:
+    ``_leaf_control``."""
     assert out["kernel_loss_rel"] <= TRAIN_REL, out
-    checks = [("grad_norm_rel", *norm)] + [
-        (f"{n}_rel_l2", grad_limit,
-         "drops_delta" if n.endswith(DS_ONLY) else "drops_diagonal")
-        for n in leaves]
+    checks = ([("grad_norm_rel", *norm)] if norm else []) + [
+        (f"{n}_rel_l2", grad_limit, _leaf_control(n)) for n in leaves] + (
+        [("loss_rel", *loss)] if loss else [])
     for suffix, limit, control in checks:
         for key in out:
             if key.startswith("witness") and key.endswith(suffix):
                 assert out[key] <= limit, (key, limit, out)
         assert out[f"control_{control}_{suffix}"] > limit, (suffix, out)
         assert out[f"kernel_{suffix}"] <= limit, (suffix, limit, out)
-    if "fp32_grad_norm" in out:
+    if "fp32_grad_norm" in out and norm:
         # the bf16 model's grad_norm against the fp32 code's, at the same
         # limit: every correct bf16 code under it (the plain one too), the
         # control over it
@@ -2261,6 +2359,66 @@ def _assert_train_gate(out, grad_limit, norm, leaves):
                     and not key.startswith("fp32_control_"):
                 assert val <= limit, (key, limit, out)
         assert out[f"fp32_control_{control}_grad_norm_rel"] > limit, out
+
+
+def _flash_layers(cfg):
+    """The layers whose mixer runs the flash kernels."""
+    return sum(k in ("attn", "local", "mla") for k in cfg.layer_kinds)
+
+
+def _scan_bwd_times(lm, scan):
+    """The scan's Function at the model's width, B=1, S=TRAIN_S, bf16
+    seeded inputs: ms of its forward (the kernel) and of forward plus
+    backward (the plain version recomputed under autograd), CUDA events,
+    the median of 3 after a warm-up. -> {fwd_ms, fwd_bwd_ms, bwd_ms}."""
+    import torch
+    from repro_torch.kernels import rglru, ssd
+    cfg, dt = lm.cfg, torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale) \
+            .to(dt).requires_grad_()
+    if scan == "ssd":
+        sc = cfg.ssm
+        P = sc.head_dim
+        H = sc.expand * cfg.d_model // P
+        G, N = sc.ngroups, sc.d_state
+        dt = torch.rand((1, TRAIN_S, H), generator=g, device=DEVICE) * 0.1
+        args = (rnd(1, TRAIN_S, H, P), dt.requires_grad_(),
+                torch.zeros(H, device=DEVICE), rnd(1, TRAIN_S, G, N),
+                rnd(1, TRAIN_S, G, N))
+        fn = functools.partial(ssd.ssd_scan, D=torch.ones(H, device=DEVICE),
+                               chunk=sc.chunk_size)
+    else:
+        D = cfg.rnn_width or cfg.d_model
+        args = (rnd(1, TRAIN_S, D), torch.zeros(D, device=DEVICE),
+                rnd(1, TRAIN_S, D), rnd(1, TRAIN_S, D))
+        fn = functools.partial(rglru.rglru_scan, c=cfg.rglru_c)
+
+    def fwd():
+        with torch.no_grad():
+            fn(*args)
+
+    def fwd_bwd():
+        y, _ = fn(*args)
+        y.float().sum().backward()
+
+    out = {}
+    for key, f in (("fwd_ms", fwd), ("fwd_bwd_ms", fwd_bwd)):
+        f()
+        ts = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            f()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        out[key] = sorted(ts)[1]
+    out["bwd_ms"] = out["fwd_bwd_ms"] - out["fwd_ms"]
+    return out
 
 
 def _train_lm(layers, dtype, arch=TRAIN_ARCH):
@@ -2304,11 +2462,12 @@ def digest(t):
 
 
 def state_digests(state):
-    """Digests of every leaf of a train state's params, m and v, and its
-    step."""
+    """Digests of every leaf of a train state's params, m and v (a
+    DTensor's local shard), and its step."""
     out = {"step": int(state["step"])}
     for part in ("params", "m", "v"):
-        out.update({f"{part}.{n}": digest(t) for n, t in state[part].items()})
+        out.update({f"{part}.{n}": digest(getattr(t, "to_local", lambda: t)())
+                    for n, t in state[part].items()})
     return out
 
 
@@ -2370,9 +2529,11 @@ def phase_train(name="train"):
     arch, layers, leaves = spec["arch"], spec["layers"], spec["leaves"]
     out = {"arch": arch, "layers": layers, "seq": TRAIN_S, "batch": 1}
 
+    scan = spec.get("scan")
     lm, batch = _train_lm(spec["twin_layers"], "float32", arch)
+    twin_attn = _flash_layers(lm.cfg)
     reset_kernel_counts()
-    twin = _train_gate(lm, batch, spec["twin_leaves"])
+    twin = _train_gate(lm, batch, spec["twin_leaves"], scan)
     twin_bwd = bwd_counts()
     del lm
     gc.collect()
@@ -2382,8 +2543,9 @@ def phase_train(name="train"):
 
     lm, batch = _train_lm(layers, "bfloat16", arch)
     n_params = sum(p.numel() for p in lm.parameters())
+    n_attn = _flash_layers(lm.cfg)
     reset_kernel_counts()
-    gate = _train_gate(lm, batch, leaves)
+    gate = _train_gate(lm, batch, leaves, scan)
     gate_bwd = bwd_counts()
     log(f"{name}: {arch} at full width, {layers} layers, "
         f"{n_params / 1e9:.3f} B params; bf16 step 1, relative to the plain "
@@ -2406,30 +2568,14 @@ def phase_train(name="train"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    steps = []
-    for i in range(TRAIN_STEPS):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        e0.record()
-        state, met = step(state, batch)
-        e1.record()
-        torch.cuda.synchronize()
-        steps.append(dict(step=int(state["step"]), loss=met["loss"].item(),
-                          grad_norm=met["grad_norm"].item(),
-                          aux=met["aux"].item(),
-                          lr=met["lr"].item(), ms=e0.elapsed_time(e1),
-                          host_ms=(time.perf_counter() - h0) * 1e3))
-        log(f"{name}: step {steps[-1]['step']}: loss "
-            f"{steps[-1]['loss']:.6f} (aux {steps[-1]['aux']:.6f}), "
-            f"grad_norm {steps[-1]['grad_norm']:.6f}, lr "
-            f"{steps[-1]['lr']:.3e}, {steps[-1]['ms']:.3f} ms (CUDA events; "
-            f"host clock {steps[-1]['host_ms']:.3f} ms)")
-        if i == 0:                      # outside the timed steps
-            digests.append(state_digests(state))
+    state, steps = _timed_steps(name, step, state, batch, 1)
+    digests.append(state_digests(state))    # outside the timed steps
+    state, more = _timed_steps(name, step, state, batch, TRAIN_STEPS - 1)
+    steps += more
     launches = kernel_counts()
     flash = flash_counts()
     flash_bwd = bwd_counts()
+    ssd_kernels = ssd_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     unseen_losses.append(unseen_loss())    # after the counts are read
     log(f"{name}: loss on a second seeded batch, not trained on: "
@@ -2438,12 +2584,22 @@ def phase_train(name="train"):
     # one more step under the profiler, after the counts are read
     prof = log_profile(f"{name}: profiled step 4", profiled(
         lambda: step(state, batch), top_n=12))
-    want_fwd = TRAIN_STEPS * 2 * layers
-    want_bwd = TRAIN_STEPS * layers
+    # remat runs each layer's forward twice a step, its kernel with it
+    want = {"flash_attention_fwd": TRAIN_STEPS * 2 * n_attn,
+            "flash_attention_bwd": TRAIN_STEPS * n_attn,
+            "ssd_scan": TRAIN_STEPS * 2 * lm.cfg.layer_kinds.count("ssm"),
+            "rglru_scan": TRAIN_STEPS * 2 * lm.cfg.layer_kinds.count("rec")}
+    want_fwd, want_bwd = want["flash_attention_fwd"], \
+        want["flash_attention_bwd"]
     ms = [r["ms"] for r in steps[1:]]
+    if scan is not None:
+        out["scan_bwd"] = _scan_bwd_times(lm, scan)
+        log(f"{name}: the {scan} Function at the model's width, forward "
+            f"and its plain-recompute backward {json.dumps(out['scan_bwd'])}")
     out.update(n_params=n_params, steps=steps, launches=launches,
                flash_launches_by_kernel=flash,
                flash_bwd_launches_by_route=flash_bwd,
+               ssd_launches_by_kernel=ssd_kernels,
                gate_bwd_launches_by_route={"twin_fp32": twin_bwd,
                                            "bf16": gate_bwd},
                peak_allocated_gib=peak,
@@ -2482,19 +2638,407 @@ def phase_train(name="train"):
     torch.cuda.empty_cache()
     assert steps[-1]["loss"] < steps[0]["loss"], steps
     assert all(torch.isfinite(torch.tensor(r["loss"])) for r in steps)
-    assert launches["flash_attention_fwd"] == want_fwd, launches
+    assert launches == want, (launches, want)
     assert flash == {"tc": want_fwd, "fma": 0}, flash
-    assert launches["flash_attention_bwd"] == want_bwd, launches
     assert flash_bwd == {"tc": want_bwd, "fma": 0}, flash_bwd
-    assert twin_bwd == {"tc": 0, "fma": spec["twin_layers"]}, twin_bwd
-    assert gate_bwd == {"tc": layers, "fma": 0}, gate_bwd
-    assert launches["ssd_scan"] == launches["rglru_scan"] == 0, launches
+    assert ssd_kernels == {"tc": want["ssd_scan"], "fma": 0}, ssd_kernels
+    assert twin_bwd == {"tc": 0, "fma": twin_attn}, twin_bwd
+    assert gate_bwd == {"tc": n_attn, "fma": 0}, gate_bwd
     assert peak <= TRAIN_PEAK_GIB, peak
     assert bit_equal["initial_equal"] and bit_equal["control_caught"] \
         and not bit_equal["n_differing"], bit_equal
     _assert_train_gate(twin, GRAD_REL_L2_FP32, spec["twin_norm"], leaves)
     _assert_train_gate(gate, spec["grad_bf16"], spec["bf16_norm"],
-                       spec["bf16_gated"])
+                       spec["bf16_gated"], spec.get("bf16_loss"))
+    return out
+
+
+# dist-train: deepseek-moe-16b at full width on a world-1 ("data",
+# "model") = (1, 1) mesh, 4 layers (1 dense + 3 MoE): 2.267 B params, 33.8
+# GiB of state at 16 B/param, 8.4 GiB more if the gather to the LM's
+# compute tensors copied at world 1 (it aliases the state's storage)
+DIST_ARCH, DIST_LAYERS = "deepseek-moe-16b", 4
+DIST_TIMEOUT_S = 300     # a collective's longest wait; a spawned rank's join
+# dist-ep: four processes share the card through gloo, a (1, 4) mesh, one
+# MoE layer of deepseek-moe-16b at full width over 2048 seeded tokens
+DIST_EP_WORLD, DIST_EP_TOKENS = 4, 2048
+DIST_EP_REL_L2 = 1e-5    # fp32, no drops: EP against the local path
+# fp32 at a capacity factor where EP drops copies at both of its capacities
+# (C_send and C_loc): the card's EP against the same EP on CPU copies
+DIST_EP_LOW_CF = 0.5
+DROP_KEYS = ("copies", "dropped_send", "dropped")
+
+
+@contextmanager
+def process_group(backend):
+    """A world-1 process group in this process, its rendezvous a file
+    under build/, a collective's wait bounded by DIST_TIMEOUT_S."""
+    import datetime
+    import os
+    import torch.distributed as dist
+    path = ROOT / "build" / f"pg_{backend}_{os.getpid()}"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    dist.init_process_group(
+        backend, init_method=f"file://{path}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+
+
+def _timed_steps(name, step, state, batch, n=TRAIN_STEPS):
+    """``n`` steps of ``step`` -> (state, one record a step: loss, aux,
+    grad_norm, lr, ms by CUDA events and by the host clock)."""
+    import torch
+    rows = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        state, met = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        rows.append(dict(step=int(state["step"]), loss=met["loss"].item(),
+                         grad_norm=met["grad_norm"].item(),
+                         aux=met["aux"].item(),
+                         lr=met["lr"].item(), ms=e0.elapsed_time(e1),
+                         host_ms=(time.perf_counter() - h0) * 1e3))
+        r = rows[-1]
+        log(f"{name}: step {r['step']}: loss {r['loss']:.6f} (aux "
+            f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.6f}, lr "
+            f"{r['lr']:.3e}, {r['ms']:.3f} ms (CUDA events; host clock "
+            f"{r['host_ms']:.3f} ms)")
+    return state, rows
+
+
+def phase_dist_train():
+    """The train step on a mesh at world size 1: deepseek-moe-16b at full
+    width and DIST_LAYERS layers (fp32 params, bf16 compute, full remat),
+    B=1, S=TRAIN_S. TRAIN_STEPS AdamW steps without a mesh from the seeded
+    state; then, from the same state built again, a world-1 NCCL process
+    group, the ("data", "model") = (1, 1) mesh, ``remesh_state(state,
+    logical, None, mesh)`` and the same steps through the mesh-aware
+    ``make_train_step`` under ``partition.activate(mesh)``, the counts set
+    to 0 just before. Every leaf of params, m and v after the steps must
+    equal the unsharded run's bit for bit (64-bit digests), the losses
+    too; every flash launch on ``tc``. Reports ms per step and the peak
+    of both runs, and whether the LM's compute tensors alias the state's
+    storage."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import remesh_state
+    from repro_torch.sharding import partition as part
+    opt = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    out = {"arch": DIST_ARCH, "layers": DIST_LAYERS, "seq": TRAIN_S,
+           "batch": 1, "mesh": [1, 1]}
+
+    lm, batch = _train_lm(DIST_LAYERS, "bfloat16", DIST_ARCH)
+    out["n_params"] = sum(p.numel() for p in lm.parameters())
+    state = adamw.init_state(lm)
+    initial = state_digests(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, plain = _timed_steps("dist-train: unsharded", adamw.make_train_step(
+        lm, opt), state, batch)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    want = state_digests(state)
+    del state, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with process_group("nccl" if DEVICE == "cuda" else "gloo"):
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEVICE)
+        lm, batch = _train_lm(DIST_LAYERS, "bfloat16", DIST_ARCH)
+        with part.activate(mesh):
+            state = remesh_state(adamw.init_state(lm),
+                                 adamw.state_logical(lm), None, mesh)
+            again = state_digests(state)
+            step = adamw.make_train_step(lm, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_counts()
+            state, meshed = _timed_steps("dist-train: on the mesh", step,
+                                         state, batch)
+            launches = kernel_counts()
+            flash, flash_bwd = flash_counts(), bwd_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            aliased = all(
+                p.data_ptr() == state["params"][n].to_local().data_ptr()
+                for n, p in lm.named_parameters())
+            got = state_digests(state)
+        del state, step, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    differ = [k for k, d in want.items() if got[k] != d]
+    ms = [r["ms"] for r in meshed[1:]]
+    ms_plain = [r["ms"] for r in plain[1:]]
+    out.update(unsharded_steps=plain, mesh_steps=meshed,
+               ms_per_step=sum(ms) / len(ms),
+               unsharded_ms_per_step=sum(ms_plain) / len(ms_plain),
+               peak_allocated_gib=peak,
+               unsharded_peak_allocated_gib=plain_peak,
+               compute_tensors_alias_state=aliased, launches=launches,
+               flash_launches_by_kernel=flash,
+               flash_bwd_launches_by_route=flash_bwd,
+               bit_equal=dict(leaves=len(want) - 1, n_differing=len(differ),
+                              differing=differ[:10],
+                              initial_equal=initial == again))
+    log(f"dist-train: {DIST_ARCH} at {DIST_LAYERS} layers, "
+        f"{out['n_params'] / 1e9:.3f} B params: {out['ms_per_step']:.3f} ms "
+        f"per step on the (1, 1) mesh against "
+        f"{out['unsharded_ms_per_step']:.3f} unsharded (steps 2-3, CUDA "
+        f"events); peak {peak:.2f} GiB against "
+        f"{plain_peak:.2f}; compute tensors alias the state: {aliased}; "
+        f"launches {json.dumps(launches)}, flash by kernel "
+        f"{json.dumps(flash)}, backward by route {json.dumps(flash_bwd)}; "
+        f"every leaf against the unsharded run: "
+        f"{json.dumps(out['bit_equal'])}")
+    n_fwd, n_bwd = TRAIN_STEPS * 2 * DIST_LAYERS, TRAIN_STEPS * DIST_LAYERS
+    assert out["bit_equal"]["initial_equal"] and not differ, out["bit_equal"]
+    assert [r["loss"] for r in meshed] == [r["loss"] for r in plain]
+    assert flash == {"tc": n_fwd, "fma": 0}, flash
+    assert flash_bwd == {"tc": n_bwd, "fma": 0}, flash_bwd
+    assert launches["flash_attention_fwd"] == n_fwd, launches
+    assert peak <= TRAIN_PEAK_GIB, peak
+    return out
+
+
+def _dist_ep_rank(rank, world, device, base, T):
+    """One of DIST_EP_WORLD ranks sharing the card through gloo: one MoE
+    layer of deepseek-moe-16b at full width on a (1, world) mesh.
+    fp32 at capacity factor 8 (no drops): the local path on rank 0 (y,
+    aux, every gradient under one seeded cotangent; aux also per token
+    slice, as EP defines it); EP as it routes (y, aux, its routing); EP
+    replaying the local run's routing (y, aux, every gradient summed over
+    the mesh). fp32 at DIST_EP_LOW_CF, where EP drops copies: EP as it
+    routes, then on CPU copies of its inputs replaying that routing through
+    the same group (y, aux, the drop counts). bf16 at 1.25: the share of
+    copies dropped on both paths. Rank 0 returns the readings; the timings are every rank's, of a
+    second call after a first that warms up (host clock after a
+    synchronise; the exchange goes through the host)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import flatten_paths, init_params, \
+        tree_map
+    from repro_torch.sharding import partition as part
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    group = mesh.get_group("model")
+    K, E = base.moe.top_k, base.moe.num_experts
+    Ts = T // world
+    out = {"rank": rank, "timing": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def clock(key, fn, reset):
+        """``fn`` once to warm up, ``reset()``, then ``fn`` timed."""
+        fn()
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        out["timing"][key] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    def setup(dtype, cf):
+        cfg = base.replace(moe=dataclasses.replace(base.moe,
+                                                   capacity_factor=cf))
+        g = torch.Generator(device=dev).manual_seed(0)
+        p = init_params(MOE.moe_def(cfg), g, torch.float32, dev)
+        x = torch.randn((1, T, cfg.d_model), generator=g, device=dev).to(dtype)
+        dy = torch.randn((1, T, cfg.d_model), generator=g,
+                         device=dev).to(dtype)
+        return cfg, p, x, dy
+
+    def leaves(p):
+        return dict(flatten_paths(p))
+
+    def with_grad(p):
+        for t in leaves(p).values():
+            t.requires_grad_(True)
+            t.grad = None
+        return p
+
+    # ---- fp32, capacity factor 8 -----------------------------------------
+    cfg, p, x, dy = setup(torch.float32, 8.0)
+    eidx_loc = torch.empty((T, K), dtype=torch.int64, device=dev)
+    if rank == 0:
+        rec = []
+        with_grad(p)
+        xg = x.clone().requires_grad_()
+
+        def local():
+            with pinned_routing(rec):
+                y, aux = MOE.moe_apply(cfg, p, xg)
+            (y * dy).sum().backward()
+            return y.detach(), aux.detach()
+        def reset():
+            with_grad(p)
+            xg.grad = None
+            rec.clear()
+        y_loc, aux_loc = clock("local_fwd_bwd_ms", local, reset)
+        g_loc = {n: t.grad.clone() for n, t in leaves(p).items()}
+        g_loc["x"] = xg.grad.clone()
+        eidx_loc.copy_(rec[0])
+        with torch.no_grad():
+            aux_slices = torch.stack([MOE.moe_apply(
+                cfg, p, x[:, i * Ts:(i + 1) * Ts])[1] for i in range(world)])
+    dist.broadcast(eidx_loc, src=0)
+
+    with part.activate(mesh):
+        rec = []
+        with torch.no_grad(), pinned_routing(rec):
+            y_ep, aux_ep = clock("ep_fwd_ms",
+                                 lambda: MOE.moe_apply(cfg, p, x), rec.clear)
+        slices = [torch.empty_like(rec[0]) for _ in range(world)]
+        dist.all_gather(slices, rec[0].contiguous(), group=group)
+        eidx_ep = torch.cat(slices)[:T]
+        with_grad(p)
+        xg = x.clone().requires_grad_()
+
+        idx = mesh.get_local_rank("model")
+
+        def pinned():           # the local run's rows of this token slice
+            with pinned_routing([eidx_loc[idx * Ts:(idx + 1) * Ts]]):
+                y, aux = MOE.moe_apply(cfg, p, xg)
+            (y * dy).sum().backward()
+            return y.detach(), aux.detach()
+        def reset():
+            with_grad(p)
+            xg.grad = None
+        y_pin, aux_pin = clock("ep_fwd_bwd_ms", pinned, reset)
+        g_ep = {}
+        for n, t in leaves(p).items():
+            g = t.grad.clone()
+            dist.all_reduce(g, group=group)
+            g_ep[n] = g
+        g_ep["x"] = xg.grad
+    if rank == 0:
+        pairs = torch.arange(T * K, device=dev) // K * E
+        a = set((pairs + eidx_loc.reshape(-1)).tolist())
+        b = set((pairs + eidx_ep.reshape(-1)).tolist())
+        agree = (eidx_ep == eidx_loc).all(1)
+        out.update(
+            assign_diff_share=len(a ^ b) / (len(a) + len(b)),
+            rows_routed_alike=int(agree.sum()),
+            y_rel_l2_rows_alike=_rel(y_ep[0][agree], y_loc[0][agree]),
+            aux_ep=float(aux_ep), aux_local_per_slice=float(
+                aux_slices.mean()), aux_local_whole=float(aux_loc),
+            aux_rel=abs(float(aux_ep) - float(aux_slices.mean())) /
+            float(aux_slices.mean()),
+            pinned_y_rel_l2=_rel(y_pin, y_loc),
+            pinned_aux_rel_to_whole=abs(float(aux_pin) - float(
+                aux_slices.mean())) / float(aux_slices.mean()),
+            pinned_grad_rel_l2={n: _rel(g_ep[n], g_loc[n]) for n in g_loc})
+        del g_loc
+    del g_ep, p
+
+    def drops(c):
+        """EP's drop counts summed over the ranks."""
+        v = torch.stack([torch.as_tensor(c.get(k, 0), device=dev)
+                         for k in DROP_KEYS]).float()
+        dist.all_reduce(v, group=group)
+        return dict(zip(DROP_KEYS, v.tolist()))
+
+    # ---- fp32 at DIST_EP_LOW_CF: the drop path, the card against the CPU --
+    cfg, p, x, _ = setup(torch.float32, DIST_EP_LOW_CF)
+    with torch.no_grad(), part.activate(mesh):
+        rec = []
+        with pinned_routing(rec), MOE.drop_counts() as c:
+            y_card, aux_card = MOE.moe_apply(cfg, p, x)
+        card = drops(c)
+        # the same routing replayed on CPU copies, through the same group
+        with pinned_routing([rec[0].cpu()]), MOE.drop_counts() as c:
+            y_cpu, aux_cpu = MOE.moe_apply(cfg, tree_map(
+                lambda t: t.cpu(), p), x.cpu())
+        cpu = drops(c)
+    if rank == 0:
+        out["low_cf"] = dict(
+            capacity_factor=DIST_EP_LOW_CF, drops_card=card, drops_cpu=cpu,
+            y_finite=bool(torch.isfinite(y_card).all()),
+            y_rel_l2_to_cpu=_rel(y_card.cpu(), y_cpu),
+            aux_rel_to_cpu=abs(float(aux_card) - float(aux_cpu)) /
+            abs(float(aux_cpu)))
+    del p, y_card, y_cpu
+
+    # ---- bf16, capacity factor 1.25: the copies each path drops ------------
+    cfg, p, x, _ = setup(torch.bfloat16, 1.25)
+    with torch.no_grad():
+        if rank == 0:
+            with MOE.drop_counts() as c:
+                MOE.moe_apply(cfg, p, x)
+            out["local_drop_share"] = float(c["dropped"]) / (T * K)
+        with part.activate(mesh):
+            def ep():
+                with MOE.drop_counts() as c:
+                    MOE.moe_apply(cfg, p, x)
+                return c
+            c = drops(clock("ep_fwd_bf16_ms", ep, lambda: None))
+    if rank == 0:
+        out["ep_send_drop_share"] = c["dropped_send"] / (T * K)
+        out["ep_drop_share"] = (c["dropped_send"] + c["dropped"]) / (T * K)
+    return out
+
+
+def phase_dist_ep():
+    """Expert parallelism on the card: DIST_EP_WORLD spawned processes
+    share it through gloo (NCCL refuses two ranks on one card), each on
+    cuda:0, a (1, 4) ("data", "model") mesh, deepseek-moe-16b's first MoE
+    layer at full width (D 2048, 64 experts, 16 a rank, top-6, 2 shared,
+    1408 wide) over DIST_EP_TOKENS seeded tokens. Gates, fp32 at capacity
+    factor 8 (no drops), against the local path on rank 0: y on the rows
+    whose routing agrees, EP's aux against the local path's per token
+    slice (EP's definition, as the reference's), and, replaying the local
+    run's routing, y and every gradient (the input's too) under one
+    seeded cotangent, all at DIST_EP_REL_L2. The drop path, fp32 at
+    DIST_EP_LOW_CF: copies dropped at both of EP's capacities, the same
+    counts on the card and on the CPU under the same routing, and y and aux
+    against the CPU's at DIST_EP_REL_L2 (the tests hold the CPU's EP at
+    such factors against the reference's). Reported: the share of (token,
+    expert) assignments that differ (routing on 512-token slices), bf16 at
+    1.25 the share of copies each path drops, the times (the exchange
+    staged through the host by gloo; not EP on NVLink)."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    from repro_torch.configs.base import get_config
+    res = run_ranks(_dist_ep_rank, DIST_EP_WORLD,
+                    (DEVICE, get_config(DIST_ARCH), DIST_EP_TOKENS),
+                    backend="gloo", device=DEVICE, timeout_s=DIST_TIMEOUT_S)
+    out = dict(res[0], spawn_and_run_s=time.perf_counter() - t0,
+               timing_by_rank=[r["timing"] for r in res])
+    out.pop("timing")
+    log(f"dist-ep: {DIST_EP_WORLD} gloo ranks on one card, "
+        f"{json.dumps(out)}")
+    worst = max(out["pinned_grad_rel_l2"].values())
+    assert out["y_rel_l2_rows_alike"] <= DIST_EP_REL_L2, out
+    assert out["aux_rel"] <= DIST_EP_REL_L2, out
+    assert out["pinned_y_rel_l2"] <= DIST_EP_REL_L2, out
+    assert worst <= DIST_EP_REL_L2, out["pinned_grad_rel_l2"]
+    assert out["rows_routed_alike"] > 0, out
+    low = out["low_cf"]
+    assert low["drops_card"] == low["drops_cpu"], low
+    assert low["drops_card"]["dropped_send"] > 0, low
+    assert low["drops_card"]["dropped"] > 0, low
+    assert low["y_finite"], low
+    assert low["y_rel_l2_to_cpu"] <= DIST_EP_REL_L2, low
+    assert low["aux_rel_to_cpu"] <= DIST_EP_REL_L2, low
     return out
 
 
@@ -3173,11 +3717,14 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     trains = {t: run(t, phase_train, t) for t in TRAIN_PATHS}
+    dist_train = run("dist-train", phase_dist_train)
+    dist_ep = run("dist-ep", phase_dist_ep)
     saved = run("ckpt", phase_ckpt)
     examples = run("examples", phase_examples)
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
-            or None in trains.values() or saved is None or examples is None:
+            or None in trains.values() or saved is None or examples is None \
+            or dist_train is None or dist_ep is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
@@ -3203,6 +3750,8 @@ def main():
             if train["launches"][kname]:
                 by_path[TRAIN_PATHS[tname]["label"]] = \
                     train["launches"][kname]
+        if dist_train["launches"][kname]:
+            by_path["dist-train"] = dist_train["launches"][kname]
         if saved["launches"][kname]:
             by_path[CKPT_LABEL] = saved["launches"][kname]
         for ex in EXAMPLES:
@@ -3229,6 +3778,7 @@ def main():
                        for p in paths.values())
                 + sum(t["flash_launches_by_kernel"][k]
                       for t in trains.values())
+                + dist_train["flash_launches_by_kernel"][k]
                 + saved["flash_launches_by_kernel"][k]
                 + sum(examples[ex]["flash"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -3259,6 +3809,7 @@ def main():
             entry["launches_by_kernel"] = {
                 k: sum(t["flash_bwd_launches_by_route"][k]
                        for t in trains.values())
+                + dist_train["flash_bwd_launches_by_route"][k]
                 + saved["flash_bwd_launches_by_route"][k]
                 + sum(examples[ex]["bwd"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -3282,7 +3833,9 @@ def main():
                 "chunks in order")
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["ssd_launches_by_kernel"][k]
-                       for p in paths.values()) for k in ("tc", "fma")}
+                       for p in paths.values())
+                + sum(t["ssd_launches_by_kernel"][k]
+                      for t in trains.values()) for k in ("tc", "fma")}
         if kname == "rglru_scan":
             entry["design"] = (
                 "time split across CTAs in one pass: chunks of 32 steps "
@@ -3294,7 +3847,9 @@ def main():
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
                     "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
                     "serving": {a: p[2] for a, p in paths.items()},
-                    "train": trains, "ckpt": saved, "examples": examples}))
+                    "train": trains, "dist_train": dist_train,
+                    "dist_ep": dist_ep, "ckpt": saved,
+                    "examples": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,11 @@ Cross-attention projects the encoder output to k/v once per prefill
 its full-sequence path is ``ops.attention(causal=False)``, the flash
 kernel on CUDA tensors, and its decode reads the cached k/v without a
 write.
-The reference's sharding ``constrain`` calls and ``qkv_constraint`` have no
-counterpart on one card and are left out.
+The reference's sharding ``constrain`` calls and ``qkv_constraint`` are
+left out: on a mesh the port computes attention on each rank's gathered
+weights and batch slice (``optim.adamw``'s mesh step); head-sharded
+attention over ``"model"`` waits for tensor-parallel compute (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 

@@ -55,6 +55,11 @@ def flatten_paths(tree, prefix=""):
         yield prefix[:-1], tree
 
 
+def logical_specs(defs):
+    """The tree of each parameter's logical axes (a tuple per leaf)."""
+    return tree_map(lambda d: d.axes, defs)
+
+
 def init_params(defs, generator: torch.Generator, dtype: torch.dtype,
                 device):
     """Materialise a ParamDef tree into tensors drawn from ``generator``.

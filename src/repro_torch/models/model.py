@@ -16,6 +16,10 @@ Public API:
     .init_cache(batch, capacity)    -> cache tree of meta tensors
     .materialize_cache(batch, capacity)
     .cast_weights()                 # matrices held in the compute dtype
+    .specs()                        # each parameter's logical axes
+
+``LM(cfg, device="meta")`` holds shapes only: its ``defs``, ``specs`` and
+parameter counts, at any width.
 
 The port runs ``("attn", "dense")`` layers (the deepseek-7b family,
 gemma-7b, stablelm-1.6b, internvl2-76b), ``("ssm", "none")`` layers
@@ -35,8 +39,12 @@ layer adds its load-balance loss to ``aux``. Inputs are ``tokens``, plus
 the loss skips them). ``cfg.remat`` ("none", "full", "dots_saveable") maps
 to ``torch.utils.checkpoint`` per head and tail layer and per core period,
 as the reference remats its layers and ``period_body``; it applies only
-while grad is enabled. Sharding constraints have no counterpart on one
-card.
+while grad is enabled. On a mesh (``sharding.partition.activate``) the
+model computes on this rank's local tensors: the train step
+(``optim.adamw``) hands it its batch slice and the gathered weights, and
+an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``);
+the reference's activation constraints have no counterpart (the
+tensor-parallel compute they steer waits, ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -54,8 +62,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as REC
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
-                                       flatten_paths, init_params, mlp_def,
-                                       norm_def, tree_map)
+                                       flatten_paths, init_params,
+                                       logical_specs, mlp_def, norm_def,
+                                       tree_map)
 
 _KINDS = (("attn", "dense"), ("local", "dense"), ("rec", "dense"),
           ("ssm", "none"), ("enc", "dense"), ("xdec", "dense"),
@@ -432,7 +441,7 @@ class LM(nn.Module):
             self.encoder = None
         self.decoder = Stack(cfg, kinds, period=len(cfg.layer_pattern),
                              head_n=head_n)
-        if generator is None:
+        if generator is None and self.device.type != "meta":
             generator = torch.Generator(device=self.device).manual_seed(0)
         params = init_params(self.defs(), generator, self.param_dtype,
                              self.device)
@@ -458,6 +467,10 @@ class LM(nn.Module):
             d["encoder"] = self.encoder.defs()
             d["enc_norm"] = norm_def(cfg)
         return d
+
+    def specs(self):
+        """Each parameter's logical axes, as the tree of ``defs``."""
+        return logical_specs(self.defs())
 
     @torch.no_grad()
     def cast_weights(self):

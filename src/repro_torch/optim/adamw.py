@@ -9,6 +9,28 @@ holds the ``LM``'s own ``nn.Parameter``s, and ``apply_updates`` writes
 params, ``m`` and ``v`` in place under ``torch.no_grad()``: at full width a
 functional copy would double the fp32 weights (13 GB for deepseek-7b at 12
 layers). The arithmetic is the reference's, in fp32, leaf by leaf.
+
+On a mesh (``sharding.partition.activate``) the state's params, ``m`` and
+``v`` are DTensors laid out by ``state_logical`` (``runtime.elastic.
+remesh_state`` places them), and ``make_train_step``'s step:
+
+* gathers each parameter into the LM's own tensor (under EP an expert
+  weight only over the other axes: it keeps this rank's experts); at
+  world size 1 the gathered tensor is the state's own storage, else a
+  copy that holds, after the step, the weights the step used;
+* runs the loss on this rank's slice of the batch over the ``batch`` axes;
+* brings each gradient back to its leaf's placement: summed over the
+  batch axes and divided by their size (a mean), summed over the expert
+  axis for the leaves ``moe.ep_partial`` names, then this rank's shard;
+* runs AdamW on the local shards. The clip norm counts each element once
+  (a leaf replicated over a mesh dim counts on that dim's rank 0) and sums
+  the leaves in ``apply_updates``' order, so a world-1 step is bit-equal
+  to the unsharded one; ``compress_grads`` takes a global scale, and each
+  rank draws every leaf's whole noise and keeps its shard of it.
+
+The reported loss, ``ce`` and ``aux`` are means over the batch axes. An
+MoE model on a mesh without EP computes each rank's ``aux`` from its batch
+slice (the reference's GSPMD computes it over the global batch).
 """
 from __future__ import annotations
 
@@ -18,7 +40,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import flatten_paths
+from repro_torch.sharding import partition as part
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +78,13 @@ def init_state(params) -> Dict[str, object]:
             "v": {n: torch.zeros_like(p) for n, p in params.items()}}
 
 
+def state_logical(lm) -> Dict[str, object]:
+    """The state's logical axes, keyed as ``init_state``'s: ``()`` for the
+    step, and each parameter's axes (``lm.specs()``) for params, m and v."""
+    axes = {n: d.axes for n, d in flatten_paths(lm.defs())}
+    return {"step": (), "params": axes, "m": dict(axes), "v": dict(axes)}
+
+
 def state_tree(state, lm) -> Dict[str, object]:
     """The state as the reference's pytree ``{step, params, m, v}``: each
     path dict nested along ``lm.defs()``, so that ``core``, ``head`` and
@@ -81,15 +112,61 @@ def state_tree(state, lm) -> Dict[str, object]:
     return out
 
 
-def _compress(g, generator: torch.Generator):
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, _dtensor()) else t
+
+
+def _over_mesh(t, mesh, op=None):
+    """``t`` reduced (sum, or ``op``) over every dimension of ``mesh``, in
+    place, dimension by dimension."""
+    import torch.distributed as dist
+    for d in range(mesh.ndim):
+        if mesh.size(d) > 1:
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM,
+                            group=mesh.get_group(d))
+    return t
+
+
+def _shard_of(full, like):
+    """This rank's shard of ``full`` in ``like``'s (a DTensor's) layout."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, like.device_mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+def _compress(g, generator: torch.Generator, like=None):
     """int8 stochastic-rounding quantise/dequantise with a per-tensor
     scale, unbiased; the noise comes from ``generator`` (the reference
-    draws it from a JAX key, so the bits differ; the statistics agree)."""
-    scale = torch.clamp_min(g.abs().max(), 1e-12) / 127.0
-    noise = torch.rand(g.shape, generator=generator, dtype=torch.float32,
+    draws it from a JAX key, so the bits differ; the statistics agree).
+    With ``like``, a DTensor whose local shard ``g`` is, the scale is the
+    whole leaf's and the noise this shard's of the whole leaf's draw."""
+    import torch.distributed as dist
+    amax = g.abs().max()
+    if like is not None:
+        amax = _over_mesh(amax.clone(), like.device_mesh, dist.ReduceOp.MAX)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    shape = like.shape if like is not None else g.shape
+    noise = torch.rand(shape, generator=generator, dtype=torch.float32,
                        device=g.device) - 0.5
+    if like is not None:
+        noise = _shard_of(noise, like)
     q = torch.clamp(torch.round(g / scale + noise), -127, 127).to(torch.int8)
     return q.float() * scale
+
+
+def _owned(t) -> bool:
+    """Whether this rank counts a leaf in the global norm: its coordinate
+    is 0 on every mesh dim that replicates the leaf (always, unsharded)."""
+    if not isinstance(t, _dtensor()):
+        return True
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, pl in zip(coord, t.placements)
+               if pl.is_replicate())
 
 
 @torch.no_grad()
@@ -103,15 +180,24 @@ def apply_updates(cfg: OptConfig, state, grads,
     lr = schedule(cfg, step)
     names = list(state["params"])
     grads = {n: grads[n] for n in names}
+    DTensor = _dtensor()
+    like = {n: t for n, t in state["params"].items()
+            if isinstance(t, DTensor)}
+    mesh = next(iter(like.values())).device_mesh if like else None
 
     if cfg.compress_grads:
         gen = generator or torch.Generator(
             device=grads[names[0]].device).manual_seed(int(step))
-        grads = {n: _compress(g, gen) for n, g in grads.items()}
+        grads = {n: _compress(g, gen, like.get(n)) for n, g in grads.items()}
 
     if cfg.clip_norm > 0:
-        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                            for g in grads.values()))
+        sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+        if mesh is not None:
+            # each leaf's squared norm once over the mesh, summed in order
+            own = torch.tensor([_owned(state["params"][n]) for n in names],
+                               device=sq[0].device)
+            sq = _over_mesh(torch.stack(sq) * own, mesh).unbind()
+        gn = torch.sqrt(sum(sq))
         scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gn, 1e-12),
                             max=1.0)
         grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
@@ -122,7 +208,7 @@ def apply_updates(cfg: OptConfig, state, grads,
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
     for n in names:
-        p, m, v = state["params"][n], state["m"][n], state["v"][n]
+        p, m, v = (_local(state[k][n]) for k in ("params", "m", "v"))
         gf = grads[n].float()
         mf = m.float().mul_(b1).add_(gf, alpha=1 - b1)
         vf = v.float().mul_(b2).addcmul_(gf, gf, value=1 - b2)
@@ -139,14 +225,82 @@ def apply_updates(cfg: OptConfig, state, grads,
     return state, {"grad_norm": gn, "lr": lr}
 
 
+def _batch_dims(batch, mesh, rules):
+    """The mesh dims the batch is split over (its ``batch`` axes, where
+    they divide B) and this rank's slice of every entry."""
+    B = next(iter(batch.values())).shape[0]
+    spec = part.resolve(("batch",), (B,), mesh, rules)
+    axes = () if not spec else ((spec[0],) if isinstance(spec[0], str)
+                                else tuple(spec[0]))
+    names = list(part.axis_sizes(mesh))
+    dims = [names.index(a) for a in axes]
+    n, i = 1, 0
+    for d in dims:                       # major to minor
+        n, i = n * mesh.size(d), i * mesh.size(d) + mesh.get_local_rank(d)
+    return dims, n, {k: v.narrow(0, i * (B // n), B // n)
+                     for k, v in batch.items()}
+
+
+def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
+               mesh, rules):
+    """One train step on ``mesh`` (the module's docstring)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    logical = state_logical(lm)["params"]
+    ep = MOE.expert_axis(lm.cfg)
+    ep_dim = list(part.axis_sizes(mesh)).index(ep) if ep else None
+    params = dict(lm.named_parameters())
+
+    def compute_placements(n, dt):
+        # Replicate, but an expert weight's shard over the expert axis
+        keep = ep_dim is not None and "experts" in logical[n]
+        return [pl if keep and d == ep_dim else Replicate()
+                for d, pl in enumerate(dt.placements)]
+
+    with torch.no_grad():
+        for n, p in params.items():
+            dt = state["params"][n]
+            p.data = dt.redistribute(mesh,
+                                     compute_placements(n, dt)).to_local()
+            p.grad = None
+    dims, n_batch, local = _batch_dims(batch, mesh, rules)
+    loss, metrics = lm.loss(local, impl=impl, schedule=schedule_kind)
+    loss.backward()
+    grads = {}
+    with torch.no_grad():
+        for n, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            dt = state["params"][n]
+            pl = compute_placements(n, dt)
+            partial = list(dims) + ([ep_dim] if ep_dim is not None and
+                                    MOE.ep_partial(n) else [])
+            for d in partial:
+                pl[d] = Partial()
+            grads[n] = DTensor.from_local(g, mesh, pl, run_check=False) \
+                .redistribute(mesh, dt.placements).to_local() / n_batch
+        vec = torch.stack([loss.detach(), metrics["ce"].detach(),
+                           metrics["aux"].detach()])
+        for d in dims:
+            torch.distributed.all_reduce(vec, group=mesh.get_group(d))
+        out = dict(zip(("loss", "ce", "aux"), (vec / n_batch).unbind()))
+    state, om = apply_updates(cfg, state, grads, generator)
+    return state, dict(out, **om)
+
+
 def make_train_step(lm, cfg: OptConfig, *, impl=None, schedule_kind="full",
                     generator: Optional[torch.Generator] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss
     and its gradients by autograd (``lm.loss`` with ``impl`` and the
     attention ``schedule_kind``), then ``apply_updates``. The gradients
-    are dropped after the update, so they do not outlive the step."""
+    are dropped after the update, so they do not outlive the step. Under
+    an active mesh the step is the sharded one (the module's docstring),
+    on a state placed by ``runtime.elastic.remesh_state``."""
 
     def train_step(state, batch):
+        mesh, rules = part._active()
+        if mesh is not None:
+            return _mesh_step(lm, cfg, state, batch, impl, schedule_kind,
+                              generator, mesh, rules)
         params = state["params"]
         for p in params.values():
             p.grad = None

@@ -1,0 +1,224 @@
+"""Logical-axis sharding on ``torch.distributed`` (mirrors
+``repro/sharding/partition.py``): rules mapping logical names to mesh
+axes, spec resolution with divisibility checks, and the DTensor placements
+a resolved spec stands for.
+
+Parameters and activations carry *logical* axis names (``vocab``,
+``embed``, ``ffn``, ``heads``, ``experts``, ``batch`` ...). ``resolve()``
+turns them into a spec ``P`` for a mesh, dropping any assignment that does
+not divide the dimension (a single KV head cannot shard 16 ways).
+``activate(mesh, rules)`` installs a mesh for ``constrain``, ``moe_apply``
+and the train step; without an active mesh ``constrain`` is the identity.
+
+A mesh is anything with named axes and sizes: a ``DeviceMesh`` built with
+``mesh_dim_names`` (``launch.mesh``), or an ``AbstractMesh`` for resolving
+specs without devices. ``placements(spec, mesh)`` gives one DTensor
+placement per mesh dimension. A tensor dim sharded over several axes
+(``("pod", "data")``) takes them major to minor in the order of the mesh's
+dimensions, which is DTensor's order for several ``Shard(i)`` of one dim
+and the order of the reference's ``PartitionSpec`` entries.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+# Default rules: FSDP over "data" (weights' embed dim), TP/EP over "model".
+DEFAULT_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "vocab": "model",
+    "embed": "data",          # FSDP shard dim of 2-D weights
+    "ffn": "model",           # TP shard dim (mlp hidden, heads*hd, rnn width)
+    "heads": "model",
+    "experts": "model",       # EP
+    "lora": None,
+    "norm": None,
+    "layers": None,
+    "stage": None,
+    # decode-cache axes
+    "seq_kv": ("data", "model"),   # falls back to unused subset
+    "seq_data": "data",
+}
+
+
+class P(tuple):
+    """A partition spec: per tensor dim, None, a mesh axis, or a tuple of
+    mesh axes (major to minor); trailing Nones are stripped by ``resolve``."""
+
+    def __new__(cls, *entries: Axis):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
+
+
+class AbstractMesh:
+    """Named axis sizes without devices, for resolving specs."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        if len(shape) != len(axes):
+            raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)}")
+        self.shape = dict(zip(axes, (int(s) for s in shape)))
+        self.axis_names = tuple(axes)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+class NamedSharding(NamedTuple):
+    """A resolved spec on a mesh; ``placements`` is its DTensor layout."""
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self):
+        return placements(self.spec, self.mesh)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """The mesh's axis name -> size, in the order of its dimensions."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:                       # a DeviceMesh
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+_state = threading.local()
+
+
+def _active():
+    return (getattr(_state, "mesh", None),
+            getattr(_state, "rules", DEFAULT_RULES))
+
+
+@contextlib.contextmanager
+def activate(mesh, rules: Optional[Dict[str, Axis]] = None):
+    prev = _active()
+    _state.mesh = mesh
+    _state.rules = dict(DEFAULT_RULES, **(rules or {}))
+    try:
+        yield
+    finally:
+        _state.mesh, _state.rules = prev
+
+
+def _axis_size(mesh, axis: Axis) -> int:
+    sizes = axis_sizes(mesh)
+    if axis is None:
+        return 1
+    if isinstance(axis, str):
+        return sizes.get(axis, 0)
+    n = 1
+    for a in axis:
+        s = sizes.get(a, 0)
+        if s == 0:
+            return 0
+        n *= s
+    return n
+
+
+def resolve(logical: Sequence[Optional[str]],
+            shape: Optional[Sequence[int]] = None,
+            mesh=None,
+            rules: Optional[Dict[str, Axis]] = None) -> P:
+    """Logical axes (+ concrete shape for divisibility checks) -> spec."""
+    m, r = _active()
+    mesh = mesh if mesh is not None else m
+    rules = dict(DEFAULT_RULES, **(rules or {})) if rules else r
+    sizes = axis_sizes(mesh) if mesh is not None else None
+    out, used = [], set()
+    for i, name in enumerate(logical):
+        axis = rules.get(name) if name else None
+        if axis is None:
+            out.append(None)
+            continue
+        flat = (axis,) if isinstance(axis, str) else tuple(axis)
+        # keep only axes that exist in the mesh and are not already used
+        flat = tuple(a for a in flat if a not in used and
+                     (sizes is None or a in sizes))
+        if not flat:
+            out.append(None)
+            continue
+        if mesh is not None:
+            sz = _axis_size(mesh, flat)
+            if sz <= 1 or (shape is not None and shape[i] % max(sz, 1)):
+                out.append(None)
+                continue
+        used.update(flat)
+        out.append(flat[0] if len(flat) == 1 else flat)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def placements(spec: Sequence[Axis], mesh):
+    """One DTensor placement per mesh dimension: ``Shard(i)`` where tensor
+    dim ``i`` names that mesh axis, else ``Replicate()``. A dim over
+    several axes must list them in the mesh's order (major to minor)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(axis_sizes(mesh))
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"dim {dim} shards over {axes}, not in the "
+                             f"mesh's order {tuple(names)}")
+        for j in idx:
+            out[j] = Shard(dim)
+    return tuple(out)
+
+
+def constrain(x, logical: Sequence[Optional[str]]):
+    """Redistribute a DTensor to ``logical``'s spec on the active mesh;
+    a plain tensor, or any tensor without an active mesh, is returned as
+    it is."""
+    mesh, rules = _active()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = resolve(logical, x.shape, mesh, rules)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def _is_axes(t) -> bool:
+    return isinstance(t, tuple) and all(a is None or isinstance(a, str)
+                                        for a in t)
+
+
+def map_specs(fn, spec_tree, *trees):
+    """``fn(axes, *leaves)`` over a tree of dicts and lists whose leaves
+    are logical-axes tuples, with trees of the same structure beside it.
+    A dict comes out in the key order of the first tree beside it (a
+    state's order, which ``apply_updates`` follows), else of ``spec_tree``."""
+    if _is_axes(spec_tree):
+        return fn(spec_tree, *trees)
+    if isinstance(spec_tree, dict):
+        keys = trees[0].keys() if trees else spec_tree.keys()
+        return {k: map_specs(fn, spec_tree[k], *(t[k] for t in trees))
+                for k in keys}
+    return [map_specs(fn, v, *(t[i] for t in trees))
+            for i, v in enumerate(spec_tree)]
+
+
+def param_shardings(spec_tree, shape_tree, mesh,
+                    rules: Optional[Dict[str, Axis]] = None):
+    """Tree of logical-axes tuples + tensors (or shapes) -> tree of
+    ``NamedSharding``s."""
+    return map_specs(
+        lambda axes, arr: NamedSharding(
+            mesh, resolve(axes, getattr(arr, "shape", arr), mesh, rules)),
+        spec_tree, shape_tree)
+
+
+def batch_spec(mesh, ndim: int, rules: Optional[Dict[str, Axis]] = None) -> P:
+    axes = ["batch"] + [None] * (ndim - 1)
+    return resolve(axes, None, mesh, rules)

@@ -1,0 +1,142 @@
+"""The JAX side of the port's multi-device tests, run in a subprocess that
+sees 8 host devices (``XLA_FLAGS=--xla_force_host_platform_device_count=8``;
+the tier-1 process sees one). Each job reads its inputs from ``in.npz`` in
+a directory and writes numpy results there.
+
+    python tests/jax_mesh_ref.py <job> <dir>
+
+Jobs: ``indices`` (``NamedSharding.devices_indices_map`` of the cases in
+``cases.json``), ``ep`` (``moe_apply`` on the local path and on meshes
+(1,2), (1,4) and (2,2), with gradients, at capacity factor 8 and, on the
+meshes, at each of the input's ``low_cfs``, where copies drop; two AdamW
+steps of the deepseek-moe-16b smoke LM on the (2,2) mesh, with ``m`` after
+the first).
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+EP_MESHES = ((1, 2), (1, 4), (2, 2))
+
+
+def _mesh(shape, axes):
+    import jax
+    from jax.sharding import AxisType, Mesh
+    n = int(np.prod(shape))
+    devs = np.array(jax.devices()[:n]).reshape(shape)
+    return Mesh(devs, tuple(axes), axis_types=(AxisType.Auto,) * len(axes))
+
+
+def _dotted(path):
+    return ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+def _tree_from(flat, like):
+    import jax
+    import jax.numpy as jnp
+    return jax.tree_util.tree_map_with_path(
+        lambda kp, x: jnp.asarray(flat[_dotted(kp)], x.dtype), like)
+
+
+def _flat(tree):
+    import jax
+    return {_dotted(kp): np.asarray(x) for kp, x in
+            jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def job_indices(d):
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    with open(os.path.join(d, "cases.json")) as f:
+        cases = json.load(f)
+    out = []
+    for shape, axes, spec, tshape in cases:
+        mesh = _mesh(shape, axes)
+        spec = P(*[tuple(e) if isinstance(e, list) else e for e in spec])
+        imap = NamedSharding(mesh, spec).devices_indices_map(tuple(tshape))
+        rows = []
+        for dev in mesh.devices.reshape(-1):     # mesh order: rank order
+            rows.append([[s.start or 0, tshape[i] if s.stop is None
+                          else s.stop] for i, s in enumerate(imap[dev])])
+        out.append(rows)
+    with open(os.path.join(d, "indices.json"), "w") as f:
+        json.dump(out, f)
+
+
+def job_ep(d):
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_smoke_config
+    from repro.models import moe as MOE
+    from repro.models.model import LM
+    from repro.optim import adamw
+    from repro.sharding import partition as part
+
+    z = dict(np.load(os.path.join(d, "in.npz")))
+    base = get_smoke_config("deepseek-moe-16b")
+
+    def with_cf(cf):
+        return base.replace(moe=dataclasses.replace(base.moe,
+                                                    capacity_factor=cf))
+    cfg = with_cf(8.0)
+    p = {k[2:]: jnp.asarray(v) for k, v in z.items() if k.startswith("p.")}
+    p = {"router": p["router"], "wi_gate": p["wi_gate"],
+         "wi_up": p["wi_up"], "wo": p["wo"],
+         "shared": {k: p[f"shared.{k}"] for k in ("wi_gate", "wi_up", "wo")}}
+    out = {}
+
+    def run(name, mesh, x, cfg=cfg):
+        def f(p, x):
+            y, aux = MOE.moe_apply(cfg, p, x)
+            return (y ** 2).sum(), (y, aux)
+        fn = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))
+        if mesh is None:
+            (_, (y, aux)), (gp, gx) = fn(p, x)
+        else:
+            with part.activate(mesh):
+                (_, (y, aux)), (gp, gx) = fn(p, x)
+        out[f"{name}.y"], out[f"{name}.aux"] = np.asarray(y), np.asarray(aux)
+        out[f"{name}.g.x"] = np.asarray(gx)
+        for k, v in _flat(gp).items():
+            out[f"{name}.g.{k}"] = v
+
+    for xi in ("x1", "x2"):
+        x = jnp.asarray(z[xi])
+        run(f"local.{xi}", None, x)
+        for shape in EP_MESHES:
+            run(f"ep{shape[0]}{shape[1]}.{xi}",
+                _mesh(shape, ("data", "model")), x)
+            for cf in z["low_cfs"].tolist():
+                run(f"ep{shape[0]}{shape[1]}.{xi}.cf{cf}",
+                    _mesh(shape, ("data", "model")), x, with_cf(cf))
+
+    # two AdamW steps of the smoke LM (capacity factor 8) on the (2,2) mesh
+    lm = LM(cfg)
+    flat = {k[3:]: v for k, v in z.items() if k.startswith("lm.")}
+    params = _tree_from(flat, lm.init(jax.random.PRNGKey(0)))
+    opt = adamw.OptConfig(**json.loads(str(z["opt"])))
+    mesh = _mesh((2, 2), ("data", "model"))
+    with part.activate(mesh):
+        state = adamw.init_state(params)
+        step = jax.jit(adamw.make_train_step(lm, opt))
+        for i in range(2):
+            state, m = step(state, {"tokens": jnp.asarray(z[f"batch{i}"])})
+            for k, v in m.items():
+                out[f"train.{i}.{k}"] = np.asarray(v)
+            if i == 0:
+                for k, v in _flat(state["m"]).items():
+                    out[f"train.m1.{k}"] = v
+    for k, v in _flat(state["params"]).items():
+        out[f"train.params.{k}"] = v
+    np.savez(os.path.join(d, "out.npz"), **out)
+
+
+if __name__ == "__main__":
+    {"indices": job_indices, "ep": job_ep}[sys.argv[1]](sys.argv[2])

@@ -30,7 +30,9 @@ def test_every_module_imports_without_jax_or_repro():
         "    importlib.import_module(n)\n"
         "for want in ('serving.engine', 'data.pipeline', 'checkpoint.ckpt',\n"
         "             'examples.quickstart', 'examples.train_e2e',\n"
-        "             'examples.serve_batch'):\n"
+        "             'examples.serve_batch', 'sharding.partition',\n"
+        "             'launch.mesh', 'runtime.elastic',\n"
+        "             'examples.elastic_training'):\n"
         "    assert 'repro_torch.' + want in names, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -49,11 +51,13 @@ def test_sources_name_no_jax_and_no_repro():
 
 
 @pytest.mark.parametrize("entry", ["LM", "ServingEngine", "quickstart",
-                                   "train_e2e", "serve_batch"])
+                                   "train_e2e", "serve_batch",
+                                   "elastic_training", "run_ranks"])
 def test_entry_points_default_to_cuda(entry):
     import importlib
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.models.model import LM
+    from repro_torch.launch.mesh import run_ranks
     from repro_torch.serving.engine import ServingEngine
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device would work")
@@ -63,5 +67,7 @@ def test_entry_points_default_to_cuda(entry):
             LM(cfg)
         elif entry == "ServingEngine":
             ServingEngine(LM(cfg, device="cpu"), slots=2, capacity=32)
+        elif entry == "run_ranks":
+            run_ranks(print, 2)
         else:     # an example's main, with no arguments, runs on the card
             importlib.import_module(f"repro_torch.examples.{entry}").main([])

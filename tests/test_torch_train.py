@@ -430,7 +430,8 @@ def test_scan_function_with_one_output_used():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("path", ["train", "train-moe", "train-mla"])
+@pytest.mark.parametrize("path", ["train", "train-moe", "train-mla",
+                                  "train-mamba", "train-rg"])
 def test_chip_smoke_gradient_leaves_exist_at_each_depth(path):
     """Each gradient leaf that chip_smoke.py's train path gates names a
     parameter of its arch at the path's depth, and of the fp32 twin at the
