@@ -159,6 +159,26 @@ Phases, in order (any failure exits non-zero and prints no result line):
              params, fp32 twin at 2) and ``train-rg`` (recurrentgemma-9b at
              3 of its (rec, rec, local) periods, 9 layers, 2.829 B params,
              the windowed flash kernels too; fp32 twin one period).
+             Then the other attention archs, with their flash backwards at
+             head dims 256 and 64 and the non-causal ones: ``train-gemma``
+             (gemma-7b at 9 of 28 layers, 3.278 B params, tied 256000-wide
+             head; twin 2), ``train-stablelm`` (stablelm-1.6b, all 24
+             layers; twin 2), ``train-gemma3`` (gemma3-1b, all 26 layers:
+             windowed MQA at head dim 256, window 512; twin one period of
+             6), ``train-vlm`` (internvl2-76b at 1 of 80 layers, 256 seeded
+             vision embeds ahead of 1792 tokens; twin 1) and
+             ``train-encdec`` (seamless-m4t-large-v2, all 24 encoder and 24
+             decoder layers over 2048 seeded frames, 72 flash forwards a
+             forward; its bf16 gate at 2 + 2 layers, twin 1 + 1).
+  roofline — per train path: the reference's model FLOPs (6 N D) at the
+             path's depth, B=1 and S=2048, the FLOPs and bytes of a
+             world-1 trace of the same step on meta tensors
+             (``repro_torch.launch.dryrun``, the plain path; host
+             processes trace them while the kernels build), the ms per
+             step measured above, MFU = model FLOPs / (step s x 989e12)
+             and on matmuls alone (6 N D less an untied embedding table),
+             and the trace's predicted peak beside the measured one, with
+             the card's name and power limit.
     dist   — ``dist-train``: a world-1 NCCL process group in this process
              and the ("data", "model") = (1, 1) mesh; deepseek-moe-16b at
              full width and 4 layers takes 3 AdamW steps through the
@@ -209,9 +229,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
-PEAK_BYTES = 3.35e12           # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+# the card's figures, from the port's roofline (NVIDIA H100 SXM data sheet)
+from repro_torch.roofline import analysis as ROOF  # noqa: E402
+
+PEAK_BF16_FLOPS = ROOF.PEAK_FLOPS   # dense bf16 tensor-core peak, 989e12
+PEAK_BYTES = ROOF.HBM_BW            # HBM3, 3.35e12 B/s
+PEAK_F32_FLOPS = ROOF.PEAK_F32_FLOPS   # fp32 outside the tensor cores
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
 LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
@@ -838,6 +861,16 @@ def phase_sweep_bwd():
     cases += [((1, 2048, 2048, 32, 32, 128), torch.bfloat16, "causal"),
               ((1, 2048, 2048, 16, 16, 128), torch.bfloat16, "causal"),
               ((1, 2048, 2048, 16, 1, 256), torch.bfloat16, "window2048")]
+    # the other attention archs' train paths: gemma-7b's MHA at head dim 256,
+    # stablelm-1.6b's 32x64, gemma3-1b's MQA at window 512, internvl2-76b's
+    # GQA over 256 vision embeds and 1792 tokens, seamless-m4t's
+    # non-causal encoder (its cross-attention over 2048 frames has the
+    # same shape)
+    cases += [((1, 2048, 2048, 16, 16, 256), torch.bfloat16, "causal"),
+              ((1, 2048, 2048, 32, 32, 64), torch.bfloat16, "causal"),
+              ((1, 2048, 2048, 4, 1, 256), torch.bfloat16, "window512"),
+              ((1, 2048, 2048, 64, 8, 128), torch.bfloat16, "causal"),
+              ((1, 2048, 2048, 16, 16, 64), torch.bfloat16, "bidir")]
     # head dim 192 (deepseek-v2's MLA) in both dtypes: the small shape
     # under every variant, then causal MHA with v and do zero-padded from
     # 128 as MLA gives them, and its trained bf16 shape [1,2048,128,192]
@@ -877,9 +910,11 @@ def phase_sweep_bwd():
         want = fa.attention_bwd_plain(q, k, v, o, lse, do, **kw)
         wit = fa.attention_bwd_plain(q, k, v, o, lse, do, chunk_q=64,
                                      chunk_k=64, **kw)
-        # at S=2048, recurrentgemma's 2048-token window masks nothing the
-        # causal mask keeps, so SDPA's causal backward is a witness there
-        sdpa = _sdpa_grads(q, k, v, do, kw["scale"]) if Sq == 2048 else None
+        # at S=2048, SDPA's backward under the case's mask is a witness
+        # (recurrentgemma's 2048-token window masks nothing the causal mask
+        # keeps; gemma3's 512 binds)
+        sdpa = _sdpa_grads(q, k, v, do, kw["scale"], kw["causal"],
+                           kw["window"]) if Sq == 2048 else None
         name = str(dt).split(".")[-1]
         rtol, atol = TOL[name]
         ok, errs = True, {}
@@ -946,11 +981,12 @@ def phase_sweep_bwd():
                              f"version: {bad}")
 
 
-def _sdpa_grads(q, k, v, do, scale):
-    """dq, dk, dv of causal attention by SDPA's autograd (a witness)."""
+def _sdpa_grads(q, k, v, do, scale, causal=True, window=0):
+    """dq, dk, dv of attention by SDPA's autograd (a witness)."""
     import torch
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = _sdpa_witness(None, *leaves, causal=True, scale=scale)
+    out = _sdpa_witness(None, *leaves, causal=causal, window=window,
+                        scale=scale)
     return torch.autograd.grad(out, leaves, do)
 
 
@@ -1470,18 +1506,24 @@ def _sdpa_witness(orig, q, k, v, *, causal=True, window=0, softcap=0.0,
                   scale=None):
     """Witness: PyTorch's own attention (SDPA), a correct code that sums on
     the tensor cores and rounds P to bf16, as the tensor-core kernel does.
-    Only for what the gated prefills ask: causal with queries as long as
-    the keys, or non-causal at any lengths (an encoder, a cross-attention);
-    no window that binds (gemma3-1b's 512 does not at its 128-token gate),
-    no softcap."""
+    Only for what the gated prefills and train steps ask: causal with
+    queries as long as the keys, or non-causal at any lengths (an encoder,
+    a cross-attention); no softcap. A causal window that binds (gemma3-1b's
+    512 in its S=2048 train step) goes in as a boolean mask."""
+    import torch
     import torch.nn.functional as F
     Sq, Sk = q.shape[1], k.shape[1]
-    if (causal and Sq != Sk) or 0 < window < Sk or softcap:
+    if (causal and Sq != Sk) or (0 < window < Sk and not causal) or softcap:
         raise ValueError("the SDPA witness takes causal Sq == Sk or "
-                         "non-causal calls, no binding window, no softcap")
+                         "non-causal calls, no softcap")
+    mask = None
+    if 0 < window < Sk:
+        i = torch.arange(Sq, device=q.device)[:, None]
+        j = torch.arange(Sk, device=q.device)[None]
+        mask, causal = (j <= i) & (i - j < window), False
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal, scale=scale,
+        attn_mask=mask, is_causal=causal, scale=scale,
         enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
 
 
@@ -2072,13 +2114,88 @@ RG_NORM_REL_BF16 = 0.3
 # tell the dropped carry (6.4e-3) from the kernel (0.014): its loss can,
 # the witness 2.0e-4, the kernel 1.4e-4, the dropped carry 1.6e-3
 SCAN_LOSS_REL_BF16 = 5e-4
+# the other attention-only archs. Tied embeddings (gemma-7b, gemma3-1b,
+# seamless-m4t): the embedding's gradient carries the head's, labelled
+# "head" so that it keeps the head's control (the off-by-one mask).
+# gemma-7b at 9 layers and stablelm-1.6b at 24 stack one core of 9 and 24
+# periods; the twins' 2 layers a core of 2, so GRAD_LEAVES' paths hold
+TIED_GRAD_LEAVES = dict(GRAD_LEAVES, head=("embed", None))
+# gemma3-1b: 4 core periods of (local x 5, attn) and a tail of 2 local
+# layers at 26; its twin is one period (6 layers: the reference stacks no
+# single period, so all 6 sit in the tail)
+GEMMA3_GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.{j}.mixer.{w}", 0)
+                      for at, j in (("l0", 0), ("global", 5))
+                      for w in ("wq", "wk", "wv")}
+GEMMA3_GRAD_LEAVES["head"] = ("embed", None)
+GEMMA3_TWIN_LEAVES = {k: (p.replace("core", "tail"), None)
+                      for k, (p, _) in GEMMA3_GRAD_LEAVES.items()
+                      if k != "head"}
+GEMMA3_TWIN_LEAVES["head"] = ("embed", None)
+# internvl2-76b: one layer, in the tail (the model's and the twin's);
+# untied head
+VLM_GRAD_LEAVES = {f"l0.{w}": (f"decoder.tail.0.mixer.{w}", None)
+                   for w in ("wq", "wk", "wv")}
+VLM_GRAD_LEAVES["head"] = ("head", None)
+# seamless-m4t: the encoder's layer 0 (non-causal), the decoder's layer 0
+# self-attention (causal) and cross-attention (non-causal over the
+# frames); 24 + 24 layers stack two cores, the twin's 1 + 1 two tails
+ENCDEC_GRAD_LEAVES = {f"{at}.{w}": (f"{stack}.core.0.{m}.{w}", 0)
+                      for at, stack, m in (("enc0", "encoder", "mixer"),
+                                           ("l0", "decoder", "mixer"),
+                                           ("x0", "decoder", "cross"))
+                      for w in ("wq", "wk", "wv")}
+ENCDEC_GRAD_LEAVES["head"] = ("embed", None)
+ENCDEC_TWIN_LEAVES = {k: (p.replace("core", "tail"), None)
+                      for k, (p, _) in ENCDEC_GRAD_LEAVES.items()
+                      if k != "head"}
+ENCDEC_TWIN_LEAVES["head"] = ("embed", None)
+# their limits, each between the witnesses and the control named beside
+# it (on an H100). The twins' grad_norm: the witnesses read at most 6.2e-6
+# (stablelm-1.6b, 2 layers), 4.7e-9 (gemma3-1b, 6), 7.0e-9 (internvl2-76b,
+# 1) and 2.1e-8 (seamless-m4t, 1 + 1), the controls
+# 8.6e-3, 1.8e-3 (off-by-one mask), 3.8e-3 and 0.19 (dropped delta)
+TWIN_NORM_REL_ATTN = 1e-4
+# gemma-7b's bf16 grad_norm (9 layers): the witnesses 0.023 (chunks),
+# 7.5e-4 (flash VJP), 0.061 (SDPA), the kernel 0.021, the control 0.124
+GEMMA_NORM_REL_BF16 = 0.09
+# stablelm-1.6b's gate at 6 of its 24 layers: the head, witnesses 0.0020
+# and 0.020 (SDPA), the kernel 0.020, the control 0.19; the loss,
+# witnesses 7.8e-6 and 3.6e-5, the kernel 2.1e-5, the control 5.0e-4
+STABLELM_HEAD_REL_L2_BF16 = 0.06
+STABLELM_LOSS_REL_BF16 = 1.5e-4
+# gemma3-1b's gate at 12 of its 26 layers (two periods): the head,
+# witnesses 0.042 and 0.077 (SDPA), the kernel 0.077, the control 0.446;
+# grad_norm, witnesses 1.1e-4 to 3.6e-4, the kernel 1.0e-4, the dropped
+# delta 8.1e-3 (against the fp32 code's: the correct codes 4.1e-5 to
+# 4.3e-4, the control 7.8e-3)
+GEMMA3_HEAD_REL_L2_BF16 = 0.2
+GEMMA3_NORM_REL_BF16 = 2e-3
+# internvl2-76b (1 layer): every leaf, the witnesses at most 8.4e-3
+# (SDPA, wk), the kernel 8.3e-3, the controls 0.046 (the head) to 0.107;
+# grad_norm, witnesses 1.8e-7 to 2.7e-5, the kernel 3.1e-5, the dropped
+# delta 3.8e-3 (the off-by-one mask 1.1e-5: one key in 2048 moves little
+# in one layer; against the fp32 code's every bf16 code reads 2.6e-3, the
+# dropped delta 1.2e-3, so that reading is reported); the loss, witnesses
+# 1.9e-6 and 9.8e-6, the kernel 8.4e-6, the control 6.6e-5
+VLM_REL_L2_BF16 = 0.02
+VLM_NORM_REL_BF16 = 1e-3
+VLM_LOSS_REL_BF16 = 3e-5
+# seamless-m4t's bf16 model at 2 + 2 layers: no leaf keeps a digit (every
+# code 1.1 to 2.3, the chunked plain code's own witness aside) and
+# grad_norm scatters (the kernel 0.58, SDPA 0.062-0.076, the control 0.23;
+# 77% of it the tied embedding's); the loss tells: witnesses 0 and 2.0e-4
+# (SDPA), the kernel 1.8e-4, the control 8.2e-4
+ENCDEC_LOSS_REL_BF16 = 4e-4
 # the train paths, run in this order: arch, depth, the fp32 twin's depth
 # (routing is discontinuous, so the MoE twins are cut to their first MoE
 # layer), the gradient leaves of the model and of the twin (the same
 # labels), the limits of the twin's grad_norm, the bf16 model's gated
 # leaves and its limits (grad_norm's None where it cannot tell the control;
 # then a limit of the loss, ``bf16_loss``), and the scan (``scan``) whose
-# witness and control join the gates
+# witness and control join the gates. Optional: ``fp32_norm`` False holds
+# the bf16 grad_norm to the plain code's only, not to the fp32 code's;
+# ``gate_layers`` cuts the bf16 gate's model (the steps keep ``layers``);
+# ``opt`` overrides fields of the steps' ``OptConfig``
 TRAIN_PATHS = {
     "train": dict(arch=TRAIN_ARCH, label=TRAIN_LABEL, layers=TRAIN_LAYERS,
                   twin_layers=TRAIN_TWIN_LAYERS, leaves=GRAD_LEAVES,
@@ -2121,6 +2238,78 @@ TRAIN_PATHS = {
                      twin_norm=(SCAN_NORM_REL, "drops_carry"),
                      bf16_gated=(), grad_bf16=None,
                      bf16_norm=(RG_NORM_REL_BF16, "drops_carry")),
+    # the other attention archs (an encoder-decoder cuts both stacks to
+    # ``layers``).
+    # Their limits (above) come from witness and control
+    # readings on an H100. gemma-7b: 9 of 28 layers, 3.278 B params, 48.8
+    # GiB at 16 B/param (10 layers 53.0), beside a 256000-wide tied head.
+    # No bf16 leaf is gated (the tied head: SDPA 1.03, the control 1.13),
+    # and its grad_norm is not held against the fp32 code's
+    # (``fp32_norm``): there the control lies nearest (GEMMA_NORM_REL_BF16)
+    "train-gemma": dict(arch="gemma-7b", label="train-gemma", layers=9,
+                        twin_layers=2, leaves=TIED_GRAD_LEAVES,
+                        twin_leaves=TIED_GRAD_LEAVES,
+                        twin_norm=(TRAIN_REL, "drops_diagonal"),
+                        bf16_gated=(), grad_bf16=None,
+                        bf16_norm=(GEMMA_NORM_REL_BF16, "drops_diagonal"),
+                        fp32_norm=False),
+    # stablelm-1.6b at all 24 layers: 1.644 B params, 24.5 GiB; its bf16
+    # gate at 6 layers (at 24 its grad_norm could not tell: the kernel
+    # 0.044, the control 0.049; at 6 SDPA 0.043, the control 0.059): the
+    # head and the loss
+    "train-stablelm": dict(arch="stablelm-1.6b", label="train-stablelm",
+                           layers=24, twin_layers=2, gate_layers=6,
+                           leaves=GRAD_LEAVES,
+                           twin_leaves=GRAD_LEAVES,
+                           twin_norm=(TWIN_NORM_REL_ATTN, "drops_diagonal"),
+                           bf16_gated=BF16_GATED,
+                           grad_bf16=STABLELM_HEAD_REL_L2_BF16, bf16_norm=None,
+                           bf16_loss=(STABLELM_LOSS_REL_BF16,
+                                      "drops_diagonal")),
+    # gemma3-1b at all 26 layers (5 local, window 512 : 1 global MQA, head
+    # dim 256): 1.000 B params, 14.9 GiB, and a 262144-wide tied head; its
+    # bf16 gate at two periods, 12 layers
+    "train-gemma3": dict(arch="gemma3-1b", label="train-gemma3", layers=26,
+                         twin_layers=6, gate_layers=12,
+                         leaves=GEMMA3_GRAD_LEAVES,
+                         twin_leaves=GEMMA3_TWIN_LEAVES,
+                         twin_norm=(TWIN_NORM_REL_ATTN, "drops_diagonal"),
+                         bf16_gated=BF16_GATED,
+                         grad_bf16=GEMMA3_HEAD_REL_L2_BF16,
+                         bf16_norm=(GEMMA3_NORM_REL_BF16, "drops_delta")),
+    # internvl2-76b: 1 of 80 layers, 2.957 B params, 44.1 GiB, 256 seeded
+    # vision embeds ahead of 1792 tokens (2 layers, 3.813 B params, ran out
+    # of the card's 80 GB in AdamW); its one layer sits in the tail, as
+    # the twin's
+    "train-vlm": dict(arch="internvl2-76b", label="train-vlm", layers=1,
+                      twin_layers=1, leaves=VLM_GRAD_LEAVES,
+                      twin_leaves=VLM_GRAD_LEAVES,
+                      twin_norm=(TWIN_NORM_REL_ATTN, "drops_delta"),
+                      bf16_gated=tuple(VLM_GRAD_LEAVES),
+                      grad_bf16=VLM_REL_L2_BF16,
+                      bf16_norm=(VLM_NORM_REL_BF16, "drops_delta"),
+                      fp32_norm=False,
+                      bf16_loss=(VLM_LOSS_REL_BF16, "drops_diagonal")),
+    # seamless-m4t-large-v2 at all 24 encoder + 24 decoder layers: 1.370 B
+    # params, 20.4 GiB; 2048 seeded frames (the reference's train batch
+    # sizes them by S), so the cross-attention's shape is the encoder's.
+    # Its random-init encoder carries bf16 roundings so far that at 24 + 24
+    # no reading tells a correct code from the controls (as in serving,
+    # PERF.md): the bf16 gate runs on the model cut to 2 + 2 layers
+    # (``gate_layers``), on its loss. The step has no clipping (``opt``):
+    # the encoder makes grad_norm 8.7e7 (1.01e8 in float64 on these
+    # weights and batch, the decoder's part 6.1e3:
+    # tests/encdec_grad_norm.py), and clipping to 1 puts the decoder's
+    # gradients under Adam's eps, so the decoder takes no step and the
+    # loss does not fall (12.655, 12.667, 12.661 with clipping)
+    "train-encdec": dict(arch="seamless-m4t-large-v2", label="train-encdec",
+                         layers=24, twin_layers=1, gate_layers=2,
+                         leaves=ENCDEC_GRAD_LEAVES,
+                         twin_leaves=ENCDEC_TWIN_LEAVES,
+                         twin_norm=(TWIN_NORM_REL_ATTN, "drops_delta"),
+                         bf16_gated=(), grad_bf16=None, bf16_norm=None,
+                         bf16_loss=(ENCDEC_LOSS_REL_BF16, "drops_diagonal"),
+                         opt=dict(clip_norm=0.0)),
 }
 
 
@@ -2178,7 +2367,7 @@ def _step1_grads(lm, batch, impl, leaves):
     sq = {}
     for n, p in params.items():
         g = p.grad.float()
-        if n.startswith("decoder.core."):
+        if n.startswith(("decoder.core.", "encoder.core.")):
             sq.update((f"{n}[{i}]", s) for i, s in
                       enumerate(g.square().flatten(1).sum(1).tolist()))
         else:
@@ -2331,14 +2520,15 @@ def _leaf_control(n):
     return "drops_carry" if n.endswith(SCAN_FED) else "drops_diagonal"
 
 
-def _assert_train_gate(out, grad_limit, norm, leaves, loss=None):
+def _assert_train_gate(out, grad_limit, norm, leaves, loss=None,
+                       fp32=True):
     """The kernel's loss within TRAIN_REL of the plain code's. For the
     grad_norm (at ``norm = (limit, control)``, unless None), each leaf of
     ``leaves`` (at ``grad_limit``) and the loss (at ``loss``, a (limit,
     control) pair, if given): every witness under the limit, the control
     over it, the kernel under it; the bf16 model's grad_norm likewise
-    against the fp32 code's (``fp32_*``). Each leaf's control:
-    ``_leaf_control``."""
+    against the fp32 code's (``fp32_*``), unless ``fp32`` is False. Each
+    leaf's control: ``_leaf_control``."""
     assert out["kernel_loss_rel"] <= TRAIN_REL, out
     checks = ([("grad_norm_rel", *norm)] if norm else []) + [
         (f"{n}_rel_l2", grad_limit, _leaf_control(n)) for n in leaves] + (
@@ -2349,7 +2539,7 @@ def _assert_train_gate(out, grad_limit, norm, leaves, loss=None):
                 assert out[key] <= limit, (key, limit, out)
         assert out[f"control_{control}_{suffix}"] > limit, (suffix, out)
         assert out[f"kernel_{suffix}"] <= limit, (suffix, limit, out)
-    if "fp32_grad_norm" in out and norm:
+    if "fp32_grad_norm" in out and norm and fp32:
         # the bf16 model's grad_norm against the fp32 code's, at the same
         # limit: every correct bf16 code under it (the plain one too), the
         # control over it
@@ -2362,8 +2552,11 @@ def _assert_train_gate(out, grad_limit, norm, leaves, loss=None):
 
 
 def _flash_layers(cfg):
-    """The layers whose mixer runs the flash kernels."""
-    return sum(k in ("attn", "local", "mla") for k in cfg.layer_kinds)
+    """The flash calls of one forward: each layer whose mixer runs the
+    flash kernels, and an encoder-decoder's encoder layers and decoder
+    cross-attentions."""
+    return sum(k in ("attn", "local", "mla") for k in cfg.layer_kinds) + \
+        cfg.encoder_layers + (cfg.num_layers if cfg.encoder_layers else 0)
 
 
 def _scan_bwd_times(lm, scan):
@@ -2421,17 +2614,40 @@ def _scan_bwd_times(lm, scan):
     return out
 
 
+def _train_batch(cfg, seed):
+    """B=1 and TRAIN_S positions of seeded inputs, as the reference's
+    train batch (``launch/specs.py`` ``batch_specs``): tokens; a vision
+    model's ``vision_embeds`` [1,Nv,D] ahead of TRAIN_S - Nv tokens; an
+    encoder-decoder's ``frames`` [1,TRAIN_S,D] beside TRAIN_S tokens (the
+    frontend stubs' normal draws, std 0.02)."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    nv = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, TRAIN_S - nv),
+                                     generator=g, device=DEVICE)}
+    if cfg.frontend != "none":
+        key, n = ("vision_embeds", nv) if nv else ("frames", TRAIN_S)
+        batch[key] = torch.randn((1, n, cfg.d_model), generator=g,
+                                 device=DEVICE) * 0.02
+    return batch
+
+
+def _train_cfg(arch, layers, dtype):
+    """The arch at full width and ``layers`` deep (an encoder-decoder's
+    encoder too)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers, dtype=dtype, **(
+        {"encoder_layers": layers} if cfg.encoder_layers else {}))
+
+
 def _train_lm(layers, dtype, arch=TRAIN_ARCH):
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.models.model import LM
-    cfg = get_config(arch).replace(num_layers=layers, dtype=dtype)
+    cfg = _train_cfg(arch, layers, dtype)
     lm = LM(cfg, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
-    g = torch.Generator(device=DEVICE).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_S), generator=g,
-                           device=DEVICE)
-    return lm, {"tokens": tokens}
+    return lm, _train_batch(cfg, 1)
 
 
 DIGEST_CHUNK = 1 << 24
@@ -2541,27 +2757,32 @@ def phase_train(name="train"):
     log(f"{name}: fp32 twin ({spec['twin_layers']} layers) step 1, relative "
         f"to the plain path {json.dumps(twin)}")
 
-    lm, batch = _train_lm(layers, "bfloat16", arch)
-    n_params = sum(p.numel() for p in lm.parameters())
-    n_attn = _flash_layers(lm.cfg)
+    gate_layers = spec.get("gate_layers", layers)
+    lm, batch = _train_lm(gate_layers, "bfloat16", arch)
+    gate_attn = _flash_layers(lm.cfg)
     reset_kernel_counts()
     gate = _train_gate(lm, batch, leaves, scan)
     gate_bwd = bwd_counts()
+    if gate_layers != layers:
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm, batch = _train_lm(layers, "bfloat16", arch)
+    n_params = sum(p.numel() for p in lm.parameters())
+    n_attn = _flash_layers(lm.cfg)
     log(f"{name}: {arch} at full width, {layers} layers, "
-        f"{n_params / 1e9:.3f} B params; bf16 step 1, relative to the plain "
-        f"path {json.dumps(gate)}")
+        f"{n_params / 1e9:.3f} B params; bf16 step 1 ({gate_layers} "
+        f"layers), relative to the plain path {json.dumps(gate)}")
 
     # a second seeded batch, never trained on: its loss before the steps
     # and after them tells learning from memorising the one batch
-    g = torch.Generator(device=DEVICE).manual_seed(2)
-    unseen = {"tokens": torch.randint(0, lm.cfg.vocab_size, (1, TRAIN_S),
-                                      generator=g, device=DEVICE)}
+    unseen = _train_batch(lm.cfg, 2)
 
     def unseen_loss():
         with torch.no_grad():
             return lm.loss(unseen)[0].item()
     unseen_losses = [unseen_loss()]
-    cfg = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    cfg = _train_opt(spec)
     state = adamw.init_state(lm)
     step = adamw.make_train_step(lm, cfg)
     digests = [state_digests(state)]     # the initial state, after step 1
@@ -2596,7 +2817,8 @@ def phase_train(name="train"):
         out["scan_bwd"] = _scan_bwd_times(lm, scan)
         log(f"{name}: the {scan} Function at the model's width, forward "
             f"and its plain-recompute backward {json.dumps(out['scan_bwd'])}")
-    out.update(n_params=n_params, steps=steps, launches=launches,
+    out.update(n_params=n_params, gate_layers=gate_layers, steps=steps,
+               launches=launches,
                flash_launches_by_kernel=flash,
                flash_bwd_launches_by_route=flash_bwd,
                ssd_launches_by_kernel=ssd_kernels,
@@ -2643,13 +2865,121 @@ def phase_train(name="train"):
     assert flash_bwd == {"tc": want_bwd, "fma": 0}, flash_bwd
     assert ssd_kernels == {"tc": want["ssd_scan"], "fma": 0}, ssd_kernels
     assert twin_bwd == {"tc": 0, "fma": twin_attn}, twin_bwd
-    assert gate_bwd == {"tc": n_attn, "fma": 0}, gate_bwd
+    assert gate_bwd == {"tc": gate_attn, "fma": 0}, gate_bwd
     assert peak <= TRAIN_PEAK_GIB, peak
     assert bit_equal["initial_equal"] and bit_equal["control_caught"] \
         and not bit_equal["n_differing"], bit_equal
     _assert_train_gate(twin, GRAD_REL_L2_FP32, spec["twin_norm"], leaves)
     _assert_train_gate(gate, spec["grad_bf16"], spec["bf16_norm"],
-                       spec["bf16_gated"], spec.get("bf16_loss"))
+                       spec["bf16_gated"], spec.get("bf16_loss"),
+                       spec.get("fp32_norm", True))
+    return out
+
+
+ROOFLINE_WORKERS = 5     # host processes tracing the train paths' steps
+
+
+def _train_opt(spec):
+    """The ``OptConfig`` of a train path's measured steps (and of its
+    ``roofline`` trace): the path's ``opt`` over lr 3e-4, no warmup."""
+    from repro_torch.optim import adamw
+    return adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100,
+                           **spec.get("opt", {}))
+
+
+def _embed_lookup_params(cfg):
+    """The parameters of an untied embedding table: 6ND counts them, but
+    looking rows up does no matmul (a tied table is the head too)."""
+    return 0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model
+
+
+def start_roofline_traces():
+    """Start the ``roofline`` phase's traces: ROOFLINE_WORKERS spawned host
+    processes trace each train path's step on meta tensors
+    (``launch.dryrun.run_cell``, world 1, the plain path, the path's
+    ``OptConfig``) while the kernels build; they never touch the card. ->
+    (pool, {path: future}); the caller shuts the pool down."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    shape = ShapeConfig("train-chip", TRAIN_S, 1, "train")
+    pool = cf.ProcessPoolExecutor(ROOFLINE_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    return pool, {n: pool.submit(dryrun.run_cell,
+                                 _train_cfg(spec["arch"], spec["layers"],
+                                            "bfloat16"),
+                                 shape, mesh_shape=(1,), verbose=False,
+                                 opt_cfg=_train_opt(spec))
+                  for n, spec in TRAIN_PATHS.items()}
+
+
+def phase_roofline(trains, traces):
+    """For every train path: the reference's model FLOPs (6 N D, N from
+    ``roofline.analysis.count_params``) at the depth, batch (B=1) and S
+    that ``phase_train`` trained, the counter's FLOPs and bytes from a
+    world-1 trace of the same step on meta tensors (``traces``, from
+    ``start_roofline_traces``), the measured ms per step, MFU = model
+    FLOPs / (step s x PEAK_BF16_FLOPS) and the same share of the matmul
+    FLOPs (``mfu_matmul``: 6 N D less an untied embedding table's
+    lookups, which 6 N D counts but no matmul does; the MFU to compare
+    across paths, as deepseek-v2's layer 0 and internvl2-76b's one layer
+    are 37% and 35% table), and the trace's predicted peak
+    memory (arguments plus the peak of live temporaries) beside
+    ``torch.cuda.max_memory_allocated``, with the card's name and power
+    limit. Gates: both MFUs in (0, 1]; the counter sees at least the
+    model's matmul FLOPs (deepseek-v2's layer 0 and internvl2-76b's one
+    layer read a ``useful_ratio`` over 1 for their tables); the
+    reference's ``useful_ratio`` (model FLOPs over the counter's) and the
+    predicted peak beside the measured one are reported."""
+    smi = nvidia_smi()
+    out = {}
+    bad = [(n, "the train phase failed") for n in TRAIN_PATHS
+           if n not in trains]
+    t0 = time.perf_counter()
+    recs = {n: f.result() for n, f in traces.items() if n in trains}
+    log(f"roofline: {len(recs)} traces read after a wait of "
+        f"{time.perf_counter() - t0:.1f} s (traced on {ROOFLINE_WORKERS} host "
+        f"processes from the start of the run)")
+    for name, rec in recs.items():
+        spec, tr = TRAIN_PATHS[name], trains[name]
+        cfg = _train_cfg(spec["arch"], spec["layers"], "bfloat16")
+        rl = rec["roofline"]
+        mf = rl["model_flops_total"]
+        n = rec["params"]["active" if cfg.moe is not None else "total"]
+        matmul = mf * (1 - _embed_lookup_params(cfg) / n)
+        step_s = tr["ms_per_step"] / 1e3
+        row = dict(
+            arch=spec["arch"], layers=spec["layers"], batch=1, seq=TRAIN_S,
+            params=rec["params"], model_flops=mf,
+            counter_flops=rec["cost"]["flops_per_dev"],
+            counter_bytes=rec["cost"]["bytes_per_dev"],
+            useful_ratio=rl["useful_ratio"],
+            matmul_useful_ratio=matmul / rec["cost"]["flops_per_dev"],
+            ms_per_step=tr["ms_per_step"],
+            mfu=mf / (step_s * PEAK_BF16_FLOPS),
+            mfu_matmul=matmul / (step_s * PEAK_BF16_FLOPS),
+            bound_ms=dict(compute=rl["compute_s"] * 1e3,
+                          memory=rl["memory_s"] * 1e3),
+            predicted_peak_gib=rec["memory"]["per_device_total"] / 2**30,
+            measured_peak_gib=tr["peak_allocated_gib"],
+            trace_s=rec["trace_s"], card=smi)
+        out[name] = row
+        log(f"roofline {name}: {spec['arch']} at {spec['layers']} layers, "
+            f"B=1, S={TRAIN_S}: model FLOPs {mf:.4e}, the counter's "
+            f"{row['counter_flops']:.4e} FLOPs and {row['counter_bytes']:.4e}"
+            f" bytes (useful_ratio {row['useful_ratio']:.4f}, on matmuls "
+            f"{row['matmul_useful_ratio']:.4f}), {row['ms_per_step']:.3f} ms "
+            f"per step, MFU {row['mfu']:.4f} (on matmuls "
+            f"{row['mfu_matmul']:.4f}); peak predicted "
+            f"{row['predicted_peak_gib']:.2f} GiB, measured "
+            f"{row['measured_peak_gib']:.2f} GiB; trace "
+            f"{row['trace_s']:.1f} s; {smi}")
+        if not (0 < row["mfu"] <= 1 and 0 < row["mfu_matmul"] <= 1) \
+                or row["matmul_useful_ratio"] > 1:
+            bad.append((name, row))
+    if bad:
+        raise AssertionError(f"roofline: {bad}")
     return out
 
 
@@ -3679,6 +4009,18 @@ def main():
         log(f"phase {label}: ok in {time.perf_counter() - t0:.1f} s")
         return out
 
+    # the roofline phase's traces are host work: they run beside the build
+    pool, traces = start_roofline_traces()
+    try:
+        return _phases(run, failed, name, smi, traces)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _phases(run, failed, name, smi, traces):
+    """Every phase after the card check, in order (the module's
+    docstring)."""
+    import torch
     run("build", phase_build)
     if failed:
         return 1
@@ -3717,6 +4059,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     trains = {t: run(t, phase_train, t) for t in TRAIN_PATHS}
+    roofline = run("roofline", phase_roofline,
+                   {t: r for t, r in trains.items() if r is not None},
+                   traces)
     dist_train = run("dist-train", phase_dist_train)
     dist_ep = run("dist-ep", phase_dist_ep)
     saved = run("ckpt", phase_ckpt)
@@ -3724,7 +4069,7 @@ def main():
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
             or None in trains.values() or saved is None or examples is None \
-            or dist_train is None or dist_ep is None:
+            or dist_train is None or dist_ep is None or roofline is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
@@ -3847,7 +4192,8 @@ def main():
     log(json.dumps({"timing": timing, "timing_ssd": timing_ssd,
                     "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
                     "serving": {a: p[2] for a, p in paths.items()},
-                    "train": trains, "dist_train": dist_train,
+                    "train": trains, "roofline": roofline,
+                    "dist_train": dist_train,
                     "dist_ep": dist_ep, "ckpt": saved,
                     "examples": examples}))
     log(smi)

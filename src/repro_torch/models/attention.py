@@ -108,6 +108,25 @@ def attn_cache_def(cfg: ModelConfig, kind, batch, capacity, dtype):
     return d
 
 
+def attn_cache_axes(cfg: ModelConfig, kind):
+    """Logical axes of ``attn_cache_def``'s entries (the reference's):
+    KV-head-rich caches shard heads over TP; MQA caches shard the sequence
+    dim over whatever mesh axes remain."""
+    if cfg.num_kv_heads % 8 == 0:
+        kv = ("batch", "seq_data", "heads", None)
+    else:
+        kv = ("batch", "seq_kv", None, None)
+    d = {"k": kv, "v": kv}
+    if kind == "local":
+        d["slot_pos"] = (kv[0], kv[1])
+    return d
+
+
+def mla_cache_axes(cfg: ModelConfig):
+    return {"ckv": ("batch", "seq_kv", None),
+            "kpe": ("batch", "seq_kv", None)}
+
+
 def _write_at(cache, new, idx):
     """cache: [B,S,...]; new: [B,1,...]; idx: [B]. Writes row b at
     ``idx[b]`` in place. Like ``jax.lax.dynamic_update_slice`` the index is

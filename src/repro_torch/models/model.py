@@ -14,6 +14,7 @@ Public API:
     .prefill(batch, capacity)       -> (cache, last_logits)
     .decode_step(cache, tokens)     -> (cache, logits)   # cache updated in place
     .init_cache(batch, capacity)    -> cache tree of meta tensors
+    .cache_logical()                # each cache leaf's logical axes
     .materialize_cache(batch, capacity)
     .cast_weights()                 # matrices held in the compute dtype
     .specs()                        # each parameter's logical axes
@@ -224,6 +225,21 @@ def layer_cache_def(cfg, kind, batch, capacity, dtype):
     return A.attn_cache_def(cfg, mixer, batch, capacity, dtype)
 
 
+def layer_cache_axes(cfg, kind):
+    """Logical axes of ``layer_cache_def``'s entries."""
+    mixer = kind[0]
+    if mixer == "ssm":
+        return SSM.ssm_cache_axes(cfg)
+    if mixer == "rec":
+        return REC.rec_cache_axes(cfg)
+    if mixer == "mla":
+        return A.mla_cache_axes(cfg)
+    if mixer == "xdec":
+        x = ("batch", "seq_data", "heads", None)
+        return dict(A.attn_cache_axes(cfg, "attn"), xk=x, xv=x)
+    return A.attn_cache_axes(cfg, mixer)
+
+
 def layer_decode(cfg, kind, p, x, cache, ctx):
     """One token; the cache's leaves are written in place."""
     mixer, mlpk = kind
@@ -342,6 +358,18 @@ class Stack(nn.Module):
                      for k in self.period_kinds],
             "tail": [layer_cache_def(cfg, k, batch, capacity, dtype)
                      for k in self.tail_kinds],
+        }
+
+    def cache_axes(self):
+        """Logical axes of ``cache_defs``' leaves; a core leaf adds
+        ``layers`` ahead."""
+        cfg = self.cfg
+        return {
+            "head": [layer_cache_axes(cfg, k) for k in self.head_kinds],
+            "core": [{n: ("layers",) + a
+                      for n, a in layer_cache_axes(cfg, k).items()}
+                     for k in self.period_kinds],
+            "tail": [layer_cache_axes(cfg, k) for k in self.tail_kinds],
         }
 
     def forward(self, x, ctx):
@@ -572,6 +600,10 @@ class LM(nn.Module):
                                        device="meta"),
                 "layers": self.decoder.cache_defs(batch, capacity,
                                                   self.compute_dtype)}
+
+    def cache_logical(self):
+        """Logical axes of ``init_cache``'s leaves, in its structure."""
+        return {"lengths": ("batch",), "layers": self.decoder.cache_axes()}
 
     def materialize_cache(self, batch, capacity):
         return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,

@@ -106,6 +106,14 @@ def route(cfg: ModelConfig, p, xf):
     return probs, gates, eidx
 
 
+def _per_expert(e, E):
+    """How many of the int64 ids ``e`` (each in [0, E)) name each of E
+    experts: ``bincount(e, minlength=E)`` with a shape that does not depend
+    on the data (a fake-tensor trace can run it)."""
+    return torch.zeros(E, dtype=torch.int64, device=e.device).scatter_add_(
+        0, e, torch.ones_like(e))
+
+
 def dispatch(eidx, E, C):
     """The sort-based dispatch of the T*K token copies -> (order, keep,
     dest): ``order`` sorts the copies by expert (stable), ``keep`` marks
@@ -114,7 +122,7 @@ def dispatch(eidx, E, C):
     e_flat = eidx.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     se = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = _per_expert(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(e_flat.numel(), device=eidx.device) - starts[se]
     keep = pos_in_e < C
@@ -191,7 +199,7 @@ def _moe_local(cfg: ModelConfig, p, x):
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * K)
+    ce = _per_expert(eidx.reshape(-1), E).float() / (T * K)
     aux = m.router_aux_weight * E * torch.sum(me * ce)
 
     C = _capacity(T, cfg)
@@ -320,7 +328,7 @@ def _moe_ep(cfg: ModelConfig, p, x, mesh, rules, expert_axis):
     # aux loss from this rank's stats, averaged over the batch axes and
     # the expert axis
     me = probs.mean(0)
-    ce = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * K)
+    ce = _per_expert(eidx.reshape(-1), E).float() / (T * K)
     aux = m.router_aux_weight * E * torch.sum(me * ce)
     aux = _MeanAux.apply(aux, batch_groups + [group], nsh)
 

@@ -89,6 +89,10 @@ def rec_cache_def(cfg: ModelConfig, batch, dtype):
     }
 
 
+def rec_cache_axes(cfg: ModelConfig):
+    return {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn")}
+
+
 def rec_decode(cfg: ModelConfig, p, x, cache):
     """x: [B,1,D] -> (y [B,1,D], cache); the cache is updated in place."""
     R, nh, bh = _dims(cfg)

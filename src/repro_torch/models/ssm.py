@@ -100,6 +100,11 @@ def ssm_cache_def(cfg: ModelConfig, batch, dtype):
     }
 
 
+def ssm_cache_axes(cfg: ModelConfig):
+    return {"conv": ("batch", None, "ffn"),
+            "h": ("batch", "heads", None, None)}
+
+
 def ssm_decode(cfg: ModelConfig, p, x, cache):
     """x: [B,1,D] -> (y [B,1,D], cache); the cache is updated in place."""
     B = x.shape[0]

@@ -225,7 +225,7 @@ def apply_updates(cfg: OptConfig, state, grads,
     return state, {"grad_norm": gn, "lr": lr}
 
 
-def _batch_dims(batch, mesh, rules):
+def batch_dims(batch, mesh, rules):
     """The mesh dims the batch is split over (its ``batch`` axes, where
     they divide B) and this rank's slice of every entry."""
     B = next(iter(batch.values())).shape[0]
@@ -241,28 +241,49 @@ def _batch_dims(batch, mesh, rules):
                      for k, v in batch.items()}
 
 
-def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
-               mesh, rules):
-    """One train step on ``mesh`` (the module's docstring)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    logical = state_logical(lm)["params"]
+def _ep_dim(lm, mesh):
+    """The mesh dim of the expert axis when EP applies, else None."""
     ep = MOE.expert_axis(lm.cfg)
-    ep_dim = list(part.axis_sizes(mesh)).index(ep) if ep else None
-    params = dict(lm.named_parameters())
+    return list(part.axis_sizes(mesh)).index(ep) if ep else None
+
+
+def _compute_placements(lm, mesh):
+    """``fn(name, dtensor)`` -> the placements a rank computes on:
+    Replicate, but an expert weight's shard over the expert axis."""
+    from torch.distributed.tensor import Replicate
+    logical = state_logical(lm)["params"]
+    ep_dim = _ep_dim(lm, mesh)
 
     def compute_placements(n, dt):
-        # Replicate, but an expert weight's shard over the expert axis
         keep = ep_dim is not None and "experts" in logical[n]
         return [pl if keep and d == ep_dim else Replicate()
                 for d, pl in enumerate(dt.placements)]
+    return compute_placements
 
+
+def gather_params(lm, params, mesh):
+    """Point each of the LM's parameters at its compute copy: the DTensor
+    ``params[name]`` gathered whole (an expert weight under EP only over
+    the other axes); clears the gradients. The mesh step's first half, and
+    what a serving call on a mesh does before it runs."""
+    compute_placements = _compute_placements(lm, mesh)
     with torch.no_grad():
-        for n, p in params.items():
-            dt = state["params"][n]
+        for n, p in lm.named_parameters():
+            dt = params[n]
             p.data = dt.redistribute(mesh,
                                      compute_placements(n, dt)).to_local()
             p.grad = None
-    dims, n_batch, local = _batch_dims(batch, mesh, rules)
+
+
+def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
+               mesh, rules):
+    """One train step on ``mesh`` (the module's docstring)."""
+    from torch.distributed.tensor import DTensor, Partial
+    ep_dim = _ep_dim(lm, mesh)
+    params = dict(lm.named_parameters())
+    compute_placements = _compute_placements(lm, mesh)
+    gather_params(lm, state["params"], mesh)
+    dims, n_batch, local = batch_dims(batch, mesh, rules)
     loss, metrics = lm.loss(local, impl=impl, schedule=schedule_kind)
     loss.backward()
     grads = {}

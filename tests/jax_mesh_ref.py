@@ -10,7 +10,10 @@ Jobs: ``indices`` (``NamedSharding.devices_indices_map`` of the cases in
 (1,2), (1,4) and (2,2), with gradients, at capacity factor 8 and, on the
 meshes, at each of the input's ``low_cfs``, where copies drop; two AdamW
 steps of the deepseek-moe-16b smoke LM on the (2,2) mesh, with ``m`` after
-the first).
+the first), ``specs`` (``launch.specs.input_specs`` of the cells in
+``cases.json``: each argument leaf's shape, dtype and resolved spec) and
+``flops`` (per-device FLOPs of each cell in ``cases.json``, smoke configs,
+by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run).
 """
 import json
 import os
@@ -138,5 +141,62 @@ def job_ep(d):
     np.savez(os.path.join(d, "out.npz"), **out)
 
 
+def _spec_entry(e):
+    return list(e) if isinstance(e, tuple) else e
+
+
+def job_specs(d):
+    """Cases: [arch, shape name, mesh shape]."""
+    import jax
+    from repro.configs.base import SHAPES
+    from repro.launch import specs
+    with open(os.path.join(d, "cases.json")) as f:
+        cases = json.load(f)
+    out = []
+    for arch, shape, mshape in cases:
+        mesh = _mesh(mshape, ("data", "model"))
+        sp = specs.input_specs(arch, SHAPES[shape], mesh)
+        leaves = {}
+        args = jax.tree_util.tree_leaves_with_path(sp["args"])
+        shs = jax.tree_util.tree_leaves(
+            sp["in_shardings"],
+            is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))
+        for (path, a), sh in zip(args, shs):
+            leaves[_dotted(path)] = [list(a.shape), str(a.dtype),
+                                     [_spec_entry(e) for e in sh.spec]]
+        out.append(leaves)
+    with open(os.path.join(d, "specs.json"), "w") as f:
+        json.dump(out, f)
+
+
+def job_flops(d):
+    """Cases: [arch, kind, global batch, seq, mesh shape]; the smoke
+    config at remat "full", the default implementation (``blocked`` on
+    the CPU), as ``launch/dryrun.py``'s ``run_cell``."""
+    import jax
+    from repro.configs.base import ShapeConfig, get_smoke_config
+    from repro.launch import specs
+    from repro.roofline import hlo
+    from repro.sharding import partition as part
+    with open(os.path.join(d, "cases.json")) as f:
+        cases = json.load(f)
+    out = []
+    for arch, kind, B, S, mshape in cases:
+        mesh = _mesh(mshape, ("data", "model"))
+        shape = ShapeConfig("cell", S, B, kind)
+        with part.activate(mesh):
+            sp = specs.input_specs(get_smoke_config(arch), shape, mesh,
+                                   cfg_overrides={"remat": "full"})
+            fn = specs.build_fn(sp)
+            co = jax.jit(fn, in_shardings=sp["in_shardings"],
+                         out_shardings=sp["out_shardings"],
+                         donate_argnums=sp["donate_argnums"]) \
+                .lower(*sp["args"]).compile()
+        out.append(hlo.analyze_text(co.as_text())["flops"])
+    with open(os.path.join(d, "flops.json"), "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
-    {"indices": job_indices, "ep": job_ep}[sys.argv[1]](sys.argv[2])
+    {"indices": job_indices, "ep": job_ep, "specs": job_specs,
+     "flops": job_flops}[sys.argv[1]](sys.argv[2])

@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax_or_repro():
         "             'examples.quickstart', 'examples.train_e2e',\n"
         "             'examples.serve_batch', 'sharding.partition',\n"
         "             'launch.mesh', 'runtime.elastic',\n"
-        "             'examples.elastic_training'):\n"
+        "             'examples.elastic_training', 'roofline.analysis',\n"
+        "             'roofline.counter', 'launch.specs',\n"
+        "             'launch.dryrun'):\n"
         "    assert 'repro_torch.' + want in names, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -431,13 +431,17 @@ def test_scan_function_with_one_output_used():
 
 
 @pytest.mark.parametrize("path", ["train", "train-moe", "train-mla",
-                                  "train-mamba", "train-rg"])
+                                  "train-mamba", "train-rg", "train-gemma",
+                                  "train-stablelm", "train-gemma3",
+                                  "train-vlm", "train-encdec"])
 def test_chip_smoke_gradient_leaves_exist_at_each_depth(path):
     """Each gradient leaf that chip_smoke.py's train path gates names a
-    parameter of its arch at the path's depth, and of the fp32 twin at the
-    twin's depth, with an index that picks one matrix; the card run raises
-    on a missing one. The smoke configs keep the reference's layer layout
-    (the dense first layer of the MoE archs), so the paths are the card's."""
+    parameter of its arch at the path's depth, at its bf16 gate's depth,
+    and of the fp32 twin at the twin's depth, with an index that picks one
+    matrix; the card run raises on a missing one. The smoke configs keep
+    the reference's layer layout (the dense first layer of the MoE archs,
+    gemma3-1b's period of 6), so the paths are the card's; an
+    encoder-decoder's encoder is cut to the same depth."""
     import importlib.util
     from pathlib import Path
     spec_ = importlib.util.spec_from_file_location(
@@ -448,8 +452,12 @@ def test_chip_smoke_gradient_leaves_exist_at_each_depth(path):
     assert set(spec["leaves"]) == set(spec["twin_leaves"])
     assert set(spec["bf16_gated"]) <= set(spec["leaves"])
     for layers, leaves in ((spec["layers"], spec["leaves"]),
+                           (spec.get("gate_layers", spec["layers"]),
+                            spec["leaves"]),
                            (spec["twin_layers"], spec["twin_leaves"])):
-        cfg = get_smoke_config(spec["arch"]).replace(num_layers=layers)
+        cfg = get_smoke_config(spec["arch"])
+        cfg = cfg.replace(num_layers=layers, **(
+            {"encoder_layers": layers} if cfg.encoder_layers else {}))
         params = dict(LM(cfg, device="cpu").named_parameters())
         for label, (name, i) in leaves.items():
             assert name in params, (layers, label, name)
