@@ -192,6 +192,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
              against the local path (y, aux, every gradient; fp32), the
              share of routings that differ and, in bf16 at capacity
              factor 1.25, of copies dropped, and gloo's host-staged times.
+             ``dist-tp``: four gloo ranks on the card, a (1, 4) mesh; the
+             tensor-parallel train step (heads, ffn and vocabulary split
+             over "model") of deepseek-7b at full width and 4 layers and
+             gemma3-1b at one period (6 layers), B=1, S=2048, from the
+             seeded weights of an unsharded step on rank 0: fp32 (FMA
+             flash) loss, grad_norm and every updated leaf, bf16 (``tc``)
+             step 1 against the fp32 step between witnesses and a control;
+             each rank's flash launches counted and held against the
+             plain versions at their local head counts; ms per step, peak
+             per rank, gloo's host-staged all-reduce.
  9. ckpt   — deepseek-7b's training state at full width and 2 layers
              ({step, params, m, v}: 1.24 B params, 14.92 GB in 37 leaves),
              batches from the port's TokenPipeline: 2 AdamW steps, an
@@ -223,6 +233,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -237,6 +248,10 @@ PEAK_BYTES = ROOF.HBM_BW            # HBM3, 3.35e12 B/s
 PEAK_F32_FLOPS = ROOF.PEAK_F32_FLOPS   # fp32 outside the tensor cores
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2}   # kernel vs plain, per case
+# a bf16 flash launch on a model's activations (``_hold_recorded``): each
+# element outside TOL within this many times the larger of TOL and SDPA's
+# error on it
+SDPA_ERR_MULT = 2.0
 LOGITS_REL_L2 = 5e-2     # served bf16 model, kernel vs plain (phase logits)
 LOGITS_REL_L2_FP32 = 1e-2   # fp32 twin, kernel vs plain
 # the served bf16 models: random-init layers carry any last-bit flip of a
@@ -3019,25 +3034,34 @@ def process_group(backend):
         path.unlink(missing_ok=True)
 
 
-def _timed_steps(name, step, state, batch, n=TRAIN_STEPS):
+def _timed_steps(name, step, state, batch, n=TRAIN_STEPS, quiet=False):
     """``n`` steps of ``step`` -> (state, one record a step: loss, aux,
-    grad_norm, lr, ms by CUDA events and by the host clock)."""
+    grad_norm, lr, ms by CUDA events and by the host clock), each logged
+    unless ``quiet``."""
     import torch
     rows = []
+    # a CPU rehearsal in spawned ranks (which see no patches) has no events
+    on_card = next(iter(batch.values())).is_cuda
     for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+        if on_card:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
         h0 = time.perf_counter()
-        e0.record()
+        if on_card:
+            e0.record()
         state, met = step(state, batch)
-        e1.record()
-        torch.cuda.synchronize()
+        if on_card:
+            e1.record()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
         rows.append(dict(step=int(state["step"]), loss=met["loss"].item(),
                          grad_norm=met["grad_norm"].item(),
-                         aux=met["aux"].item(),
-                         lr=met["lr"].item(), ms=e0.elapsed_time(e1),
-                         host_ms=(time.perf_counter() - h0) * 1e3))
+                         aux=met["aux"].item(), lr=met["lr"].item(),
+                         ms=e0.elapsed_time(e1) if on_card else host_ms,
+                         host_ms=host_ms))
         r = rows[-1]
+        if quiet:
+            continue
         log(f"{name}: step {r['step']}: loss {r['loss']:.6f} (aux "
             f"{r['aux']:.6f}), grad_norm {r['grad_norm']:.6f}, lr "
             f"{r['lr']:.3e}, {r['ms']:.3f} ms (CUDA events; host clock "
@@ -3369,6 +3393,536 @@ def phase_dist_ep():
     assert low["y_finite"], low
     assert low["y_rel_l2_to_cpu"] <= DIST_EP_REL_L2, low
     assert low["aux_rel_to_cpu"] <= DIST_EP_REL_L2, low
+    return out
+
+
+# dist-tp: tensor-parallel train steps (``sharding/tp.py``) on DIST_TP_WORLD
+# gloo ranks sharing the card, a (1, 4) ("data", "model") mesh, B=1,
+# S=TRAIN_S. deepseek-7b at full width, 4 of its 30 layers: 8 of 32 heads,
+# 2752 of 11008 ffn columns and 25600 of 102400 vocabulary rows a rank;
+# 1.65 B params (the two vocabulary tables 0.84 B), some 20 GB of fp32
+# state (params, m, v) over the four ranks. gemma3-1b at full width, one
+# period (6 layers, 5 local + 1 global): one of 4 q heads a rank beside its
+# one kv head, gathered; the tied 262144-row table 65536 a rank
+DIST_TP_WORLD = 4
+DIST_TP_PATHS = (("deepseek-7b", 4), ("gemma3-1b", 6))
+DIST_TP_STEPS = {"float32": 2, "bfloat16": 3}
+DIST_TP_LOSS_REL = 1e-4  # fp32 step 1's loss: the forward keeps its digits
+# step 1's loss and grad_norm (and, in fp32, each later step's loss) of each
+# code against the fp32 unsharded step on the same weights and batch, by
+# path and dtype. At full width and random init deepseek-7b's gradient
+# keeps few digits: its sums taken in parts (a witness) move its norm 1.7%
+# in fp32, 27% in bf16; gemma3-1b's keeps them. Each limit sits between
+# the witnesses and the control as read on an H100 (PERF.md §6), and each
+# run reads them again
+DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
+               ("deepseek-7b", "bfloat16"): 0.5,
+               ("gemma3-1b", "float32"): 1e-3,
+               ("gemma3-1b", "bfloat16"): 1e-2}
+# the fp32 gradient, leaf by leaf: ``m`` after step 1 is (1 - b1) x the
+# gradient, and each rank's shard of each leaf is held against the same cut
+# of the unsharded step's ``m`` by relative L2 (the worst shard). Each
+# leaf's distance must stay within DIST_TP_M_MULT times the witness's on
+# that leaf (the unsharded step with the split step's sums in parts: a
+# correct code that differs in order alone, which reads how many digits
+# that leaf's gradient keeps) plus DIST_TP_M_FLOOR of the path; the control
+# (the norms ahead of the split blocks summed again over "model", which
+# multiplies their gradients by the model axis) must not. Both are read
+# each run (PERF.md §6)
+DIST_TP_M_MULT = 1.25
+DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4}
+
+
+def _norms_summed_again(partial_over_model):
+    """``partition.partial_over_model`` that also names the norms ahead of
+    a split block (``ln1``, ``ln2``, ``final_norm``): their whole
+    gradients summed over "model" once more. The fp32 gradient's control."""
+    def rule(plan, block, leaf):
+        return partial_over_model(plan, block, leaf) or (
+            plan is not None and block is None and leaf in ("scale", "bias"))
+    return rule
+
+
+@contextmanager
+def _sums_in_parts(n):
+    """The unsharded step with the split step's order of sums, in one
+    process: each column-parallel product (q, k and v where the kv heads
+    split, the MLP's wi*, the logits) taken as ``n`` column groups, so that
+    the backward sums ``n`` partial input gradients, and each row-parallel
+    one (attention's and the MLP's wo) as ``n`` partial products summed in
+    fp32, each rounded to the compute dtype first. A correct code that
+    differs from the unsharded one in order alone: the witness of the
+    split step's gates."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import apply_norm, apply_rope
+
+    def cols(x, w, split=True):
+        k = w.shape[-1] // n if split else w.shape[-1]
+        return torch.cat([x @ w[..., i:i + k].to(x.dtype)
+                          for i in range(0, w.shape[-1], k)], -1)
+
+    def rows(o, w):
+        k = o.shape[-1] // n
+        ys = [o[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k].to(o.dtype)
+              for i in range(n)]
+        return torch.stack(ys).float().sum(0).to(o.dtype)
+
+    def qkv(cfg, p, x, positions, rope=True, tp=None):
+        B, S, _ = x.shape
+        H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        kv = Kh % n == 0
+        q = cols(x, p["wq"]).reshape(B, S, H, hd)
+        k = cols(x, p["wk"], kv).reshape(B, S, Kh, hd)
+        v = cols(x, p["wv"], kv).reshape(B, S, Kh, hd)
+        if cfg.qk_norm:
+            q = A._rms_head(q, p["q_norm"], cfg.norm_eps)
+            k = A._rms_head(k, p["k_norm"], cfg.norm_eps)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+        return q, k, v
+
+    def attn_core(cfg, p, q, k, v, *, kind="attn", causal=True, impl=None,
+                  tp=None):
+        B, S, H, hd = q.shape
+        o = ops.attention(q, k, v, causal=causal, window=A._window(cfg, kind),
+                          softcap=cfg.attn_logit_softcap, impl=impl)
+        return rows(o.reshape(B, S, H * hd), p["wo"])
+
+    def apply_mlp(cfg, p, x, tp=None):
+        g = cols(x, p["wi_gate"])
+        g = F.silu(g) if cfg.mlp_kind == "swiglu" else \
+            F.gelu(g, approximate="tanh")
+        return rows(g * cols(x, p["wi_up"]), p["wo"])
+
+    def logits(self, x, tp=None):
+        cfg = self.cfg
+        x = apply_norm(cfg, M.params_tree(self.final_norm), x)
+        w = self.embed.T if cfg.tie_embeddings else self.head
+        out = cols(x, w.to(self.compute_dtype))
+        if cfg.logits_softcap > 0:
+            out = torch.tanh(out / cfg.logits_softcap) * cfg.logits_softcap
+        return out
+    saved = A._qkv, A.attn_core, M.apply_mlp, M.LM._logits
+    A._qkv, A.attn_core, M.apply_mlp, M.LM._logits = \
+        qkv, attn_core, apply_mlp, logits
+    try:
+        yield
+    finally:
+        A._qkv, A.attn_core, M.apply_mlp, M.LM._logits = saved
+
+
+def _tp_placements(lm, mesh):
+    """Each of ``lm``'s leaves -> its storage placements on ``mesh``
+    (``state_logical``'s specs, resolved)."""
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partition as part
+    logical = adamw.state_logical(lm)["params"]
+    return {n: part.placements(part.resolve(logical[n], p.shape, mesh), mesh)
+            for n, p in lm.named_parameters()}
+
+
+def _tp_cut(full, placements, world):
+    """``full`` cut as each rank of a (1, ``world``) ("data", "model") mesh
+    holds it at ``placements``: a list of ``world`` views."""
+    pl = placements[1]
+    return list(full.chunk(world, pl.dim)) if pl.is_shard() else [full] * world
+
+
+def _m_rel(got, want):
+    """Relative L2 of ``got`` against ``want`` (0 where both are 0)."""
+    d, r = (got - want).float().norm(), want.float().norm()
+    return float(d / r) if r > 0 else (0.0 if d == 0 else math.inf)
+
+
+def _tp_place(lm, mesh):
+    """``lm``'s train state on ``mesh`` at ``state_logical``'s specs, each
+    rank keeping its shard of its own copy (every rank builds the same
+    seeded weights): no collective; each whole weight is freed as it is
+    placed (the step points the LM at its compute copies), and ``m`` and
+    ``v`` are made as shards."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = _tp_placements(lm, mesh)
+    params = {}
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            pl = placements[n]
+            local = distribute_tensor(p.detach(), mesh, pl,
+                                      src_data_rank=None).to_local().clone()
+            params[n] = DTensor.from_local(local, mesh, pl, run_check=False)
+            p.data = p.data.new_empty(0)
+
+    def zeros():
+        return {n: DTensor.from_local(torch.zeros_like(t.to_local()), mesh,
+                                      t.placements, run_check=False)
+                for n, t in params.items()}
+    return {"step": torch.zeros((), dtype=torch.int32), "params": params,
+            "m": zeros(), "v": zeros()}
+
+
+def _dist_tp_rank(rank, world, device, paths, steps, seq):
+    """One of DIST_TP_WORLD ranks sharing the card through gloo: for each
+    (label, full-width config cut in depth) of ``paths`` and each compute
+    dtype, rank 0 takes ``steps[dtype]`` AdamW steps without a mesh from
+    the seeded weights, and step 1 again with the split step's sums in
+    parts (``_sums_in_parts``, the witness); then every rank takes the same steps from the same
+    weights through the tensor-parallel ``make_train_step`` on a (1, world)
+    mesh, the kernel counts set to 0 just before and read just after,
+    every flash launch's shapes recorded and held against the plain
+    versions after. fp32, after step 1: each rank's shard of ``m`` against
+    rank 0's unsharded step 1 (scattered leaf by leaf), rank 0's shards of
+    the params too, then step 1 again with the norms' gradients summed over "model"
+    once more (``_norms_summed_again``, the control) against the same
+    shards of ``m``. bf16: step 1 again with the attention's all-reduce
+    over "model" dropped, the control. Then one all-reduce of a layer's
+    activations timed in each dtype. Each rank returns its readings; rank
+    0's carry the unsharded steps and the witnesses."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding import tp as TP
+    global DEVICE, TRAIN_S
+    DEVICE, TRAIN_S = device, seq
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device(device).type == "cuda"
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    opt = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    def build(cfg, dtype):
+        cfg = cfg.replace(dtype=dtype)
+        lm = LM(cfg, device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(0))
+        return lm, _train_batch(cfg, 1)
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def steps_in_two(name, step, state, batch, n, quiet=False,
+                     after_first=None):
+        """``n`` steps; after step 1 the peak is read and ``after_first``
+        called on the state (outside the timed steps)."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state, rows = _timed_steps(name, step, state, batch, 1, quiet=quiet)
+        first_peak = peak()
+        if after_first is not None:
+            after_first(state, rows[0])
+        state, more = _timed_steps(name, step, state, batch, n - 1,
+                                   quiet=quiet)
+        return state, rows + more, first_peak
+
+    def tp_run(name, cfg, dtype, n, quiet=True, after_first=None):
+        lm, batch = build(cfg, dtype)
+        state = _tp_place(lm, mesh)
+        with part.activate(mesh):
+            state, rows, first_peak = steps_in_two(
+                name, adamw.make_train_step(lm, opt), state, batch, n,
+                quiet, after_first)
+        return lm, state, rows, first_peak
+
+    mine = {}     # this rank's shards of the unsharded step 1's m
+
+    def m_rels(state):
+        """Per leaf, the worst rank's relative L2 of its shard of
+        ``state``'s m against the same shard of the unsharded m."""
+        names = list(mine)
+        rel = torch.tensor([_m_rel(state["m"][k].to_local(), mine[k])
+                            for k in names], dtype=torch.float64)
+        dist.all_reduce(rel, op=dist.ReduceOp.MAX)
+        return dict(zip(names, rel.tolist()))
+
+    out = {"rank": rank, "cases": {}}
+    for label, cfg in paths:
+        for dtype, n in steps.items():
+            key = f"{label} {dtype}"
+            fp32 = dtype == "float32"
+            res = out["cases"][key] = {}
+            want = None
+            if rank == 0:
+                lm, batch = build(cfg, dtype)
+                res["n_params"] = sum(p.numel() for p in lm.parameters())
+
+                def keep(state, _):
+                    nonlocal want
+                    want = {k: {m: t.detach().to("cpu", copy=True)
+                                for m, t in state[k].items()}
+                            for k in ("m", "params")}
+                state, res["unsharded_steps"], res["unsharded_peak_gib"] = \
+                    steps_in_two(f"dist-tp: {key} unsharded",
+                                 adamw.make_train_step(lm, opt),
+                                 adamw.init_state(lm), batch, n,
+                                 after_first=keep if fp32 else None)
+                del state, lm, batch
+                free()
+                lm, batch = build(cfg, dtype)
+                with _sums_in_parts(world):
+                    state, res["witness_steps"] = _timed_steps(
+                        f"dist-tp: {key} unsharded, sums in {world} parts",
+                        adamw.make_train_step(lm, opt), adamw.init_state(lm),
+                        batch, 1)
+                if fp32:     # the witness's m, cut as the ranks hold it
+                    pls = _tp_placements(lm, mesh)
+                    res["m_rel_witness"] = {
+                        k: max(_m_rel(a, b) for a, b in zip(
+                            _tp_cut(state["m"][k], pls[k], world),
+                            _tp_cut(want["m"][k].to(DEVICE), pls[k], world)))
+                        for k in pls}
+                del state, lm, batch
+                free()
+            dist.barrier()
+
+            def hold_step1(state, row):
+                """Each rank's shard of m after step 1 against the same cut
+                of rank 0's unsharded m, scattered leaf by leaf from the
+                host, by relative L2 (``m_rels``); and, a sanity check on
+                rank 0's shards, the params within 2 x lr of the unsharded
+                ones, plus the one fp32 rounding each weight takes after its
+                update (an ulp, at most 2^-23 of the weight)."""
+                t0 = time.perf_counter()
+                for k, local in state["m"].items():
+                    cut = torch.empty(local.to_local().shape,
+                                      dtype=local.dtype)
+                    pl = local.placements
+                    if pl[1].is_shard():
+                        dist.scatter(cut, [c.contiguous() for c in _tp_cut(
+                            want["m"][k], pl, world)] if rank == 0 else None,
+                            src=0)
+                    else:
+                        if rank == 0:
+                            cut.copy_(want["m"][k])
+                        dist.broadcast(cut, src=0)
+                    mine[k] = cut.to(DEVICE)
+                res["m_rel"] = m_rels(state)
+                if rank == 0:
+                    lim, worst, beyond = 2 * row["lr"], 0.0, -math.inf
+                    for k, local in state["params"].items():
+                        cut = _tp_cut(want["params"][k], local.placements,
+                                      world)[0].to(DEVICE)
+                        d = (local.to_local() - cut).abs()
+                        worst = max(worst, float(d.max()))
+                        beyond = max(beyond, float(
+                            (d - lim - cut.abs() * 2.0**-23).max()))
+                        del d, cut
+                    res.update(params_max_abs_err=worst, params_limit=lim,
+                               params_max_beyond_limit=beyond)
+                res["hold_s"] = time.perf_counter() - t0
+
+            # the tensor-parallel steps, counted and recorded
+            calls, n_reduce = {}, [0]
+            reduce = TP._all_reduce
+
+            def counted(t, group, op=None):
+                n_reduce[0] += 1
+                return reduce(t, group, op)
+            sync()
+            reset_kernel_counts()
+            TP._all_reduce = counted
+            try:
+                with _flash_inputs(calls):
+                    lm, state, rows, res["peak_gib"] = tp_run(
+                        f"dist-tp: {key} on (1, 4)", cfg, dtype, n,
+                        quiet=rank != 0,
+                        after_first=hold_step1 if fp32 else None)
+            finally:
+                TP._all_reduce = reduce
+            sync()
+            res.update(steps=rows, launches=kernel_counts(),
+                       flash=flash_counts(), flash_bwd=bwd_counts(),
+                       all_reduces_per_step=n_reduce[0] / n,
+                       plan=adamw.tp_plan(lm, mesh)._asdict())
+            res["held"] = _hold_recorded(f"dist-tp: {key} rank {rank}", calls)
+            del calls, state, lm, want
+            free()
+            if fp32:      # the control: the norms' gradients summed again
+                real = part.partial_over_model
+                part.partial_over_model = _norms_summed_again(real)
+                try:
+                    lm, state, rows, _ = tp_run(
+                        f"dist-tp: {key} control", cfg, dtype, 1)
+                finally:
+                    part.partial_over_model = real
+                res["control_steps"] = rows
+                res["m_rel_control"] = m_rels(state)
+            else:         # the control: attention not summed
+                shim = types.SimpleNamespace(copy_to=TP.copy_to,
+                                             reduce_from=lambda y, tp: y)
+                real, A.TP = A.TP, shim
+                try:
+                    lm, state, rows, _ = tp_run(f"dist-tp: {key} control",
+                                                cfg, dtype, 1)
+                finally:
+                    A.TP = real
+                res["control_steps"] = rows
+            del lm, state
+            mine.clear()
+            free()
+
+    # one layer's activations all-reduced over the four ranks, staged
+    # through the host by gloo
+    out["all_reduce_ms"] = {}
+    d = max(cfg.d_model for _, cfg in paths)
+    for dtype in steps:
+        x = torch.ones((1, seq, d), dtype=getattr(torch, dtype),
+                       device=DEVICE)
+        ts = []
+        for i in range(6):
+            sync()
+            t0 = time.perf_counter()
+            dist.all_reduce(x, group=mesh.get_group("model"))
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out["all_reduce_ms"][dtype] = {"shape": [1, seq, d],
+                                       "median_ms": sorted(ts[1:])[2]}
+    return out
+
+
+def phase_dist_tp():
+    """Tensor-parallel compute on the card: DIST_TP_WORLD spawned processes
+    share it through gloo (NCCL refuses two ranks on one card) on a (1, 4)
+    ("data", "model") mesh, DIST_TP_PATHS at full width, B=1, S=TRAIN_S
+    (``_dist_tp_rank``). Gates, against the unsharded step on the same
+    weights and batch: in fp32 (the FMA flash kernels) step 1's loss within
+    DIST_TP_LOSS_REL, the gradient leaf by leaf (each rank's shard of ``m``
+    after step 1) within DIST_TP_M_MULT times the witness's distance on
+    that leaf plus DIST_TP_M_FLOOR, the control (the norms summed again)
+    outside, and rank 0's updated weights within 2 x lr of the unsharded
+    ones (a sanity check: any gradient moves a weight by at most lr at
+    step 1, and fp32 rounds it once more); in each dtype step 1's loss and
+    grad_norm (fp32: every step's loss) within DIST_TP_REL of the fp32
+    unsharded step's, the witnesses (the unsharded step with the split
+    step's sums taken in parts, ``_sums_in_parts``, and in bf16 the
+    unsharded bf16 step) inside and in bf16 the control (the attention's
+    all-reduce over "model" dropped) outside; on each rank every flash
+    launch on the dtype's route, 2 x layers forwards (remat) and layers
+    backwards a step, each launch's shapes held against the plain versions
+    (``_hold_recorded``). Reports ms per step and peak GiB per rank (of
+    step 1), the all-reduces a step and one's host-staged time (gloo, not
+    NVLink)."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths = [(arch, _train_cfg(arch, layers, "bfloat16"))
+             for arch, layers in DIST_TP_PATHS]
+    res = run_ranks(_dist_tp_rank, DIST_TP_WORLD,
+                    (DEVICE, paths, DIST_TP_STEPS, TRAIN_S), backend="gloo",
+                    device=DEVICE, timeout_s=DIST_TIMEOUT_S)
+    out = {"spawn_and_run_s": time.perf_counter() - t0, "cases": {},
+           "all_reduce_ms": res[0]["all_reduce_ms"], "launches": {},
+           "flash_launches_by_kernel": {"tc": 0, "fma": 0},
+           "flash_bwd_launches_by_route": {"tc": 0, "fma": 0}}
+    bad = []
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    for (arch, layers), (label, _) in zip(DIST_TP_PATHS, paths):
+        for dtype, n in DIST_TP_STEPS.items():
+            key = f"{label} {dtype}"
+            r0 = res[0]["cases"][key]
+            ranks = [r["cases"][key] for r in res]
+            route = "tc" if dtype == "bfloat16" else "fma"
+            c = {"layers": layers, "steps": n, "n_params": r0["n_params"],
+                 "plan": r0["plan"],
+                 "unsharded_steps": r0["unsharded_steps"],
+                 "unsharded_peak_gib": r0.get("unsharded_peak_gib"),
+                 "tp_steps_rank0": r0["steps"],
+                 "ms_per_step_by_rank": [
+                     sum(s["ms"] for s in r["steps"][1:]) / (n - 1)
+                     for r in ranks],
+                 "unsharded_ms_per_step": sum(
+                     s["ms"] for s in r0["unsharded_steps"][1:]) / (n - 1),
+                 "peak_gib_by_rank": [r.get("peak_gib") for r in ranks],
+                 "all_reduces_per_step": r0["all_reduces_per_step"],
+                 "launches_by_rank": [r["launches"] for r in ranks],
+                 "flash_by_rank": [r["flash"] for r in ranks],
+                 "flash_bwd_by_rank": [r["flash_bwd"] for r in ranks],
+                 "held_shapes": [[h["kind"], h["q"], h["k"], h["dtype"],
+                                  h["options"].get("window", 0)]
+                                 for h in r0["held"]]}
+            # step 1 of each code (and each later step's loss) against
+            # the fp32 unsharded step on the same weights and batch
+            f32 = res[0]["cases"][f"{label} float32"]["unsharded_steps"]
+            codes = {"tp": r0["steps"],
+                     "witness_sums_in_parts": r0["witness_steps"]}
+            if dtype == "bfloat16":
+                codes.update(control_attention_not_summed=r0["control_steps"],
+                             witness_unsharded_bf16=r0["unsharded_steps"])
+            c["rel_to_fp32"] = {
+                k: {"loss": [rel(a["loss"], b["loss"]) for a, b in zip(
+                    v if dtype == "float32" else v[:1], f32)],
+                    "grad_norm": rel(v[0]["grad_norm"], f32[0]["grad_norm"])}
+                for k, v in codes.items()}
+            c["limit"] = lim = DIST_TP_REL[arch, dtype]
+            worst = {k: max(v["loss"] + [v["grad_norm"]])
+                     for k, v in c["rel_to_fp32"].items()}
+            control = worst.pop("control_attention_not_summed", math.inf)
+            if max(worst.values()) > lim or control <= lim:
+                bad.append(f"{key}: {worst}, control {control}")
+            if dtype == "float32":
+                c["loss_rel_step1"] = c["rel_to_fp32"]["tp"]["loss"][0]
+                c.update({k: r0[k] for k in (
+                    "m_rel", "m_rel_witness", "m_rel_control",
+                    "params_max_abs_err", "params_limit",
+                    "params_max_beyond_limit", "hold_s")})
+                # each leaf's distance over its limit: at most 1 for the
+                # tensor-parallel step, over 1 somewhere for the control
+                lim = {k: DIST_TP_M_MULT * w + DIST_TP_M_FLOOR[arch]
+                       for k, w in c["m_rel_witness"].items()}
+                c["m_over_limit"], c["m_over_limit_control"] = (
+                    max((v[k] / lim[k], k) for k in lim)
+                    for v in (c["m_rel"], c["m_rel_control"]))
+                if c["loss_rel_step1"] > DIST_TP_LOSS_REL:
+                    bad.append(f"{key}: step 1's loss")
+                if c["m_over_limit"][0] > 1 or \
+                        c["m_over_limit_control"][0] <= 1:
+                    bad.append(f"{key}: m after step 1 over its limit, TP "
+                               f"{c['m_over_limit']}, control "
+                               f"{c['m_over_limit_control']}")
+                if c["params_max_beyond_limit"] > 0:
+                    bad.append(f"{key}: params beyond 2 x lr")
+            want = {"flash_attention_fwd": 2 * layers * n,
+                    "flash_attention_bwd": layers * n}
+            for r in ranks:
+                for kname, v in want.items():
+                    if r["launches"][kname] != v:
+                        bad.append(f"{key}: {kname} {r['launches']}")
+                if r["flash"][route] != want["flash_attention_fwd"] or \
+                        r["flash_bwd"][route] != want["flash_attention_bwd"]:
+                    bad.append(f"{key}: route {r['flash']} {r['flash_bwd']}")
+                for kname, v in r["launches"].items():
+                    out["launches"][kname] = out["launches"].get(kname, 0) + v
+                for k2 in ("tc", "fma"):
+                    out["flash_launches_by_kernel"][k2] += r["flash"][k2]
+                    out["flash_bwd_launches_by_route"][k2] += \
+                        r["flash_bwd"][k2]
+            out["cases"][key] = c
+            log(f"dist-tp: {key}: {json.dumps(c)}")
+    log(f"dist-tp: {DIST_TP_WORLD} gloo ranks on one card, launches "
+        f"{json.dumps(out['launches'])}, all-reduce of a layer's activations"
+        f" (host-staged by gloo) {json.dumps(out['all_reduce_ms'])}, "
+        f"{out['spawn_and_run_s']:.1f} s")
+    assert not bad, bad
     return out
 
 
@@ -3753,13 +4307,22 @@ def _hold_recorded(label, calls):
     REL_L2): the forward's o (and lse where the path asked for it) against
     ``attention_fwd_lse_plain``, the backward's dq, dk, dv against
     ``attention_bwd_plain``, beside a witness (the plain code in 64-wide
-    chunks). These launches come after the path's counts were read."""
+    chunks). A bf16 launch's o, dq, dk and dv also beside SDPA (a correct
+    code that rounds P to bf16, as the tensor-core kernel does), where it
+    takes the call: on a model's activations, whose outputs can be large
+    sums that cancel, P's rounding can put a few elements outside TOL.
+    Then the kernel may put no larger a share of elements outside it than
+    SDPA does, and each of its elements outside TOL must lie within
+    SDPA_ERR_MULT times the larger of TOL and SDPA's own error on that
+    element. These launches come after the path's counts were read."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     rows, bad = [], []
     for (kind, _, _), (ts, kw) in calls.items():
         kw = dict(kw)
         name = str(ts[0].dtype).split(".")[-1]
+        sdpa = name == "bfloat16" and not kw["softcap"] and (
+            not kw["causal"] or ts[0].shape[1] == ts[1].shape[1])
         with torch.no_grad():
             if kind == "fwd":
                 want_lse = kw.pop("want_lse", False)
@@ -3770,26 +4333,56 @@ def _hold_recorded(label, calls):
                 pairs = [("o", o, o_p, o_w)]
                 if want_lse:
                     pairs.append(("lse", lse, lse_p, lse_w))
+                lib = {"o": _sdpa_witness(
+                    None, *ts, causal=kw["causal"], window=kw["window"],
+                    scale=kw["scale"])} if sdpa else {}
             else:
                 got = fa.flash_attention_bwd(*ts, **kw)
                 want = fa.attention_bwd_plain(*ts, **kw)
                 wit = fa.attention_bwd_plain(*ts, chunk_q=64, chunk_k=64,
                                              **kw)
                 pairs = list(zip(("dq", "dk", "dv"), got, want, wit))
+        if kind == "bwd" and sdpa:
+            q, k, v, _, _, do = ts
+            lib = dict(zip(("dq", "dk", "dv"), _sdpa_grads(
+                q, k, v, do, kw["scale"], kw["causal"], kw["window"])))
+        elif kind == "bwd":
+            lib = {}
         torch.cuda.synchronize()
         rtol, atol = TOL[name]
+
+        def outside(a, b):
+            diff = (a.float() - b.float()).abs()
+            tol = atol + rtol * b.float().abs()
+            return diff, tol, diff > tol
         errs, ok = {}, True
         for lb, a, b, w in pairs:
-            diff = (a.float() - b.float()).abs()
-            excess = (diff - atol - rtol * b.float().abs()).max().item()
+            diff, tol, out = outside(a, b)
             errs[lb] = {"max_abs_err": diff.max().item(), "rel_l2": _rel(a, b),
-                        "witness_rel_l2": _rel(w, b)}
-            ok = ok and excess <= 0 and errs[lb]["rel_l2"] <= REL_L2[name] \
+                        "witness_rel_l2": _rel(w, b),
+                        "share_outside_tol": out.float().mean().item()}
+            within = errs[lb]["share_outside_tol"] == 0
+            if lb in lib:
+                ldiff, _, lout = outside(lib[lb], b)
+                # each element outside TOL against the larger of TOL and
+                # SDPA's error on it
+                over = (diff / torch.maximum(ldiff, tol))[out]
+                errs[lb].update(
+                    sdpa_max_abs_err=ldiff.max().item(),
+                    sdpa_rel_l2=_rel(lib[lb], b),
+                    sdpa_share_outside_tol=lout.float().mean().item(),
+                    outside_err_over_sdpa=over.max().item() if over.numel()
+                    else 0.0)
+                within = within or (
+                    errs[lb]["share_outside_tol"] <=
+                    errs[lb]["sdpa_share_outside_tol"] and
+                    errs[lb]["outside_err_over_sdpa"] <= SDPA_ERR_MULT)
+            ok = ok and within and errs[lb]["rel_l2"] <= REL_L2[name] \
                 and bool(torch.isfinite(a).all())
         row = {"kind": kind, "q": list(ts[0].shape), "k": list(ts[1].shape),
                "dtype": name, "options": kw, "errors": errs, "ok": ok}
         rows.append(row)
-        log(f"examples: {label} holds {json.dumps(row)}")
+        log(f"{label} holds {json.dumps(row)}")
         if not ok:
             bad.append(row)
     if bad:
@@ -3831,7 +4424,7 @@ def phase_examples():
                       "launches": kernel_counts()}
         log(f"examples: {label} launches {json.dumps(out[label])}")
         if hold:
-            out[label]["held"] = _hold_recorded(label, calls)
+            out[label]["held"] = _hold_recorded(f"examples: {label}", calls)
         return res
 
     t0 = time.perf_counter()
@@ -4064,12 +4657,14 @@ def _phases(run, failed, name, smi, traces):
                    traces)
     dist_train = run("dist-train", phase_dist_train)
     dist_ep = run("dist-ep", phase_dist_ep)
+    dist_tp = run("dist-tp", phase_dist_tp)
     saved = run("ckpt", phase_ckpt)
     examples = run("examples", phase_examples)
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
             or None in trains.values() or saved is None or examples is None \
-            or dist_train is None or dist_ep is None or roofline is None:
+            or dist_train is None or dist_ep is None or dist_tp is None \
+            or roofline is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     # each kernel's row at its first path's S=2048 shape
@@ -4097,6 +4692,8 @@ def _phases(run, failed, name, smi, traces):
                     train["launches"][kname]
         if dist_train["launches"][kname]:
             by_path["dist-train"] = dist_train["launches"][kname]
+        if dist_tp["launches"][kname]:       # the four ranks' together
+            by_path["dist-tp"] = dist_tp["launches"][kname]
         if saved["launches"][kname]:
             by_path[CKPT_LABEL] = saved["launches"][kname]
         for ex in EXAMPLES:
@@ -4124,6 +4721,7 @@ def _phases(run, failed, name, smi, traces):
                 + sum(t["flash_launches_by_kernel"][k]
                       for t in trains.values())
                 + dist_train["flash_launches_by_kernel"][k]
+                + dist_tp["flash_launches_by_kernel"][k]
                 + saved["flash_launches_by_kernel"][k]
                 + sum(examples[ex]["flash"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -4155,6 +4753,7 @@ def _phases(run, failed, name, smi, traces):
                 k: sum(t["flash_bwd_launches_by_route"][k]
                        for t in trains.values())
                 + dist_train["flash_bwd_launches_by_route"][k]
+                + dist_tp["flash_bwd_launches_by_route"][k]
                 + saved["flash_bwd_launches_by_route"][k]
                 + sum(examples[ex]["bwd"][k] for ex in EXAMPLES)
                 for k in ("tc", "fma")}
@@ -4194,7 +4793,7 @@ def _phases(run, failed, name, smi, traces):
                     "serving": {a: p[2] for a, p in paths.items()},
                     "train": trains, "roofline": roofline,
                     "dist_train": dist_train,
-                    "dist_ep": dist_ep, "ckpt": saved,
+                    "dist_ep": dist_ep, "dist_tp": dist_tp, "ckpt": saved,
                     "examples": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -12,8 +12,11 @@ and never touches CUDA. The world is torch's ``"fake"`` process group
 rank 0's (``roofline.counter``). The step runs the plain path
 (``impl="plain"``): the kernels are ``ctypes`` launches that meta and fake
 tensors cannot trace; the reference likewise lowers its XLA "blocked" path
-on host devices. The port computes on gathered weights (ROADMAP Queue 1
-item 4), so its per-device FLOPs shrink only with the batch axes.
+on host devices. A train cell traces the tensor-parallel step (attention
+by heads, dense MLPs by ffn, the vocabulary over "model", with their
+all-reduces; ``partition.tp_plan``); a serving cell computes on gathered
+weights, its per-device FLOPs shrinking with the batch axes only (ROADMAP
+Queue 1 item 4b).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
@@ -41,8 +44,10 @@ from repro_torch.roofline import counter as countlib
 from repro_torch.sharding import partition as part
 
 QKV_CONSTRAINT = ("--qkv-constraint shards q, k and v by heads over "
-                  "'model', which needs tensor-parallel compute (ROADMAP "
-                  "Queue 1 item 4); the port computes on gathered weights")
+                  "'model', which needs tensor-parallel compute: the port's "
+                  "train step has it, its prefill and decode compute on "
+                  "gathered weights until the serving slice (ROADMAP Queue "
+                  "1 item 4b)")
 
 
 @contextlib.contextmanager
@@ -140,7 +145,8 @@ def run_cell(arch, shape_name, *, multi_pod: bool = False,
              else shape_name)
     cfg0 = get_config(arch) if isinstance(arch, str) else arch
     overrides = dict(cfg_overrides or {})
-    if overrides.get("qkv_constraint") not in (None, cfg0.qkv_constraint):
+    if overrides.get("qkv_constraint") not in (None, cfg0.qkv_constraint) \
+            and shape.kind != "train":
         raise NotImplementedError(QKV_CONSTRAINT)
     overrides.setdefault("remat", remat)
     if capacity_factor is not None and cfg0.moe is not None:
@@ -209,8 +215,8 @@ def main(argv=None):
                     help="inference rule override: no FSDP on weights")
     ap.add_argument("--out", default=None, help="JSONL output path")
     args = ap.parse_args(argv)
-    if args.qkv_constraint is not None:
-        raise NotImplementedError(QKV_CONSTRAINT)
+    overrides = ({"qkv_constraint": args.qkv_constraint}
+                 if args.qkv_constraint is not None else None)
 
     cells = []
     if args.all:
@@ -233,8 +239,10 @@ def main(argv=None):
                          else None)
                 rec = run_cell(arch, shp, multi_pod=mp, impl=args.impl,
                                schedule=args.schedule, remat=args.remat,
-                               rules=rules,
+                               rules=rules, cfg_overrides=overrides,
                                capacity_factor=args.capacity_factor)
+            except NotImplementedError:
+                raise
             except Exception as e:  # noqa: BLE001
                 failures += 1
                 rec = {"arch": arch, "shape": shp, "multi_pod": mp,

@@ -20,11 +20,14 @@ Cross-attention projects the encoder output to k/v once per prefill
 its full-sequence path is ``ops.attention(causal=False)``, the flash
 kernel on CUDA tensors, and its decode reads the cached k/v without a
 write.
-The reference's sharding ``constrain`` calls and ``qkv_constraint`` are
-left out: on a mesh the port computes attention on each rank's gathered
-weights and batch slice (``optim.adamw``'s mesh step); head-sharded
-attention over ``"model"`` waits for tensor-parallel compute (ROADMAP
-Queue 1).
+The reference's sharding ``constrain`` calls and ``qkv_constraint`` have
+no counterpart: on a mesh the train step computes ``attn``/``local``
+attention on this rank's heads (``tp``, a ``sharding.tp.Region``): ``x``
+enters by ``copy_to``, ``wq`` (and ``wk``/``wv`` where the kv heads split)
+are column shards, ``wo`` a row shard followed by ``reduce_from``. Where
+the kv heads do not split, wk/wv are gathered and each rank projects only
+the kv heads its q heads read (``_local_heads``). Serving on a mesh, and
+the other mixers, compute on gathered weights.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, apply_rope
+from repro_torch.sharding import tp as TP
 
 
 def attn_def(cfg: ModelConfig):
@@ -56,19 +60,48 @@ def _rms_head(x, scale, eps):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
-def _qkv(cfg: ModelConfig, p, x, positions, rope=True):
+def _local_heads(cfg: ModelConfig, p, tp):
+    """This rank's heads under tensor parallelism -> (q heads, kv heads,
+    wk, wv, per-q-head kv index or None). Local q head ``i`` of rank ``r``
+    is global head ``r*H/tp + i`` and reads kv head ``(r*H/tp + i) //
+    (H/Kh)``. Split kv heads are the local shards of wk/wv; gathered ones
+    are projected from the columns of the kv heads this rank reads, and
+    where those do not pair with the local q heads in equal groups, taken
+    once per q head (index)."""
+    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hl = H // tp.size
+    if tp.plan.kv:
+        return Hl, Kh // tp.size, p["wk"], p["wv"], None
+    first, G = tp.rank * Hl, H // Kh
+    kv = [(first + i) // G for i in range(Hl)]
+    lo, n = kv[0], kv[-1] + 1 - kv[0]
+    cols = slice(lo * hd, (lo + n) * hd)
+    wk, wv = p["wk"][:, cols], p["wv"][:, cols]
+    if Hl % n == 0 and kv == [lo + i // (Hl // n) for i in range(Hl)]:
+        return Hl, n, wk, wv, None
+    return Hl, n, wk, wv, [h - lo for h in kv]
+
+
+def _qkv(cfg: ModelConfig, p, x, positions, rope=True, tp=None):
+    """-> q [B,S,H,hd], k, v [B,S,Kh,hd]; under ``tp`` this rank's heads."""
     dt = x.dtype
     B, S, _ = x.shape
     H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wk, wv, index = p["wk"], p["wv"], None
+    if tp is not None:
+        x = TP.copy_to(x, tp)
+        H, Kh, wk, wv, index = _local_heads(cfg, p, tp)
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, Kh, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, Kh, hd)
+    k = (x @ wk.to(dt)).reshape(B, S, Kh, hd)
+    v = (x @ wv.to(dt)).reshape(B, S, Kh, hd)
     if cfg.qk_norm:
         q = _rms_head(q, p["q_norm"], cfg.norm_eps)
         k = _rms_head(k, p["k_norm"], cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_pct, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+    if index is not None:
+        k, v = k[:, :, index], v[:, :, index]
     return q, k, v
 
 
@@ -77,19 +110,22 @@ def _window(cfg: ModelConfig, kind):
 
 
 def attn_core(cfg: ModelConfig, p, q, k, v, *, kind="attn", causal=True,
-              impl=None):
-    """Attention over projected q/k/v and the output projection -> [B,S,D]."""
-    B, S = q.shape[:2]
+              impl=None, tp=None):
+    """Attention over projected q/k/v and the output projection -> [B,S,D];
+    under ``tp`` this rank's heads, summed over the axis."""
+    B, S, H, hd = q.shape
     o = ops.attention(q, k, v, causal=causal, window=_window(cfg, kind),
                       softcap=cfg.attn_logit_softcap, impl=impl)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(q.dtype)
+    y = o.reshape(B, S, H * hd) @ p["wo"].to(q.dtype)
+    return y if tp is None else TP.reduce_from(y, tp)
 
 
 def attn_forward(cfg: ModelConfig, p, x, positions, *, kind="attn",
-                 causal=True, impl=None):
+                 causal=True, impl=None, tp=None):
     """x: [B,S,D]; positions: [B,S] absolute. Returns [B,S,D]."""
-    q, k, v = _qkv(cfg, p, x, positions)
-    return attn_core(cfg, p, q, k, v, kind=kind, causal=causal, impl=impl)
+    q, k, v = _qkv(cfg, p, x, positions, tp=tp)
+    return attn_core(cfg, p, q, k, v, kind=kind, causal=causal, impl=impl,
+                     tp=tp)
 
 
 def _ring(cfg: ModelConfig, capacity):

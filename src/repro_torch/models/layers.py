@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import tp as TP
 
 # ---------------------------------------------------------------------------
 # ParamDef and trees
@@ -166,12 +167,18 @@ def mlp_def(cfg: ModelConfig, d_ff: Optional[int] = None):
             "wo": ParamDef((Fw, D), ("ffn", "embed"))}
 
 
-def apply_mlp(cfg: ModelConfig, p, x):
+def apply_mlp(cfg: ModelConfig, p, x, tp=None):
+    """The dense MLP; under ``tp`` (a ``sharding.tp.Region``) ``wi*`` are
+    this rank's ffn columns and ``wo`` its rows, the output summed over
+    the axis."""
     dt = x.dtype
+    if tp is not None:
+        x = TP.copy_to(x, tp)
     if cfg.mlp_kind in ("swiglu", "geglu"):
         g = x @ p["wi_gate"].to(dt)
         g = F.silu(g) if cfg.mlp_kind == "swiglu" else \
             F.gelu(g, approximate="tanh")
-        return (g * (x @ p["wi_up"].to(dt))) @ p["wo"].to(dt)
-    h = F.gelu(x @ p["wi"].to(dt), approximate="tanh")
-    return h @ p["wo"].to(dt)
+        y = (g * (x @ p["wi_up"].to(dt))) @ p["wo"].to(dt)
+    else:
+        y = F.gelu(x @ p["wi"].to(dt), approximate="tanh") @ p["wo"].to(dt)
+    return y if tp is None else TP.reduce_from(y, tp)

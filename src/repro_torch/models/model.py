@@ -42,10 +42,16 @@ to ``torch.utils.checkpoint`` per head and tail layer and per core period,
 as the reference remats its layers and ``period_body``; it applies only
 while grad is enabled. On a mesh (``sharding.partition.activate``) the
 model computes on this rank's local tensors: the train step
-(``optim.adamw``) hands it its batch slice and the gathered weights, and
-an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``);
-the reference's activation constraints have no counterpart (the
-tensor-parallel compute they steer waits, ROADMAP Queue 1).
+(``optim.adamw``) hands it its batch slice and its compute weights, and
+an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``).
+Inside the train step's tensor-parallel region (``sharding.tp``) the
+``attn``/``local`` mixers run on this rank's heads, the dense MLPs on its
+ffn columns, and the embedding, logits and cross-entropy on its
+vocabulary rows, by ``partition.compute_axis`` (``_split`` decides per
+block); the other blocks compute gathered. The region is read once per
+forward and carried in the layers' context, so a remat recompute issues
+the same collectives in the same order on every rank. The reference's
+activation constraints have no other counterpart.
 """
 from __future__ import annotations
 
@@ -66,6 +72,8 @@ from repro_torch.models.layers import (ParamDef, apply_mlp, apply_norm,
                                        flatten_paths, init_params,
                                        logical_specs, mlp_def, norm_def,
                                        tree_map)
+from repro_torch.sharding import partition as part
+from repro_torch.sharding import tp as TP
 
 _KINDS = (("attn", "dense"), ("local", "dense"), ("rec", "dense"),
           ("ssm", "none"), ("enc", "dense"), ("xdec", "dense"),
@@ -142,21 +150,32 @@ def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     return d
 
 
+def _split(tp, block, leaf="wo"):
+    """``tp`` where its plan computes ``block`` split over the model axis
+    (``partition.compute_axis``; a mixer or an MLP by its ``wo``, the
+    vocabulary by ``embed``), else None: the block computes gathered."""
+    if tp is None or part.compute_axis(tp.plan, block, leaf) is None:
+        return None
+    return tp
+
+
 def _self_kind(mixer):
     """The kind of a layer's self-attention: an ``xdec`` layer's is a
     causal ``"attn"`` one."""
     return "attn" if mixer == "xdec" else mixer
 
 
-def _mlp_residual(cfg, mlpk, p, x):
+def _mlp_residual(cfg, mlpk, p, x, tp=None):
     """x plus the layer's MLP (dense or MoE) -> (x, aux). The dense MLP
-    takes its width from its weights."""
+    takes its width from its weights, and splits where ``tp``'s plan
+    splits it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlpk == "moe":
         y, aux = MOE.moe_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
         x = x + y
     elif mlpk == "dense":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          _split(tp, "dense"))
     return x, aux
 
 
@@ -168,8 +187,10 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     twice), MLA layers their compressed ``ckv``/``kpe`` rows once. An
     ``xdec`` layer reads the encoder output ``ctx["enc_out"]`` and adds its
     cross k/v to the cache as ``xk``/``xv``. ``aux`` is an MoE layer's
-    load-balance loss, else 0."""
+    load-balance loss, else 0. ``ctx["tp"]`` is the train step's
+    tensor-parallel region or None."""
     mixer, mlpk = kind
+    tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
     cache = None
     if mixer in ("ssm", "rec"):
@@ -183,12 +204,14 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     else:
         # the encoder's "enc" layers see every frame, with RoPE at the
         # frames' positions
-        q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"])
+        mtp = _split(tp, mixer)
+        q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"], tp=mtp)
         if capacity is not None:
             cache = A.attn_prefill_cache(cfg, k, v, capacity,
                                          kind=_self_kind(mixer))
         mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=_self_kind(mixer),
-                         causal=mixer != "enc", impl=ctx.get("impl"))
+                         causal=mixer != "enc", impl=ctx.get("impl"),
+                         tp=mtp)
     x = x + mx
     if mixer == "xdec":
         xk, xv = A.xattn_kv(cfg, p["cross"], ctx["enc_out"])
@@ -197,7 +220,7 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         x = x + A.xattn_forward(cfg, p["cross"],
                                 apply_norm(cfg, p["ln_x"], x), xk, xv,
                                 impl=ctx.get("impl"))
-    x, aux = _mlp_residual(cfg, mlpk, p, x)
+    x, aux = _mlp_residual(cfg, mlpk, p, x, tp)
     return x, cache, aux
 
 
@@ -342,6 +365,21 @@ class Stack(nn.Module):
                      for k in self.period_kinds],
             "tail": [layer_def(cfg, k) for k in self.tail_kinds],
         }
+
+    def leaf_blocks(self):
+        """Each layer parameter's block, keyed by its path under the stack:
+        the mixer kind for ``mixer.*``, the MLP kind for ``mlp.*``, None
+        for the rest (norms, cross-attention)."""
+        out = {}
+        for sec, kinds in (("head", self.head_kinds),
+                           ("core", self.period_kinds),
+                           ("tail", self.tail_kinds)):
+            for i, (mixer, mlpk) in enumerate(kinds):
+                block = {"mixer": mixer, "mlp": mlpk}
+                for path, _ in flatten_paths(layer_def(self.cfg,
+                                                       (mixer, mlpk))):
+                    out[f"{sec}.{i}.{path}"] = block.get(path.split(".")[0])
+        return out
 
     def cache_defs(self, batch, capacity, dtype):
         cfg = self.cfg
@@ -500,6 +538,30 @@ class LM(nn.Module):
         """Each parameter's logical axes, as the tree of ``defs``."""
         return logical_specs(self.defs())
 
+    def _stacks(self):
+        return [(n, s) for n, s in (("decoder", self.decoder),
+                                    ("encoder", self.encoder))
+                if s is not None]
+
+    def tp_plan(self, size: int) -> part.TPPlan:
+        """What computes split over a model axis of ``size`` ranks
+        (``partition.tp_plan`` of this model's mixers and dense MLPs)."""
+        kinds = [k for _, s in self._stacks() for k in s.kinds]
+        dense = any(mlpk == "dense" for _, mlpk in kinds)
+        return part.tp_plan(self.cfg, [m for m, _ in kinds],
+                            _mlp_width(self.cfg, "dense") if dense else 0,
+                            size)
+
+    def leaf_blocks(self):
+        """Each parameter path's block for ``partition.compute_axis``:
+        "vocab" for ``embed``/``head``, a layer's mixer or MLP kind, or
+        None."""
+        out = {"embed": "vocab", "head": "vocab"}
+        for name, stack in self._stacks():
+            out.update({f"{name}.{k}": b
+                        for k, b in stack.leaf_blocks().items()})
+        return out
+
     @torch.no_grad()
     def cast_weights(self):
         """Hold every weight matrix in the compute dtype instead of the param
@@ -519,20 +581,28 @@ class LM(nn.Module):
         return self
 
     # -- embedding / logits -------------------------------------------------------
-    def _embed(self, tokens):
+    def _embed(self, tokens, tp=None):
         # F.embedding sums each row's gradients in a fixed order; the
         # backward of self.embed[tokens] adds them by atomics on a
         # multi-threaded CPU, and a restarted run could then not be held to
-        # the uninterrupted one bit for bit
-        x = F.embedding(tokens.long(), self.embed).to(self.compute_dtype)
+        # the uninterrupted one bit for bit. Under a vocabulary split the
+        # table is this rank's rows.
+        if _split(tp, "vocab", "embed") is not None:
+            x = TP.vocab_embed(tokens, self.embed, tp, self.compute_dtype)
+        else:
+            x = F.embedding(tokens.long(), self.embed).to(self.compute_dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5,
                                  dtype=self.compute_dtype)
         return x
 
-    def _logits(self, x):
+    def _logits(self, x, tp=None):
+        """-> logits [..., V]; under a vocabulary split this rank's
+        columns (a tied table's rows are the lookup's)."""
         cfg = self.cfg
         x = apply_norm(cfg, params_tree(self.final_norm), x)
+        if _split(tp, "vocab", "embed") is not None:
+            x = TP.copy_to(x, tp)
         w = self.embed.T if cfg.tie_embeddings else self.head
         logits = x @ w.to(self.compute_dtype)
         if cfg.logits_softcap > 0:
@@ -543,7 +613,7 @@ class LM(nn.Module):
     def _positions(self, B, S):
         return torch.arange(S, device=self.device)[None].expand(B, S)
 
-    def _inputs(self, batch, impl=None):
+    def _inputs(self, batch, impl=None, tp=None):
         """-> (x, enc_out, loss offset). An encoder-decoder runs its
         ``frames`` [B,Se,D] through the encoder and ``enc_norm``; a vision
         model puts its ``vision_embeds`` [B,Nv,D] ahead of the token
@@ -556,14 +626,14 @@ class LM(nn.Module):
             enc = batch["frames"].to(self.compute_dtype)
             B, Se, _ = enc.shape
             enc, _ = self.encoder(enc, {"positions": self._positions(B, Se),
-                                        "impl": impl})
+                                        "impl": impl, "tp": tp})
             enc = apply_norm(cfg, params_tree(self.enc_norm), enc)
-            return self._embed(batch["tokens"]), enc, 0
+            return self._embed(batch["tokens"], tp), enc, 0
         if cfg.frontend == "vision":
             ve = batch["vision_embeds"].to(self.compute_dtype)
-            return (torch.cat([ve, self._embed(batch["tokens"])], 1), None,
-                    ve.shape[1])
-        return self._embed(batch["tokens"]), None, 0
+            return (torch.cat([ve, self._embed(batch["tokens"], tp)], 1),
+                    None, ve.shape[1])
+        return self._embed(batch["tokens"], tp), None, 0
 
     # -- full-sequence forward ------------------------------------------------------
     def forward(self, batch, *, impl=None, schedule="full"):
@@ -572,15 +642,17 @@ class LM(nn.Module):
         for a vision model. ``schedule`` is the reference's attention
         schedule: "full" and "triangular" give the same numbers here, since
         the kernels and the plain version already skip the blocks the mask
-        rules out."""
+        rules out. Inside a tensor-parallel region (``sharding.tp``) with a
+        vocabulary split the logits are this rank's columns."""
         if schedule not in ("full", "triangular"):
             raise ValueError(f"unknown attention schedule {schedule!r}")
-        x, enc_out, off = self._inputs(batch, impl)
+        tp = TP.active()
+        x, enc_out, off = self._inputs(batch, impl, tp)
         B, S, _ = x.shape
         ctx = {"positions": self._positions(B, S), "enc_out": enc_out,
-               "impl": impl}
+               "impl": impl, "tp": tp}
         x, aux = self.decoder(x, ctx)
-        return self._logits(x), aux, off
+        return self._logits(x, tp), aux, off
 
     def loss(self, batch, *, impl=None, schedule="full"):
         """Next-token cross-entropy in fp32 over the text region and the
@@ -590,8 +662,12 @@ class LM(nn.Module):
         S = logits.shape[1]
         lf = logits[:, off:S - 1].float()
         labels = batch["tokens"][:, 1:].long()
-        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
-        ce = torch.mean(torch.logsumexp(lf, -1) - gold)
+        tp = _split(TP.active(), "vocab", "embed")
+        if tp is not None:
+            ce = torch.mean(TP.vocab_ce(lf, labels, tp))
+        else:
+            gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+            ce = torch.mean(torch.logsumexp(lf, -1) - gold)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------------

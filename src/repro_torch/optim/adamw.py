@@ -14,14 +14,23 @@ On a mesh (``sharding.partition.activate``) the state's params, ``m`` and
 ``v`` are DTensors laid out by ``state_logical`` (``runtime.elastic.
 remesh_state`` places them), and ``make_train_step``'s step:
 
-* gathers each parameter into the LM's own tensor (under EP an expert
-  weight only over the other axes: it keeps this rank's experts); at
-  world size 1 the gathered tensor is the state's own storage, else a
-  copy that holds, after the step, the weights the step used;
-* runs the loss on this rank's slice of the batch over the ``batch`` axes;
+* points each of the LM's parameters at its compute copy, gathered over
+  the mesh's axes, but under EP an expert weight keeps this rank's
+  experts and under tensor parallelism (``LM.tp_plan`` of the ``"model"``
+  axis, ``partition.compute_axis``) a split leaf keeps this rank's heads,
+  ffn columns or rows, or vocabulary rows on that axis. Where the compute
+  placement is the storage's (world size 1; a split leaf on a mesh whose
+  other axes are 1) the copy is the state's own storage, else a copy that
+  holds, after the step, the weights the step used;
+* runs the loss on this rank's slice of the batch over the ``batch`` axes,
+  inside the tensor-parallel region (``sharding.tp``);
 * brings each gradient back to its leaf's placement: summed over the
   batch axes and divided by their size (a mean), summed over the expert
-  axis for the leaves ``moe.ep_partial`` names, then this rank's shard;
+  axis for the leaves ``moe.ep_partial`` names and over the model axis for
+  those ``partition.partial_over_model`` names (``q_norm``/``k_norm``, and
+  gathered ``wk``/``wv``, used by this rank's heads only), then this
+  rank's shard. A split leaf's gradient is its shard's already; the norms
+  ahead of a split block get whole gradients and are not summed;
 * runs AdamW on the local shards. The clip norm counts each element once
   (a leaf replicated over a mesh dim counts on that dim's rank 0) and sums
   the leaves in ``apply_updates``' order, so a world-1 step is bit-equal
@@ -247,45 +256,121 @@ def _ep_dim(lm, mesh):
     return list(part.axis_sizes(mesh)).index(ep) if ep else None
 
 
-def _compute_placements(lm, mesh):
+def tp_plan(lm, mesh):
+    """The LM's tensor-parallel plan on ``mesh``'s model axis, or None when
+    the mesh has none or it is of size 1."""
+    size = part.axis_sizes(mesh).get(part.TP_AXIS, 1)
+    return lm.tp_plan(size) if size > 1 else None
+
+
+def _compute_placements(lm, mesh, plan=None):
     """``fn(name, dtensor)`` -> the placements a rank computes on:
-    Replicate, but an expert weight's shard over the expert axis."""
-    from torch.distributed.tensor import Replicate
+    Replicate, but an expert weight's shard over the expert axis and,
+    with ``plan``, a split leaf's shard over the model axis."""
+    from torch.distributed.tensor import Replicate, Shard
     logical = state_logical(lm)["params"]
+    blocks = lm.leaf_blocks()
+    names = list(part.axis_sizes(mesh))
     ep_dim = _ep_dim(lm, mesh)
+    tp_dim = names.index(part.TP_AXIS) if plan is not None else None
 
     def compute_placements(n, dt):
         keep = ep_dim is not None and "experts" in logical[n]
-        return [pl if keep and d == ep_dim else Replicate()
-                for d, pl in enumerate(dt.placements)]
+        ax = part.compute_axis(plan, blocks.get(n), n.rsplit(".", 1)[-1])
+        out = []
+        for d, pl in enumerate(dt.placements):
+            if keep and d == ep_dim:
+                out.append(pl)
+            elif ax is not None and d == tp_dim:
+                out.append(Shard(logical[n].index(ax)))
+            else:
+                out.append(Replicate())
+        return out
     return compute_placements
+
+
+def _relayout(t, mesh, src, dst):
+    """The local tensor ``t`` of a layout at placements ``src`` (Shard,
+    Replicate or Partial on each mesh dim) -> its local tensor at ``dst``
+    (Shard or Replicate). The one path both ways of the mesh step take: the
+    compute copies from storage, the gradients back to it. Over each mesh
+    dim of more than one rank, a Partial is summed (reduce-scatter into a
+    Shard, else all-reduce), a Shard it leaves is all-gathered and a Shard
+    it enters is cut; over one rank only the cut (a no-op) is taken. These
+    are c10d calls on the mesh's groups, which gloo takes for CUDA tensors
+    (staged through the host), where DTensor's functional all-gather of a
+    CUDA tensor crashed gloo. Each tensor dim lies on at most one mesh dim
+    and shards are even (``partition.resolve`` drops an axis that does not
+    divide; the tensor-parallel plan splits whole units)."""
+    import torch.distributed as dist
+    owner = {}
+    for d in range(mesh.ndim):
+        for pl in (src[d], dst[d]):
+            if pl.is_shard() and owner.setdefault(pl.dim, d) != d:
+                raise NotImplementedError(f"two mesh dims on one tensor "
+                                          f"dim: {src} -> {dst}")
+    for d in range(mesh.ndim):
+        a, b, n = src[d], dst[d], mesh.size(d)
+        if a == b:
+            continue
+        group = mesh.get_group(d)
+        if a.is_partial():
+            if n > 1 and b.is_shard():
+                x = t.movedim(b.dim, 0).contiguous()
+                out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+                dist.reduce_scatter_tensor(out, x, group=group)
+                t = out.movedim(0, b.dim)
+                continue
+            if n > 1:
+                t = t.contiguous()
+                dist.all_reduce(t, group=group)
+        elif a.is_shard() and n > 1:
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts, a.dim)
+        if b.is_shard():
+            if t.shape[b.dim] % n:
+                raise ValueError(f"uneven shard: dim {b.dim} of "
+                                 f"{tuple(t.shape)} over {n} ranks")
+            k = t.shape[b.dim] // n
+            t = t.narrow(b.dim, mesh.get_local_rank(d) * k, k)
+    return t
+
+
+def _point_at(lm, params, mesh, compute_placements):
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            dt = params[n]
+            p.data = _relayout(dt.to_local(), mesh, dt.placements,
+                               compute_placements(n, dt))
+            p.grad = None
 
 
 def gather_params(lm, params, mesh):
     """Point each of the LM's parameters at its compute copy: the DTensor
     ``params[name]`` gathered whole (an expert weight under EP only over
-    the other axes); clears the gradients. The mesh step's first half, and
-    what a serving call on a mesh does before it runs."""
-    compute_placements = _compute_placements(lm, mesh)
-    with torch.no_grad():
-        for n, p in lm.named_parameters():
-            dt = params[n]
-            p.data = dt.redistribute(mesh,
-                                     compute_placements(n, dt)).to_local()
-            p.grad = None
+    the other axes); clears the gradients. What a serving call on a mesh
+    does before it runs (the train step keeps split leaves split)."""
+    _point_at(lm, params, mesh, _compute_placements(lm, mesh))
 
 
 def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
                mesh, rules):
     """One train step on ``mesh`` (the module's docstring)."""
-    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch.sharding import tp as TP
+    from torch.distributed.tensor import Partial
     ep_dim = _ep_dim(lm, mesh)
+    plan = tp_plan(lm, mesh)
+    blocks = lm.leaf_blocks()
     params = dict(lm.named_parameters())
-    compute_placements = _compute_placements(lm, mesh)
-    gather_params(lm, state["params"], mesh)
+    compute_placements = _compute_placements(lm, mesh, plan)
+    _point_at(lm, state["params"], mesh, compute_placements)
     dims, n_batch, local = batch_dims(batch, mesh, rules)
-    loss, metrics = lm.loss(local, impl=impl, schedule=schedule_kind)
-    loss.backward()
+    with TP.region(mesh, plan):
+        loss, metrics = lm.loss(local, impl=impl, schedule=schedule_kind)
+        loss.backward()
+    tp_dim = list(part.axis_sizes(mesh)).index(part.TP_AXIS) \
+        if plan is not None else None
     grads = {}
     with torch.no_grad():
         for n, p in params.items():
@@ -295,10 +380,12 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
             pl = compute_placements(n, dt)
             partial = list(dims) + ([ep_dim] if ep_dim is not None and
                                     MOE.ep_partial(n) else [])
+            if part.partial_over_model(plan, blocks.get(n),
+                                       n.rsplit(".", 1)[-1]):
+                partial.append(tp_dim)
             for d in partial:
                 pl[d] = Partial()
-            grads[n] = DTensor.from_local(g, mesh, pl, run_check=False) \
-                .redistribute(mesh, dt.placements).to_local() / n_batch
+            grads[n] = _relayout(g, mesh, pl, dt.placements) / n_batch
         vec = torch.stack([loss.detach(), metrics["ce"].detach(),
                            metrics["aux"].detach()])
         for d in dims:

@@ -10,6 +10,14 @@ not divide the dimension (a single KV head cannot shard 16 ways).
 ``activate(mesh, rules)`` installs a mesh for ``constrain``, ``moe_apply``
 and the train step; without an active mesh ``constrain`` is the identity.
 
+Storage is not compute. ``resolve`` checks divisibility on a flattened
+dimension, so gemma3-1b's ``wk`` (one kv head of 256) is stored split
+inside its head on a model axis of 4. How the train step *computes* a
+leaf over ``TP_AXIS`` is decided by whole units instead (``tp_plan`` and
+``compute_axis``): attention by heads, the dense MLP by ffn columns, the
+embedding, head and cross-entropy by vocabulary rows; every other leaf is
+gathered whole.
+
 A mesh is anything with named axes and sizes: a ``DeviceMesh`` built with
 ``mesh_dim_names`` (``launch.mesh``), or an ``AbstractMesh`` for resolving
 specs without devices. ``placements(spec, mesh)`` gives one DTensor
@@ -77,6 +85,74 @@ class NamedSharding(NamedTuple):
     @property
     def placements(self):
         return placements(self.spec, self.mesh)
+
+
+# the mesh axis tensor-parallel compute splits over, and the mixers it
+# splits (the other mixers, ssm, rec, mla, enc and xdec, compute gathered)
+TP_AXIS = "model"
+TP_MIXERS = ("attn", "local")
+
+
+class TPPlan(NamedTuple):
+    """Which blocks of a model compute split over ``TP_AXIS`` of ``size``
+    ranks (``tp_plan``)."""
+    size: int
+    heads: bool     # attn/local mixers: wq and wo by heads
+    kv: bool        # wk/wv by kv heads too (else gathered)
+    ffn: bool       # dense MLPs by ffn columns (wi*) and rows (wo)
+    vocab: bool     # embed and head by vocabulary rows
+
+
+def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int) -> TPPlan:
+    """The compute plan of a model with layer ``mixers`` and dense MLPs of
+    ``dense_width`` (0: none) on a model axis of ``tp`` ranks. A block
+    splits only where its unit divides the axis: attention when
+    ``num_heads % tp == 0`` (wk/wv only when ``num_kv_heads % tp == 0``,
+    else each rank projects the kv heads its q heads read from the whole
+    wk/wv), the MLP when ``dense_width % tp == 0``, the vocabulary when
+    ``padded_vocab % tp == 0`` and some layer block splits (a model none
+    of whose layers split, mamba2-2.7b's, computes wholly gathered). The
+    MoE families (deepseek-moe-16b, deepseek-v2-236b) split nothing yet:
+    EP beside gathered compute, as before (ROADMAP Queue 1 item 4c)."""
+    tp = int(tp) if cfg.moe is None else 1
+    heads = tp > 1 and any(m in TP_MIXERS for m in mixers) and \
+        cfg.num_heads % tp == 0
+    kv = heads and cfg.num_kv_heads % tp == 0
+    ffn = tp > 1 and dense_width > 0 and dense_width % tp == 0
+    vocab = (heads or ffn) and cfg.padded_vocab % tp == 0
+    return TPPlan(tp, heads, kv, ffn, vocab)
+
+
+def compute_axis(plan: Optional[TPPlan], block: Optional[str],
+                 leaf: str) -> Optional[str]:
+    """How the train step computes a leaf: the logical axis it is split on
+    over ``TP_AXIS`` ("heads", "ffn" or "vocab"), or None for gathered.
+    ``block`` is the leaf's block: a mixer kind, "dense" or "moe" for an
+    MLP, "vocab" for ``embed``/``head``, None for the rest (norms,
+    cross-attention)."""
+    if plan is None:
+        return None
+    if block in TP_MIXERS and plan.heads:
+        if leaf in ("wq", "wo") or (leaf in ("wk", "wv") and plan.kv):
+            return "heads"
+    elif block == "dense" and plan.ffn:
+        if leaf in ("wi_gate", "wi_up", "wi", "wo"):
+            return "ffn"
+    elif block == "vocab" and plan.vocab:
+        return "vocab"
+    return None
+
+
+def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
+                       leaf: str) -> bool:
+    """Whether a gathered leaf's gradient is partial over ``TP_AXIS``: it
+    is used by this rank's heads only (``q_norm``/``k_norm``, and
+    ``wk``/``wv`` when gathered), so the train step sums it over the
+    axis. The norms ahead of a split block get whole gradients (the
+    copy-to-region's all-reduce) and are not summed."""
+    return (plan is not None and block in TP_MIXERS and plan.heads and
+            (leaf in ("q_norm", "k_norm") or
+             (leaf in ("wk", "wv") and not plan.kv)))
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

@@ -13,7 +13,12 @@ steps of the deepseek-moe-16b smoke LM on the (2,2) mesh, with ``m`` after
 the first), ``specs`` (``launch.specs.input_specs`` of the cells in
 ``cases.json``: each argument leaf's shape, dtype and resolved spec) and
 ``flops`` (per-device FLOPs of each cell in ``cases.json``, smoke configs,
-by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run).
+by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run) and
+``tp`` (GSPMD on the cases of ``cases.json``, [model, arch, config
+overrides, mesh shape, key]: the weights ``<model>.<path>`` placed at their
+specs, the batch at its spec; the logits and one AdamW step, whose ``m``
+is (1 - b1) times each leaf's clipped gradient, in one jitted call per
+case, written under the case's key).
 """
 import json
 import os
@@ -197,6 +202,49 @@ def job_flops(d):
         json.dump(out, f)
 
 
+def job_tp(d):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from repro.configs.base import get_smoke_config
+    from repro.models.model import LM
+    from repro.optim import adamw
+    from repro.sharding import partition as part
+    z = dict(np.load(os.path.join(d, "in.npz")))
+    with open(os.path.join(d, "cases.json")) as f:
+        cases = json.load(f)
+    opt = adamw.OptConfig(**json.loads(str(z["opt"])))
+    out = {}
+    for name, arch, over, mshape, i in cases:
+        lm = LM(get_smoke_config(arch).replace(**over))
+        pre = f"{name}."
+        params = _tree_from({k[len(pre):]: v for k, v in z.items()
+                             if k.startswith(pre)},
+                            jax.eval_shape(lm.init, jax.random.PRNGKey(0)))
+        mesh = _mesh(mshape, ("data", "model"))
+        with part.activate(mesh):
+            params = jax.device_put(params, part.param_shardings(
+                lm.specs(), params, mesh))
+            batch = {"tokens": jax.device_put(
+                jnp.asarray(z["tokens"]),
+                NamedSharding(mesh, part.batch_spec(mesh, 2)))}
+
+            def case(params, batch):
+                logits = lm.forward(params, batch)[0]
+                state, m = adamw.make_train_step(lm, opt)(
+                    adamw.init_state(params), batch)
+                return logits, state, m
+
+            logits, state, m = jax.jit(case)(params, batch)
+        out[f"{i}.logits"] = np.asarray(logits)
+        for part_ in ("params", "m"):
+            for k, v in _flat(state[part_]).items():
+                out[f"{i}.{part_}.{k}"] = v
+        for k, v in m.items():
+            out[f"{i}.{k}"] = np.asarray(v)
+    np.savez(os.path.join(d, "out.npz"), **out)
+
+
 if __name__ == "__main__":
     {"indices": job_indices, "ep": job_ep, "specs": job_specs,
-     "flops": job_flops}[sys.argv[1]](sys.argv[2])
+     "flops": job_flops, "tp": job_tp}[sys.argv[1]](sys.argv[2])

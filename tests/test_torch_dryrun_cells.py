@@ -1,7 +1,7 @@
 """``repro_torch.launch.dryrun`` at full width: a ``train_4k`` cell on the
-256-rank single-pod mesh (its gathered compute per device), and the
-refusal of ``--qkv-constraint`` until tensor-parallel compute lands
-(ROADMAP Queue 1 item 4)."""
+256-rank single-pod mesh (its tensor-parallel compute per device), and
+``--qkv-constraint``: taken by train cells, refused by serving cells until
+their tensor-parallel slice (ROADMAP Queue 1 item 4b)."""
 import pytest
 
 from repro_torch.configs import base as TB
@@ -23,32 +23,59 @@ def test_full_width_train_cell_on_the_single_pod_mesh():
                         "alias_bytes", "per_device_total"}
     assert mem["per_device_total"] == mem["argument_bytes"] + \
         mem["temp_bytes"]
-    # the state is sharded 256 ways (params, m, v: 12 B/param) but each
-    # rank gathers whole fp32 weights and their gradients to compute
+    # the state is sharded 256 ways (params, m, v: 12 B/param); each rank
+    # gathers its 1/16 of the fp32 weights over "data" and computes their
+    # gradients at that shape: heads, ffn and vocabulary split 16 ways
     n = rec["params"]["total"]
     assert 12 * n / 256 < mem["argument_bytes"] < 12 * n / 200
-    assert mem["temp_bytes"] > 8 * n
+    # at the peak it holds the 30 layers' saved bf16 inputs (remat "full";
+    # 16 sequences of 4096 x 4096) and the weights and gradients of its
+    # split (4 B/param each over 16); beside them at most eight fp32
+    # buffers of its logits' shape (16 x 4096 x 6400: the logits, the
+    # cross-entropy's exponentials, their gradients, in fp32 and bf16)
+    cfg = TB.get_config("deepseek-7b")
+    Bl, S, Vl = 256 // 16, 4096, cfg.padded_vocab // 16
+    saved = 30 * Bl * S * cfg.d_model * 2
+    floor = saved + 2 * 4 * n / 16
+    assert floor < mem["temp_bytes"] < floor + 8 * 4 * Bl * S * Vl
     assert mem["alias_bytes"] >= 12 * n / 256       # the state, in place
     by_op = rec["collectives"]["by_op"]
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(by_op)
-    # the gradients leave each rank whole, fp32, through a reduce-scatter,
-    # but the replicated norm scales' (30 x 2 + 1 of 4096), all-reduced
+    # the gradients leave each rank at its 1/16, fp32, through a
+    # reduce-scatter over "data", but the replicated norm scales' (30 x 2
+    # + 1 of 4096), all-reduced
     norms = (2 * 30 + 1) * 4096
-    assert by_op["reduce-scatter"]["bytes"] == 4 * (n - norms)
+    assert by_op["reduce-scatter"]["bytes"] == 4 * (n - norms) / 16
+    # a layer's attention and MLP outputs are all-reduced over "model" in
+    # the forward, the attention's again in remat's recompute (which stops
+    # before the MLP's wo), and the two blocks' input gradients in the
+    # backward: 5 x 30 bf16 activations of 16 x 4096 x 4096, summed in fp32
+    assert by_op["all-reduce"]["bytes"] >= 5 * 30 * Bl * S * cfg.d_model * 4
     rl = rec["roofline"]
-    # every rank runs its 16 sequences on whole weights: 16 times the
-    # share of the model's FLOPs that 256 ranks would each take
-    assert 0.04 < rl["useful_ratio"] < 1 / 16
+    # every rank runs 1/16 of its 16 sequences' work: the model's FLOPs
+    # over 256 ranks, but remat recomputes the layers' forward (8 N D a
+    # token there, for 6), and the attention's products come on top
+    assert 0.7 < rl["useful_ratio"] < 0.85
     assert rl["bottleneck"] in ("compute", "memory", "collective")
     assert sum(rec["op_histogram"].values()) > 0
 
 
 def test_qkv_constraint_needs_tensor_parallel_compute():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        dryrun.main(["--arch", "deepseek-7b", "--shape", "train_4k",
+    """``batch`` pins q, k and v to heads over "model", which the train
+    step's tensor-parallel compute does: a train cell takes it and traces
+    the same step; a prefill cell, which computes gathered, refuses it and
+    names the serving slice."""
+    cfg = TB.get_smoke_config("deepseek-7b")
+    train = TB.ShapeConfig("cell", 64, 4, "train")
+    rec = dryrun.run_cell(cfg, train, mesh_shape=(2, 2), verbose=False,
+                          cfg_overrides={"qkv_constraint": "batch"})
+    plain = dryrun.run_cell(cfg, train, mesh_shape=(2, 2), verbose=False)
+    assert rec["qkv_constraint"] == "batch"
+    assert rec["cost"] == plain["cost"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+        dryrun.main(["--arch", "deepseek-7b", "--shape", "prefill_32k",
                      "--qkv-constraint", "batch"])
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        dryrun.run_cell(TB.get_smoke_config("deepseek-7b"),
-                        TB.ShapeConfig("cell", 64, 4, "train"),
+        dryrun.run_cell(cfg, TB.ShapeConfig("cell", 64, 4, "prefill"),
                         mesh_shape=(2, 2), verbose=False,
                         cfg_overrides={"qkv_constraint": "batch"})

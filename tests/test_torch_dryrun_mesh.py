@@ -1,9 +1,9 @@
 """``repro_torch.launch.dryrun`` on small meshes and through its CLI: the
-reference's JSONL record on both production meshes, the port's gathered
-compute (equal FLOPs on (2, 4) and (2, 1): the batch splits over "data"
-only and every rank computes on whole weights; ROADMAP Queue 1 item 4
-replaces this test when tensor-parallel compute lands), and a train
-cell traced with the ``OptConfig`` it is given."""
+reference's JSONL record on both production meshes, the port's
+tensor-parallel train compute (on (2, 4) each rank does (2, 1)'s FLOPs
+less 3/4 of the split blocks'; serving cells and a model none of whose
+layers split still compute gathered, ROADMAP Queue 1 items 4b and 4c),
+and a train cell traced with the ``OptConfig`` it is given."""
 import json
 
 import pytest
@@ -32,16 +32,41 @@ def test_cli_writes_the_reference_record(tmp_path):
         2 * recs[1]["cost"]["flops_per_dev"], rel=1e-9)
 
 
+def _split_flops(cfg, B, S):
+    """The matmul FLOPs of a train step's split blocks on one rank of a
+    mesh without a model axis, B sequences of S tokens: per layer the
+    q/k/v/o projections, the attention's two products (the plain path's
+    one 512-row block covers S = 128 whole) and the SwiGLU MLP, counted
+    four times (forward, remat's recompute, the backward's two products a
+    matmul) but the MLP's wo once less (the recompute stops at the last
+    tensor the backward needs), and the head three times (no remat)."""
+    T, D, F, V = B * S, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    proj = 2 * T * D * (cfg.q_dim + 2 * cfg.kv_dim) + 2 * T * cfg.q_dim * D
+    core = 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim
+    mlp = 3 * 2 * T * D * F
+    layer = 4 * (proj + core + mlp) - 2 * T * F * D
+    return cfg.num_layers * layer + 3 * 2 * T * D * V
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b"])
-def test_model_axis_does_not_split_the_compute(arch, kind):
-    """Gathered compute: on (2, 4) each rank does the FLOPs of (2, 1)."""
+def test_model_axis_splits_the_train_compute(arch, kind):
+    """deepseek-7b's train step on (2, 4): each rank does (2, 1)'s FLOPs
+    less 3/4 of its attention's, MLPs' and head's (``_split_flops``),
+    which are all of them. Its prefill and decode, and every step of
+    mamba2-2.7b (no layer block splits, so neither does its vocabulary),
+    compute gathered: (2, 4) does (2, 1)'s FLOPs."""
     cfg = TB.get_smoke_config(arch)
     shape = TB.ShapeConfig("cell", 128, 8, kind)
     f = {m: dryrun.run_cell(cfg, shape, mesh_shape=m, verbose=False)
          ["cost"]["flops_per_dev"] for m in ((2, 4), (2, 1), (8, 1))}
-    assert f[(2, 4)] == f[(2, 1)]
     assert f[(2, 1)] == 4 * f[(8, 1)]
+    if arch == "deepseek-7b" and kind == "train":
+        split = _split_flops(cfg, 8 // 2, 128)
+        assert split == f[(2, 1)]
+        assert f[(2, 4)] == f[(2, 1)] - 3 * split / 4
+    else:
+        assert f[(2, 4)] == f[(2, 1)]
 
 
 def test_train_cell_traces_the_given_opt_config():
