@@ -131,8 +131,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``migrate-rg``, and the later engine paths').
  7. profile — torch.profiler over one S=2048 prefill and 8 decode steps:
              device time by kernel and the device's idle share
-             (``profile``, ``profile-mamba``, ``profile-rg``; the later
-             paths are not profiled).
+             (``profile``, deepseek-7b's; the other paths are not
+             profiled, PROFILED).
  8. train  — deepseek-7b at full width and 12 layers (fp32 params, bf16
              compute, full remat), B=1, S=2048: a step-1 gate of the kernel
              path against the plain path beside witnesses and controls
@@ -201,9 +201,17 @@ Phases, in order (any failure exits non-zero and prints no result line):
              step 1 against the fp32 step between witnesses and a control;
              each rank's flash launches counted and held against the
              plain versions at their local head counts; ms per step, peak
-             per rank, gloo's host-staged all-reduce.
- 9. ckpt   — deepseek-7b's training state at full width and 2 layers
-             ({step, params, m, v}: 1.24 B params, 14.92 GB in 37 leaves),
+             per rank, gloo's host-staged all-reduce. Then each path
+             serves on the same ranks through ``launch.specs.build_fn``:
+             4 prompts (2048 down to 256) prefilled into caches of 2304
+             slots kept at their storage shards (deepseek-7b's by kv
+             heads, gemma3-1b's MQA cache and ring by sequence), 16
+             decode steps; fp32 greedy tokens equal to the unsharded
+             run's, logits of every call within a limit between a witness
+             and (bf16) a control; prefill and decode ms, peak and cache
+             GiB per rank, the collectives a decode step.
+ 9. ckpt   — deepseek-7b's training state at full width and 1 layer
+             ({step, params, m, v}: 1.04 B params, 12.50 GB in 37 leaves),
              batches from the port's TokenPipeline: 2 AdamW steps, an
              async ``checkpoint.ckpt.save``, 2 more steps (the
              uninterrupted run), a simulated failure (LM and state
@@ -1216,6 +1224,10 @@ KERNEL_OF_MIXER = {"attn": "flash_attention_fwd",
                    "local": "flash_attention_fwd",
                    "mla": "flash_attention_fwd", "ssm": "ssd_scan",
                    "rec": "rglru_scan"}
+# the served paths profiled each run: deepseek-7b's. mamba2-2.7b's and
+# recurrentgemma-9b's profiles (their readings in PERF.md §5) are not
+# repeated: 47 s of a slow host's run, which dist-tp's serving needs
+PROFILED = ("deepseek-7b",)
 
 
 def make_prompts(cfg):
@@ -1883,9 +1895,9 @@ def _first_moe_routing(lm, batch, impl):
     seen = []
     orig = MOE.moe_apply
 
-    def record(cfg, p, x):
+    def record(cfg, p, x, *ep):
         seen.append((cfg, p, x))
-        return orig(cfg, p, x)
+        return orig(cfg, p, x, *ep)
     MOE.moe_apply = record
     try:
         _hidden_after(lm, batch, lm.cfg.moe.first_k_dense + 1, impl)
@@ -3406,7 +3418,7 @@ def phase_dist_ep():
 # one kv head, gathered; the tied 262144-row table 65536 a rank
 DIST_TP_WORLD = 4
 DIST_TP_PATHS = (("deepseek-7b", 4), ("gemma3-1b", 6))
-DIST_TP_STEPS = {"float32": 2, "bfloat16": 3}
+DIST_TP_STEPS = {"float32": 2, "bfloat16": 2}
 DIST_TP_LOSS_REL = 1e-4  # fp32 step 1's loss: the forward keeps its digits
 # step 1's loss and grad_norm (and, in fp32, each later step's loss) of each
 # code against the fp32 unsharded step on the same weights and batch, by
@@ -3431,6 +3443,88 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
 # each run (PERF.md §6)
 DIST_TP_M_MULT = 1.25
 DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4}
+
+
+# dist-tp serving, after each path's train steps in each dtype, on the same
+# (1, 4) mesh through ``launch.specs.build_fn``: DIST_TP_PROMPTS prompts
+# (B=1 each) prefilled into caches of DIST_TP_CAPACITY slots, stacked into
+# one batch of 4, then DIST_TP_DECODE decode steps; deepseek-7b's cache
+# splits its 32 kv heads over "model" (8 a rank), gemma3-1b's MQA cache and
+# 512-slot ring their slots over ("data", "model"). Against the unsharded
+# prefill and decode on the same weights: in fp32 (the FMA flash kernels)
+# greedy, every token equal and every call's logits within
+# DIST_TP_SERVE_REL; in bf16 teacher-forced on the unsharded bf16 run's
+# tokens, every call's logits within DIST_TP_SERVE_REL, a limit between the
+# witness (the unsharded run with the split run's sums in parts) and the
+# control (gemma3-1b: the combine's all-reduce dropped; deepseek-7b, whose
+# cache combines nothing: the attention's all-reduce dropped; it decodes
+# DIST_TP_CONTROL_DECODE steps), both read each run. Random-init
+# deepseek-7b keeps few fp32 digits in its logits as in its gradient: the
+# witness moves them 8.5e-4 (PERF.md §6)
+DIST_TP_PROMPTS = (2048, 1024, 512, 256)
+DIST_TP_CAPACITY = 2304
+DIST_TP_DECODE = 16
+DIST_TP_CONTROL_DECODE = 2
+DIST_TP_SERVE_REL = {("deepseek-7b", "float32"): 2e-3,
+                     ("deepseek-7b", "bfloat16"): 0.1,
+                     ("gemma3-1b", "float32"): 1e-4,
+                     ("gemma3-1b", "bfloat16"): 0.1}
+
+
+def _stack_caches(caches, axes):
+    """Caches of B=1 (plain tensors, or DTensors whose batch dim is not
+    split) stacked along each leaf's batch dim."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.sharding import partition as part
+
+    def cat(ax, *ts):
+        d = list(ax).index("batch")
+        if isinstance(ts[0], DTensor):
+            return DTensor.from_local(
+                torch.cat([t.to_local() for t in ts], d), ts[0].device_mesh,
+                ts[0].placements, run_check=False)
+        return torch.cat(ts, d)
+    return part.map_specs(cat, axes, *caches)
+
+
+def _cache_gib(cache):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import flatten_paths
+    return sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
+               for _, t in flatten_paths(cache)) / 2**30
+
+
+@contextmanager
+def _decode_in_parts(n):
+    """``ops.attention_decode`` over the cache's slots in ``n`` parts,
+    each part's partial softmax combined in order: the combine's sums of
+    the split decode, taken in one process. With ``_sums_in_parts`` the
+    serving witness."""
+    import torch
+    from repro_torch.kernels import ops
+    real = ops.attention_decode
+
+    def parted(q, k, v, lengths, *, window=0, softcap=0.0, scale=None,
+               slot_positions=None):
+        B, S = k.shape[:2]
+        pos = (torch.arange(S, device=q.device)[None].expand(B, S)
+               if slot_positions is None else slot_positions)
+        step = S // n
+        parts = [ops.attention_decode_partial(
+            q, k[:, i:i + step], v[:, i:i + step], lengths, window=window,
+            softcap=softcap, scale=scale, slot_positions=pos[:, i:i + step])
+            for i in range(0, S, step)]
+        top = torch.stack([p[1] for p in parts]).amax(0)
+        c = [torch.exp(p[1] - top) for p in parts]
+        o = sum(p[0] * ci[:, None, :, None] for p, ci in zip(parts, c))
+        lsum = sum(p[2] * ci for p, ci in zip(parts, c))
+        return (o / lsum[:, None, :, None]).to(q.dtype)
+    ops.attention_decode = parted
+    try:
+        yield
+    finally:
+        ops.attention_decode = real
 
 
 def _norms_summed_again(partial_over_model):
@@ -3539,12 +3633,11 @@ def _m_rel(got, want):
     return float(d / r) if r > 0 else (0.0 if d == 0 else math.inf)
 
 
-def _tp_place(lm, mesh):
-    """``lm``'s train state on ``mesh`` at ``state_logical``'s specs, each
-    rank keeping its shard of its own copy (every rank builds the same
-    seeded weights): no collective; each whole weight is freed as it is
-    placed (the step points the LM at its compute copies), and ``m`` and
-    ``v`` are made as shards."""
+def _tp_params(lm, mesh):
+    """``lm``'s parameters as DTensors at ``state_logical``'s specs on
+    ``mesh``, each rank keeping its shard of its own copy (every rank
+    builds the same seeded weights): no collective; each whole weight is
+    freed as it is placed."""
     import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
     placements = _tp_placements(lm, mesh)
@@ -3556,6 +3649,18 @@ def _tp_place(lm, mesh):
                                       src_data_rank=None).to_local().clone()
             params[n] = DTensor.from_local(local, mesh, pl, run_check=False)
             p.data = p.data.new_empty(0)
+    return params
+
+
+def _tp_place(lm, mesh):
+    """``lm``'s train state on ``mesh`` at ``state_logical``'s specs, each
+    rank keeping its shard of its own copy (every rank builds the same
+    seeded weights): no collective; each whole weight is freed as it is
+    placed (the step points the LM at its compute copies), and ``m`` and
+    ``v`` are made as shards."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    params = _tp_params(lm, mesh)
 
     def zeros():
         return {n: DTensor.from_local(torch.zeros_like(t.to_local()), mesh,
@@ -3579,9 +3684,12 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
     the params too, then step 1 again with the norms' gradients summed over "model"
     once more (``_norms_summed_again``, the control) against the same
     shards of ``m``. bf16: step 1 again with the attention's all-reduce
-    over "model" dropped, the control. Then one all-reduce of a layer's
+    over "model" dropped, the control. Then the path serves in that dtype
+    (``serve_case``: rank 0 unsharded and its witness, then every rank
+    through ``launch.specs.build_fn`` on the mesh, counted and recorded as
+    the steps, and in bf16 the control). Then one all-reduce of a layer's
     activations timed in each dtype. Each rank returns its readings; rank
-    0's carry the unsharded steps and the witnesses."""
+    0's carry the unsharded runs and the witnesses."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -3651,6 +3759,231 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         dist.all_reduce(rel, op=dist.ReduceOp.MAX)
         return dict(zip(names, rel.tolist()))
 
+    def timed(fn, *a):
+        """``fn(*a)`` -> (its result, ms: CUDA events on the card, the
+        host clock on the CPU)."""
+        sync()
+        h0 = time.perf_counter()
+        if cuda:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+            e0.record()
+        got = fn(*a)
+        if cuda:
+            e1.record()
+        sync()
+        return got, (e0.elapsed_time(e1) if cuda else
+                     (time.perf_counter() - h0) * 1e3)
+
+    def serve_run(prefill, decode, axes, prompts, forced=None,
+                  steps=DIST_TP_DECODE):
+        """Each prompt prefilled (B=1), the caches stacked, then ``steps``
+        decode steps, greedy or on ``forced`` [4, steps]
+        -> the calls' logits (fp32, on the host), the decode's input
+        tokens and last greedy one [4, steps + 1], ms per prefill and per
+        decode step, and the stacked cache's GiB on this rank."""
+        caches, logits, pre_ms = [], [], []
+        for t in prompts:
+            (c, lg), ms = timed(prefill, t)
+            caches.append(c)
+            logits.append(lg)
+            pre_ms.append(ms)
+        cache = _stack_caches(caches, axes)
+        del caches
+        gib = _cache_gib(cache)
+        tok = torch.cat([lg.argmax(-1, keepdim=True) for lg in logits], 0)
+        toks, dec_ms = [tok], []
+        for i in range(steps):
+            if forced is not None:
+                tok = forced[:, i:i + 1].to(tok.device)
+                toks[-1] = tok
+            (cache, lg), ms = timed(decode, cache, tok)
+            logits.append(lg)
+            dec_ms.append(ms)
+            tok = lg.argmax(-1, keepdim=True)
+            toks.append(tok)
+        del cache
+        return {"logits": [lg.float().cpu() for lg in logits],
+                "tokens": torch.cat(toks, 1).cpu(), "prefill_ms": pre_ms,
+                "decode_ms": dec_ms, "cache_gib": gib}
+
+    def calls_rel(got, want):
+        """Each call's relative L2 of the logits (inf where not finite)."""
+        out = []
+        for a, b in zip(got, want):
+            r = _m_rel(a, b)
+            out.append(r if math.isfinite(r) else math.inf)
+        return out
+
+    def serve_case(key, cfg, dtype):
+        """The serving half of a path in one dtype (``phase_dist_tp``)."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import specs
+        fp32 = dtype == "float32"
+        g = torch.Generator(device=DEVICE).manual_seed(2)
+        prompts = [torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                                 device=DEVICE) for s in DIST_TP_PROMPTS]
+        res, want, t0 = {"s": {}}, [None], time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            res["s"][name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        if rank == 0:      # the unsharded prefill and decode, the witness
+            lm, _ = build(cfg, dtype)
+            axes = lm.cache_logical()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            ref = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
+                            lm.decode_step, axes, prompts)
+            res["unsharded_peak_gib"] = peak()
+            with _sums_in_parts(world), _decode_in_parts(world):
+                wit = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
+                                lm.decode_step, axes, prompts,
+                                forced=ref["tokens"][:, :-1])
+            res.update(unsharded={k: ref[k] for k in (
+                "prefill_ms", "decode_ms", "cache_gib")},
+                tokens=ref["tokens"].tolist(),
+                witness_rel=calls_rel(wit["logits"], ref["logits"]))
+            want[0] = ref
+            del lm, wit
+            free()
+        forced = torch.zeros((len(prompts), DIST_TP_DECODE + 1),
+                             dtype=torch.int64)
+        if rank == 0:
+            forced.copy_(want[0]["tokens"])
+        dist.broadcast(forced, src=0)
+        lap("unsharded")
+        forced = None if fp32 else forced[:, :-1]
+
+        def sharded(lm, params):
+            with part.activate(mesh):
+                sp = specs.input_specs(cfg, ShapeConfig(
+                    "serve", cap, 1, "prefill"), mesh)
+                sd = specs.input_specs(cfg, ShapeConfig(
+                    "serve", cap, len(prompts), "decode"), mesh)
+                pre = specs.build_fn(dict(sp, lm=lm))
+                dec = specs.build_fn(dict(sd, lm=lm))
+
+            def prefill(t):
+                with part.activate(mesh):
+                    c, lg = pre(params, {"tokens": t})
+                return c, lg.to_local()
+
+            def decode(c, t):
+                with part.activate(mesh):
+                    c, lg = dec(params, c, t)
+                return c, lg.to_local()
+            return prefill, decode, lm.cache_logical()
+
+        lm, _ = build(cfg, dtype)
+        layouts = lm.cache_layouts(mesh, len(prompts), cap)
+        params = _tp_params(lm, mesh)
+        prefill, decode, axes = sharded(lm, params)
+        lap("build")
+        counted = {"all_reduce": 0, "all_gather_into_tensor": 0,
+                   "all_gather": 0}
+        real = {k: getattr(dist, k) for k in counted}
+        in_decode = [False]
+
+        def counting(k):
+            def fn(*a, **kw):
+                if in_decode[0]:
+                    counted[k] += 1
+                return real[k](*a, **kw)
+            return fn
+
+        def decode_counted(c, t):
+            in_decode[0] = True
+            try:
+                return decode(c, t)
+            finally:
+                in_decode[0] = False
+        calls = {}
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        for k in counted:
+            setattr(dist, k, counting(k))
+        try:
+            with _flash_inputs(calls):
+                got = serve_run(prefill, decode_counted, axes, prompts,
+                                forced)
+        finally:
+            for k in counted:
+                setattr(dist, k, real[k])
+        sync()
+        res.update(launches=kernel_counts(), flash=flash_counts(),
+                   peak_gib=peak(), prefill_ms=got["prefill_ms"],
+                   decode_ms=got["decode_ms"], cache_gib=got["cache_gib"],
+                   collectives_per_decode_step={
+                       k: v / DIST_TP_DECODE for k, v in counted.items()},
+                   layouts={k: v._asdict() for k, v in layouts.items()})
+        lap("sharded")
+        res["held"] = _hold_recorded(f"dist-tp: {key} serving rank {rank}",
+                                     calls)
+        lap("hold")
+        # every rank holds the same logits (all-gathered over "model")
+        digest = torch.tensor([float(lg.double().sum()) for lg in
+                               got["logits"]], dtype=torch.float64)
+        lo, hi = digest.clone(), digest.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        res["ranks_agree"] = bool(torch.equal(lo, hi))
+        if rank == 0:
+            ref = want[0]
+            res.update(rel=calls_rel(got["logits"], ref["logits"]),
+                       tokens_equal=bool(torch.equal(got["tokens"],
+                                                     ref["tokens"])))
+        del calls
+        if not fp32:       # the control
+            combines = any(v.seq for v in layouts.values())
+            if combines:
+                def uncombined(o, m, l, groups):
+                    return o / l[:, None, :, None]
+                real_c, TP.combine_partial = TP.combine_partial, uncombined
+            else:
+                shim = types.SimpleNamespace(
+                    copy_to=TP.copy_to, reduce_from=lambda y, tp: y,
+                    all_gather=TP.all_gather,
+                    combine_partial=TP.combine_partial)
+                real_c, A.TP = A.TP, shim
+            try:
+                ctl = serve_run(prefill, decode, axes, prompts, forced,
+                                DIST_TP_CONTROL_DECODE)
+            finally:
+                if combines:
+                    TP.combine_partial = real_c
+                else:
+                    A.TP = real_c
+            if rank == 0:
+                res["control"] = ("combine dropped" if combines else
+                                  "attention's all-reduce dropped")
+                res["control_rel"] = calls_rel(ctl["logits"],
+                                               want[0]["logits"])
+            del ctl
+            lap("control")
+        # one decode step's activations all-reduced and its logits
+        # all-gathered over the four ranks, staged through the host by gloo
+        x = torch.ones((len(prompts), 1, cfg.d_model),
+                       dtype=getattr(torch, dtype), device=DEVICE)
+        v = torch.ones((len(prompts), cfg.padded_vocab // world),
+                       dtype=getattr(torch, dtype), device=DEVICE)
+        grp = mesh.get_group("model")
+        ms = {"all_reduce": [], "all_gather": []}
+        for _ in range(6):
+            ms["all_reduce"].append(timed(
+                lambda: dist.all_reduce(x, group=grp))[1])
+            ms["all_gather"].append(timed(
+                lambda: TP.all_gather(v, grp, -1))[1])
+        res["collective_ms"] = {k: sorted(t[1:])[2] for k, t in ms.items()}
+        lap("collectives")
+        del lm, params, prefill, decode, got, want
+        free()
+        return res
+
+    cap = DIST_TP_CAPACITY
     out = {"rank": rank, "cases": {}}
     for label, cfg in paths:
         for dtype, n in steps.items():
@@ -3776,6 +4109,7 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
             del lm, state
             mine.clear()
             free()
+            res["serve"] = serve_case(key, cfg, dtype)
 
     # one layer's activations all-reduced over the four ranks, staged
     # through the host by gloo
@@ -3794,6 +4128,64 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         out["all_reduce_ms"][dtype] = {"shape": [1, seq, d],
                                        "median_ms": sorted(ts[1:])[2]}
     return out
+
+
+def _serve_report(arch, layers, key, route, res, bad):
+    """The serving half of ``phase_dist_tp`` for one path and dtype: its
+    gates (appended to ``bad``) and its record."""
+    dtype = key.rsplit(" ", 1)[1]
+    r0 = res[0]["cases"][key]["serve"]
+    ranks = [r["cases"][key]["serve"] for r in res]
+    lim = DIST_TP_SERVE_REL[arch, dtype]
+    n_pre = len(DIST_TP_PROMPTS)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+    sv = {"prompts": list(DIST_TP_PROMPTS), "capacity": DIST_TP_CAPACITY,
+          "decode_steps": DIST_TP_DECODE, "layouts": r0["layouts"],
+          "limit": lim, "rel_max": max(r0["rel"]),
+          "rel_prefill_max": max(r0["rel"][:n_pre]),
+          "witness_rel_max": max(r0["witness_rel"]),
+          "tokens_equal": r0["tokens_equal"],
+          "ranks_agree": all(r["ranks_agree"] for r in ranks),
+          "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
+          "unsharded_prefill_ms": r0["unsharded"]["prefill_ms"],
+          "decode_ms_median_by_rank": [med(r["decode_ms"][1:])
+                                       for r in ranks],
+          "unsharded_decode_ms_median": med(
+              r0["unsharded"]["decode_ms"][1:]),
+          "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
+          "unsharded_peak_gib": r0["unsharded_peak_gib"],
+          "cache_gib_by_rank": [r["cache_gib"] for r in ranks],
+          "unsharded_cache_gib": r0["unsharded"]["cache_gib"],
+          "collectives_per_decode_step": r0["collectives_per_decode_step"],
+          "collective_ms": r0["collective_ms"],
+          "launches_by_rank": [r["launches"] for r in ranks],
+          "seconds_rank0": r0["s"],
+          "held_shapes": [[h["q"], h["k"], h["dtype"],
+                           h["options"].get("window", 0)]
+                          for h in r0["held"]],
+          "tokens": r0["tokens"]}
+    if dtype == "float32":
+        if not sv["tokens_equal"]:
+            bad.append(f"{key} serving: greedy tokens differ")
+    else:
+        sv["control"] = r0["control"]
+        sv["control_rel_max"] = max(r0["control_rel"])
+        if sv["control_rel_max"] <= lim:
+            bad.append(f"{key} serving: the control within {lim}")
+    if sv["rel_max"] > lim or sv["witness_rel_max"] > lim:
+        bad.append(f"{key} serving: logits {sv['rel_max']}, witness "
+                   f"{sv['witness_rel_max']}, limit {lim}")
+    if not sv["ranks_agree"]:
+        bad.append(f"{key} serving: the ranks' logits differ")
+    for r in ranks:
+        if r["launches"]["flash_attention_fwd"] != layers * n_pre or \
+                r["flash"][route] != layers * n_pre or \
+                r["launches"]["flash_attention_bwd"]:
+            bad.append(f"{key} serving: launches {r['launches']} "
+                       f"{r['flash']}")
+    return sv
 
 
 def phase_dist_tp():
@@ -3817,7 +4209,15 @@ def phase_dist_tp():
     backwards a step, each launch's shapes held against the plain versions
     (``_hold_recorded``). Reports ms per step and peak GiB per rank (of
     step 1), the all-reduces a step and one's host-staged time (gloo, not
-    NVLink)."""
+    NVLink). Then the serving gates of each path and dtype
+    (``_serve_report``, DIST_TP_PROMPTS): fp32 greedy tokens equal to the
+    unsharded run's, every call's logits within DIST_TP_SERVE_REL, the
+    witness inside and in bf16 the control outside, every rank's logits
+    the same, layers x prompts flash launches a rank, all on the dtype's
+    route and each held against the plain version; its prefill ms per
+    prompt, decode ms per step, peak and cache GiB per rank beside the
+    unsharded run's, the collectives a decode step and one's host-staged
+    ms."""
     import torch
     from repro_torch.launch.mesh import run_ranks
     gc.collect()
@@ -3916,8 +4316,17 @@ def phase_dist_tp():
                     out["flash_launches_by_kernel"][k2] += r["flash"][k2]
                     out["flash_bwd_launches_by_route"][k2] += \
                         r["flash_bwd"][k2]
+            c["serve"] = sv = _serve_report(arch, layers, key, route, res,
+                                            bad)
+            for r in res:
+                for kname, v in r["cases"][key]["serve"]["launches"].items():
+                    out["launches"][kname] = out["launches"].get(kname, 0) + v
+                for k2 in ("tc", "fma"):
+                    out["flash_launches_by_kernel"][k2] += \
+                        r["cases"][key]["serve"]["flash"][k2]
             out["cases"][key] = c
             log(f"dist-tp: {key}: {json.dumps(c)}")
+            log(f"dist-tp: {key} serving: {json.dumps(sv)}")
     log(f"dist-tp: {DIST_TP_WORLD} gloo ranks on one card, launches "
         f"{json.dumps(out['launches'])}, all-reduce of a layer's activations"
         f" (host-staged by gloo) {json.dumps(out['all_reduce_ms'])}, "
@@ -3926,12 +4335,14 @@ def phase_dist_tp():
     return out
 
 
-# checkpoint: deepseek-7b at full width and the fp32 twin's depth. Its
-# {step, params, m, v} takes 12 B/param: 14.92 GB at 2 layers, 39.2 GB at
-# 12, which the save holds in host memory once more and the restore reads
-# back; 2 layers keep the phase inside the run's time limit (zlib at level
-# 1 writes some 200 MB/s on 8 cores where zstandard is absent)
-CKPT_LAYERS = TRAIN_TWIN_LAYERS
+# checkpoint: deepseek-7b at full width and one layer. Its {step, params,
+# m, v} takes 12 B/param: 12.50 GB at 1 layer (the two vocabulary tables
+# hold 0.84 of its 1.04 B params), 14.92 GB at 2, 39.2 GB at 12, which the
+# save holds in host memory once more and the restore reads back; one
+# layer keeps the run inside its time limit beside dist-tp's serving
+# (zlib at level 1 writes some 180 MB/s on 8 cores where zstandard is
+# absent: 2.4 GB less is some 20 s less of write and restore)
+CKPT_LAYERS = 1
 CKPT_LABEL = "ckpt-deepseek"
 CKPT_STEPS = 2                 # before the save, and again after it
 # a restart against the uninterrupted run where the card does not repeat
@@ -4056,7 +4467,8 @@ def phase_ckpt():
     (of every file after that: the write made durable), and restore (until
     the tensors are on the card, synchronised) times; the restore reads
     the files after their pages were dropped from the page cache
-    (``_evict``), then once more."""
+    (``_evict``; the guest does not cache the 9p mount's files, and a
+    second restore read the same rate)."""
     import shutil
     import tempfile
     import torch
@@ -4177,13 +4589,6 @@ def phase_ckpt():
         out["restore_s"] = time.perf_counter() - t0
         out["restored_bit_equal"] = all(
             torch.equal(t, saved[p]) for p, t in ckpt.flatten(like))
-        # once more, with whatever the first restore left cached
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ckpt.restore(latest, like)
-        out["restore_warm_s"] = time.perf_counter() - t0
-        out["restored_bit_equal"] = out["restored_bit_equal"] and all(
-            torch.equal(t, saved[p]) for p, t in ckpt.flatten(like))
         extra = ckpt.manifest_extra(latest)
 
         def restart(load_cursor):
@@ -4214,7 +4619,6 @@ def phase_ckpt():
     gb = n_bytes / 1e9
     out.update(stop_gb_s=gb / out["stop_s"], write_gb_s=gb / out["write_s"],
                restore_gb_s=gb / out["restore_s"],
-               restore_warm_gb_s=gb / out["restore_warm_s"],
                phase_s=time.perf_counter() - t_phase)
     log(f"ckpt: {out['compressor']} (host packages "
         f"{json.dumps(out['host_packages'])}), {out['disk_bytes']:,} bytes "
@@ -4225,9 +4629,7 @@ def phase_ckpt():
         f"after it {out['fsync_s']:.3f} s; page cache "
         f"{out['cached_before_evict']:,} -> {out['cached_after_evict']:,} "
         f"bytes by the eviction; restore after it "
-        f"{out['restore_s']:.3f} s ({out['restore_gb_s']:.3f} GB/s), once "
-        f"more {out['restore_warm_s']:.3f} s "
-        f"({out['restore_warm_gb_s']:.3f} GB/s); "
+        f"{out['restore_s']:.3f} s ({out['restore_gb_s']:.3f} GB/s); "
         f"restored bit-equal {out['restored_bit_equal']}; losses before "
         f"{out['losses_before']}, uninterrupted "
         f"{out['losses_uninterrupted']}, restarted "
@@ -4634,7 +5036,7 @@ def _phases(run, failed, name, smi, traces):
         label = PATHS[arch]
         sfx = label[len("serve"):]
         # the multimodal paths run without the engine, which takes tokens
-        # alone; the later paths are not profiled (time on the card)
+        # alone; only PROFILED paths are profiled (time on the card)
         engine = arch not in ("internvl2-76b", "seamless-m4t-large-v2")
         lm = run("load" + sfx, build_lm, arch)
         served = run(label, phase_serve if engine else phase_serve_lm,
@@ -4645,7 +5047,7 @@ def _phases(run, failed, name, smi, traces):
             if engine:
                 run("migrate" + sfx, phase_migrate, lm, served[0])
             profiled = (run("profile" + sfx, phase_profile, lm)
-                        if arch in logits_of else None)
+                        if arch in PROFILED else None)
             served[2].update(logits_rel_l2=logits, profile=profiled)
             paths[arch] = served
         del lm                  # free the card for the next path

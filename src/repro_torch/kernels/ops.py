@@ -9,7 +9,8 @@
                comparison path).
 
 ``attention_decode``, ``ssd_decode`` and ``rglru_decode`` are plain PyTorch,
-as they are plain jnp in the reference.
+as they are plain jnp in the reference; so is ``attention_decode_partial``,
+the decode over one rank's shard of a sequence-split cache.
 """
 from __future__ import annotations
 
@@ -33,6 +34,26 @@ def attention(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+def _decode_scores(q, k_cache, lengths, window, softcap, scale,
+                   slot_positions):
+    """-> (scores [B,Kh,G,S] fp32, -1e30 where masked; valid [B,S])."""
+    B, _, H, hd = q.shape
+    _, S, Kh, _ = k_cache.shape
+    scale = scale if scale is not None else hd ** -0.5
+    kpos = (torch.arange(S, device=q.device)[None].expand(B, S)
+            if slot_positions is None else slot_positions)
+    lengths = lengths[:, None]
+    valid = (kpos >= 0) & (kpos < lengths)
+    if window > 0:
+        valid &= kpos >= (lengths - window)
+    qf = q.reshape(B, Kh, H // Kh, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    return torch.where(valid[:, None, None], s, torch.full_like(s, _NEG)), \
+        valid
+
+
 def attention_decode(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
                      scale=None, slot_positions=None):
     """Single-token decode over a (possibly ring-buffered) KV cache.
@@ -43,23 +64,32 @@ def attention_decode(q, k_cache, v_cache, lengths, *, window=0, softcap=0.0,
     Like the reference, it reads the whole cache in fp32 every step.
     """
     B, _, H, hd = q.shape
-    _, S, Kh, _ = k_cache.shape
-    G = H // Kh
-    scale = scale if scale is not None else hd ** -0.5
-    kpos = (torch.arange(S, device=q.device)[None].expand(B, S)
-            if slot_positions is None else slot_positions)
-    lengths = lengths[:, None]
-    valid = (kpos >= 0) & (kpos < lengths)
-    if window > 0:
-        valid &= kpos >= (lengths - window)
-    qf = q.reshape(B, Kh, G, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float()) * scale
-    if softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, _NEG))
+    s, _ = _decode_scores(q, k_cache, lengths, window, softcap, scale,
+                          slot_positions)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def attention_decode_partial(q, k_cache, v_cache, lengths, *, window=0,
+                             softcap=0.0, scale=None, slot_positions=None):
+    """``attention_decode`` over the keys this rank holds (a slice of the
+    cache's slots, ``slot_positions`` giving each one's position), left
+    unnormalised: -> (o [B,1,H,hd] the exp-weighted sum of the values,
+    m [B,H] the largest valid score, l [B,H] the sum of the weights
+    exp(s - m)), fp32. A row without a valid key on this rank (a prompt
+    shorter than the slice's start, ring slots still at -1) gives o and l
+    exactly 0 and m -1e30, so that it adds nothing to
+    ``sharding.tp.combine_partial``, whose o / l over every rank's share is
+    ``attention_decode``."""
+    B, _, H, hd = q.shape
+    s, valid = _decode_scores(q, k_cache, lengths, window, softcap, scale,
+                              slot_positions)
+    m = s.amax(-1)
+    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    return o.reshape(B, 1, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)
 
 
 def rglru(x, a_log, gate_a, gate_x, *, c=8.0, h0=None, impl=None):

@@ -14,9 +14,10 @@ rank 0's (``roofline.counter``). The step runs the plain path
 tensors cannot trace; the reference likewise lowers its XLA "blocked" path
 on host devices. A train cell traces the tensor-parallel step (attention
 by heads, dense MLPs by ffn, the vocabulary over "model", with their
-all-reduces; ``partition.tp_plan``); a serving cell computes on gathered
-weights, its per-device FLOPs shrinking with the batch axes only (ROADMAP
-Queue 1 item 4b).
+all-reduces; ``partition.tp_plan``), and so does a serving cell, whose
+decode cache stays at its storage shard (``launch.specs.build_fn``).
+``--qkv-constraint batch`` pins q, k and v to heads over "model", which is
+how the port computes them in every cell: it traces the same step.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
@@ -42,13 +43,6 @@ from repro_torch.launch import specs as speclib
 from repro_torch.roofline import analysis as roof
 from repro_torch.roofline import counter as countlib
 from repro_torch.sharding import partition as part
-
-QKV_CONSTRAINT = ("--qkv-constraint shards q, k and v by heads over "
-                  "'model', which needs tensor-parallel compute: the port's "
-                  "train step has it, its prefill and decode compute on "
-                  "gathered weights until the serving slice (ROADMAP Queue "
-                  "1 item 4b)")
-
 
 @contextlib.contextmanager
 def fake_world(n: int):
@@ -101,8 +95,9 @@ def trace(spec, mesh, *, impl="plain", schedule="full", rules=None,
         args = (adamw.init_state(spec["lm"]), spec["args"][1])
     else:
         args = spec["args"]
-    fn = speclib.build_fn(spec, opt_cfg=opt_cfg, impl=impl,
-                          schedule=schedule)
+    with part.activate(mesh, rules):
+        fn = speclib.build_fn(spec, opt_cfg=opt_cfg, impl=impl,
+                              schedule=schedule)
     arg_ts = _locals(args)
     if mesh is None and spec["kind"] != "train":   # the LM's own weights
         arg_ts = list(spec["lm"].parameters()) + _locals(args[1:])
@@ -145,9 +140,6 @@ def run_cell(arch, shape_name, *, multi_pod: bool = False,
              else shape_name)
     cfg0 = get_config(arch) if isinstance(arch, str) else arch
     overrides = dict(cfg_overrides or {})
-    if overrides.get("qkv_constraint") not in (None, cfg0.qkv_constraint) \
-            and shape.kind != "train":
-        raise NotImplementedError(QKV_CONSTRAINT)
     overrides.setdefault("remat", remat)
     if capacity_factor is not None and cfg0.moe is not None:
         overrides["moe"] = dataclasses.replace(
@@ -241,8 +233,6 @@ def main(argv=None):
                                schedule=args.schedule, remat=args.remat,
                                rules=rules, cfg_overrides=overrides,
                                capacity_factor=args.capacity_factor)
-            except NotImplementedError:
-                raise
             except Exception as e:  # noqa: BLE001
                 failures += 1
                 rec = {"arch": arch, "shape": shp, "multi_pod": mp,

@@ -11,9 +11,15 @@ turns the stand-ins into DTensors at those specs (a train state's
 placements are ``runtime.elastic.remesh_state``'s), and ``build_fn``
 returns the port's function of the cell: the step of
 ``optim.adamw.make_train_step``, ``LM.prefill`` or ``LM.decode_step``. On a
-mesh the serving calls compute as the train step does: each parameter
-gathered whole (``adamw.gather_params``) and this rank's slice of the
-batch, a decode cache gathered over every axis but its batch axes.
+mesh the serving calls compute as the train step does
+(``adamw.point_params``): in the tensor-parallel region of
+``adamw.tp_plan`` (``sharding.tp``), on this rank's slice of the batch,
+each split leaf at this rank's heads, ffn columns or vocabulary rows and
+the other leaves gathered. A decode cache leaf of a split block goes in
+and out as this rank's storage shard, read and written in place; one of a
+gathered block (the other mixers, and every block of a model whose plan
+splits nothing) is all-gathered over its non-batch axes by c10d
+(``adamw._relayout``), written by the step and cut back to its shard.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.models.layers import tree_map
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw
 from repro_torch.sharding import partition as part
+from repro_torch.sharding import tp as TP
 
 
 def _stand_in(shape, dtype):
@@ -122,7 +129,7 @@ def input_specs(arch_or_cfg, shape: ShapeConfig, mesh, *, rules=None,
     tok_axes = ("batch", None)
     tok_sh = part.NamedSharding(mesh, part.resolve(tok_axes, (B, 1), mesh,
                                                    rules))
-    return dict(cfg=cfg, lm=lm, kind="decode",
+    return dict(cfg=cfg, lm=lm, kind="decode", capacity=shape.seq_len,
                 args=(p_abs, cache_abs, tok),
                 logical=(p_axes, cache_axes, tok_axes),
                 in_shardings=(p_sh, c_sh, tok_sh),
@@ -153,44 +160,112 @@ def _placed(t, sharding):
                              src_data_rank=None)
 
 
-def _batch_local(cache, cache_axes, mesh, rules):
-    """Each cache leaf (a DTensor) gathered over every mesh axis but its
-    batch axes: this rank's batch rows, whole otherwise."""
-    def local(axes, t):
-        only = tuple(a if a == "batch" else None for a in axes)
-        spec = part.resolve(only, t.shape, mesh, rules)
-        return t.redistribute(mesh, part.placements(spec, mesh)).to_local()
-    return part.map_specs(local, cache_axes, cache)
+def _batch_only(axes, placements):
+    """Placements with every shard but the one of the ``batch`` dim made
+    Replicate: a rank's batch rows, whole otherwise."""
+    from torch.distributed.tensor import Replicate
+    b = list(axes).index("batch")
+    return [pl if pl.is_shard() and pl.dim == b else Replicate()
+            for pl in placements]
+
+
+def cache_in(cache, cache_axes, split, mesh):
+    """Each decode-cache leaf (a DTensor at its storage spec) as a serving
+    call computes on it: a split block's (``split``, ``LM.cache_split``)
+    its local shard itself, written in place; a gathered block's its batch
+    rows gathered whole by c10d (``adamw._relayout``)."""
+    from repro_torch.optim.adamw import _relayout
+
+    def local(axes, t, s):
+        if s:
+            return t.to_local()
+        return _relayout(t.to_local(), mesh, t.placements,
+                         _batch_only(axes, t.placements))
+    return part.map_specs(local, cache_axes, cache, split)
+
+
+def cache_out(cache, cache_axes, split, shardings, mesh):
+    """A serving call's local cache leaves back at their storage specs
+    (``shardings``) as DTensors: a split block's shard as it is (the
+    input's storage after a decode), a gathered block's batch rows cut to
+    this rank's shard."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.optim.adamw import _relayout
+
+    def out(axes, t, s, sh):
+        pl = sh.placements
+        if not s:
+            t = _relayout(t, mesh, _batch_only(axes, pl), pl).contiguous()
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+    return part.map_specs(out, cache_axes, cache, split, shardings)
 
 
 def build_fn(spec, *, opt_cfg=None, impl=None, schedule="full"):
-    """The port's function of the cell, taking ``place``'s arguments."""
+    """The port's function of the cell, taking ``place``'s arguments. On a
+    mesh a serving call returns its cache at its storage specs, the
+    decode's at ``out_shardings``' as the reference's, the prefill's at
+    the same specs (the reference leaves the prefill's out sharding to
+    XLA), so that a decode can follow on the mesh; and the logits as a
+    DTensor split over the batch axes, whole over the vocabulary."""
     lm = spec["lm"]
     if spec["kind"] == "train":
         opt_cfg = opt_cfg or adamw.OptConfig()
         return adamw.make_train_step(lm, opt_cfg, impl=impl,
                                      schedule_kind=schedule)
+    cache_axes = lm.cache_logical()
+    cap = spec["capacity"]
+    B = (spec["args"][1]["tokens"] if spec["kind"] == "prefill"
+         else spec["args"][2]).shape[0]
+    at = {}
 
-    def on_mesh(params, batch):
+    def layout(mesh, rules):
+        """The cell's cache layouts and storage shardings on ``mesh``, from
+        the cell's shapes: once, when the function is built inside
+        ``partition.activate`` (so that a dry-run does not count the
+        stand-ins they are read from), else at the first call."""
+        if at.get("mesh") is not mesh:
+            at.update(mesh=mesh, layouts=lm.cache_layouts(
+                mesh, B, cap, rules), shardings=shardings_of(
+                lm.init_cache(B, cap), cache_axes, mesh, rules))
+        return at["layouts"], at["shardings"]
+    if part._active()[0] is not None:
+        layout(*part._active())
+
+    def serve(params, batch, call):
+        """``call(local batch, split)`` -> (local cache, logits) in the
+        region, on this rank's weights; -> (cache DTensors, logits
+        DTensor)."""
+        from torch.distributed.tensor import DTensor
         mesh, rules = part._active()
-        if mesh is None:
-            return batch
-        adamw.gather_params(lm, params, mesh)
-        return adamw.batch_dims(batch, mesh, rules)[2]
+        plan = adamw.tp_plan(lm, mesh)
+        adamw.point_params(lm, params, mesh, plan)
+        local = adamw.batch_dims(batch, mesh, rules)[2]
+        split = lm.cache_split(plan)
+        layouts, shardings = layout(mesh, rules)
+        with TP.region(mesh, plan, layouts):
+            cache, logits = call(local, split)
+        logits = DTensor.from_local(
+            logits, mesh, part.placements(part.resolve(
+                ("batch", None), (B, logits.shape[-1]), mesh, rules), mesh),
+            run_check=False)
+        return cache_out(cache, cache_axes, split, shardings, mesh), logits
 
     if spec["kind"] == "prefill":
-        cap = spec["capacity"]
-
         def prefill(params, batch):
-            return lm.prefill(on_mesh(params, batch), cap, impl=impl)
+            if part._active()[0] is None:
+                return lm.prefill(batch, cap, impl=impl)
+            return serve(params, batch,
+                         lambda local, split: lm.prefill(local, cap,
+                                                         impl=impl))
         return prefill
 
-    cache_axes = spec["logical"][1]
-
     def decode(params, cache, tokens):
-        mesh, rules = part._active()
-        tokens = on_mesh(params, {"tokens": tokens})["tokens"]
-        if mesh is not None:
-            cache = _batch_local(cache, cache_axes, mesh, rules)
-        return lm.decode_step(cache, tokens)
+        mesh = part._active()[0]
+        if mesh is None:
+            return lm.decode_step(cache, tokens)
+
+        def call(local, split):
+            return lm.decode_step(
+                cache_in(cache, cache_axes, split, mesh), local["tokens"])
+        return serve(params, {"tokens": tokens}, call)
     return decode

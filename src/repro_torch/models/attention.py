@@ -26,8 +26,19 @@ attention on this rank's heads (``tp``, a ``sharding.tp.Region``): ``x``
 enters by ``copy_to``, ``wq`` (and ``wk``/``wv`` where the kv heads split)
 are column shards, ``wo`` a row shard followed by ``reduce_from``. Where
 the kv heads do not split, wk/wv are gathered and each rank projects only
-the kv heads its q heads read (``_local_heads``). Serving on a mesh, and
-the other mixers, compute on gathered weights.
+the kv heads its q heads read (``_local_heads``). Serving on a mesh does
+the same, and its decode cache stays at the reference's storage spec,
+this rank's ``tp.CacheShard`` (``partition.cache_layout``): the prefill
+keeps the slots of its slice of the capacity (or ring) and its kv heads;
+the decode writes the new token's k/v on the rank that owns its slot, and
+attends over its shard alone, the partial softmax combined over the
+sequence's axes (``tp.combine_partial``). Where the cache holds every kv
+head but the compute splits them, the new k/v are all-gathered over the
+model axis (or, where the kv heads are gathered, projected whole), so that
+a leaf replicated over the axis stays equal on every rank; where the cache
+holds every kv head over a slice of the sequence, q is all-gathered over
+the axis, every head attends, and each rank keeps its own heads for its
+row shard of ``wo``. The other mixers compute on gathered weights.
 """
 from __future__ import annotations
 
@@ -105,6 +116,34 @@ def _qkv(cfg: ModelConfig, p, x, positions, rope=True, tp=None):
     return q, k, v
 
 
+def _kv_whole(cfg: ModelConfig, p, x, positions):
+    """k, v [B,S,Kh,hd] of every kv head from the whole ``wk``/``wv``."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    Kh, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (x @ p["wk"].to(dt)).reshape(B, S, Kh, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, Kh, hd)
+    if cfg.qk_norm:
+        k = _rms_head(k, p["k_norm"], cfg.norm_eps)
+    k = apply_rope(k, positions, cfg.rope_pct, cfg.rope_theta)
+    return k, v
+
+
+def cache_kv(cfg: ModelConfig, p, x, positions, k, v, tp, shard):
+    """The k, v of the kv heads this rank's cache shard holds, from its
+    compute's (``_qkv`` under ``tp``): these where the cache splits the kv
+    heads as the compute does, every kv head all-gathered over the model
+    axis where the compute splits them and the cache does not, else
+    projected from the whole ``wk``/``wv`` this rank holds (its compute's
+    are a subset, or copies per q head)."""
+    if shard.heads_count > 1:
+        assert tp.plan.kv and shard.heads_count == tp.size, (shard, tp.plan)
+        return k, v
+    if tp.plan.kv:
+        return TP.all_gather(k, tp.group, 2), TP.all_gather(v, tp.group, 2)
+    return _kv_whole(cfg, p, x, positions)
+
+
 def _window(cfg: ModelConfig, kind):
     return cfg.local_window if kind == "local" else 0
 
@@ -174,10 +213,28 @@ def _write_at(cache, new, idx):
     return cache
 
 
-def attn_decode(cfg: ModelConfig, p, x, cache, positions, *, kind="attn"):
-    """x: [B,1,D]; positions: [B] index of the new token. -> (y, cache)."""
+def _write_own(cache, new, idx):
+    """``_write_at`` of the rows whose ``idx`` lies in [0, S): the slots
+    this rank's shard owns (``idx`` counted from its first slot); the other
+    rows are left as they are, with no host sync."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    i = idx.long().clamp(0, S - 1)
+    own = ((idx >= 0) & (idx < S)).reshape((B,) + (1,) * (cache.dim() - 2))
+    cache[rows, i] = torch.where(own, new[:, 0].to(cache.dtype),
+                                 cache[rows, i])
+    return cache
+
+
+def attn_decode(cfg: ModelConfig, p, x, cache, positions, *, kind="attn",
+                tp=None):
+    """x: [B,1,D]; positions: [B] index of the new token. -> (y, cache).
+    Under ``tp`` the cache leaves are this rank's ``tp.shard(kind)``
+    (the module's docstring)."""
     B = x.shape[0]
-    q, k, v = _qkv(cfg, p, x, positions[:, None])
+    q, k, v = _qkv(cfg, p, x, positions[:, None], tp=tp)
+    if tp is not None:
+        return _decode_split(cfg, p, x, q, k, v, cache, positions, kind, tp)
     slot_pos = None
     if kind == "local":
         slot = positions % cache["k"].shape[1]
@@ -195,18 +252,55 @@ def attn_decode(cfg: ModelConfig, p, x, cache, positions, *, kind="attn"):
     return y, cache
 
 
-def attn_prefill_cache(cfg: ModelConfig, k, v, capacity, *, kind="attn"):
+def _decode_split(cfg: ModelConfig, p, x, q, k, v, cache, positions, kind,
+                  tp):
+    """``attn_decode`` on this rank's heads over its cache shard."""
+    B = x.shape[0]
+    shard = tp.shard(kind)
+    k, v = cache_kv(cfg, p, x, positions[:, None], k, v, tp, shard)
+    n = cache["k"].shape[1]
+    lo = shard.seq_index * n
+    if kind == "local":
+        slot = positions % (n * shard.seq_count) - lo
+        _write_own(cache["slot_pos"], positions[:, None], slot)
+        kpos = cache["slot_pos"]
+    else:   # clamped into the capacity, as _write_at
+        slot = positions.clamp(0, n * shard.seq_count - 1) - lo
+        kpos = (lo + torch.arange(n, device=x.device))[None].expand(B, n)
+    _write_own(cache["k"], k, slot)
+    _write_own(cache["v"], v, slot)
+    if shard.heads_count == 1:      # every kv head: every q head attends
+        q = TP.all_gather(q, tp.group, 2)
+    o, m, l = ops.attention_decode_partial(
+        q, cache["k"], cache["v"], positions + 1, window=_window(cfg, kind),
+        softcap=cfg.attn_logit_softcap, slot_positions=kpos)
+    o = TP.combine_partial(o, m, l, shard.seq_groups)
+    if shard.heads_count == 1:      # this rank's heads for its wo rows
+        Hl = cfg.num_heads // tp.size
+        o = o[:, :, tp.rank * Hl:(tp.rank + 1) * Hl]
+    y = o.to(x.dtype).reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    return TP.reduce_from(y, tp), cache
+
+
+def attn_prefill_cache(cfg: ModelConfig, k, v, capacity, *, kind="attn",
+                       shard=None):
     """Build a decode cache from a full prefix's k/v [B,S,Kh,hd] at
     positions 0..S-1 (the reference recomputes them from x; the port reuses
     the prefill's). A local layer keeps the last W positions at their ring
     slots: slot s holds the largest p <= S-1 with p % W == s, or zeros and
-    ``slot_pos`` -1 where that p would be negative."""
+    ``slot_pos`` -1 where that p would be negative. With ``shard`` (a
+    ``tp.CacheShard``; k/v of its kv heads, ``cache_kv``) only its slots:
+    its slice of the capacity's positions (not of the prompt's: a slice
+    past the prompt holds zeros) or of the ring's slots."""
     B, S, Kh, hd = k.shape
+    n = _ring(cfg, capacity) if kind == "local" else capacity
+    count = shard.seq_count if shard is not None else 1
+    W, n = n, n // count
+    lo = shard.seq_index * n if shard is not None else 0
     if kind == "local":
-        W = _ring(cfg, capacity)
         last = S - 1
-        s = torch.arange(W, device=k.device)
-        pos = last - torch.remainder(last - s, W)               # [W]
+        s = torch.arange(lo, lo + n, device=k.device)
+        pos = last - torch.remainder(last - s, W)               # [n]
         ok = pos >= 0
         src = pos.clamp(0, S - 1)
         keep = ok[None, :, None, None]
@@ -214,10 +308,12 @@ def attn_prefill_cache(cfg: ModelConfig, k, v, capacity, *, kind="attn"):
         return {"k": torch.where(keep, k[:, src], zero),
                 "v": torch.where(keep, v[:, src], zero),
                 "slot_pos": torch.where(ok, pos, -1).to(torch.int32)
-                .expand(B, W).contiguous()}
-    pad = torch.zeros((B, capacity - S, Kh, hd), dtype=k.dtype,
+                .expand(B, n).contiguous()}
+    hi = min(max(S, lo), lo + n)
+    pad = torch.zeros((B, n - (hi - lo), Kh, hd), dtype=k.dtype,
                       device=k.device)
-    return {"k": torch.cat([k, pad], 1), "v": torch.cat([v, pad], 1)}
+    return {"k": torch.cat([k[:, lo:hi], pad], 1),
+            "v": torch.cat([v[:, lo:hi], pad], 1)}
 
 
 # ---------------------------------------------------------------------------

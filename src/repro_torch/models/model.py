@@ -50,8 +50,15 @@ ffn columns, and the embedding, logits and cross-entropy on its
 vocabulary rows, by ``partition.compute_axis`` (``_split`` decides per
 block); the other blocks compute gathered. The region is read once per
 forward and carried in the layers' context, so a remat recompute issues
-the same collectives in the same order on every rank. The reference's
-activation constraints have no other counterpart.
+the same collectives in the same order on every rank; so is the expert
+axis (``moe.ep_context``), which a recompute on the autograd engine's
+device thread could not read from the active mesh. ``prefill`` and
+``decode_step`` read both the same way: in a region (``launch.specs.
+build_fn`` opens one) they compute the split blocks on this rank's shards,
+keep each split block's decode cache at this rank's storage shard
+(``cache_layouts``, ``sharding.tp.CacheShard``) and return the last
+logits all-gathered over the vocabulary. The reference's activation
+constraints have no other counterpart.
 """
 from __future__ import annotations
 
@@ -150,11 +157,15 @@ def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     return d
 
 
+def _split_plan(plan, block, leaf="wo"):
+    return part.compute_axis(plan, block, leaf) is not None
+
+
 def _split(tp, block, leaf="wo"):
     """``tp`` where its plan computes ``block`` split over the model axis
     (``partition.compute_axis``; a mixer or an MLP by its ``wo``, the
     vocabulary by ``embed``), else None: the block computes gathered."""
-    if tp is None or part.compute_axis(tp.plan, block, leaf) is None:
+    if tp is None or not _split_plan(tp.plan, block, leaf):
         return None
     return tp
 
@@ -165,13 +176,15 @@ def _self_kind(mixer):
     return "attn" if mixer == "xdec" else mixer
 
 
-def _mlp_residual(cfg, mlpk, p, x, tp=None):
+def _mlp_residual(cfg, mlpk, p, x, tp=None, ep=MOE.ACTIVE):
     """x plus the layer's MLP (dense or MoE) -> (x, aux). The dense MLP
     takes its width from its weights, and splits where ``tp``'s plan
-    splits it."""
+    splits it; the MoE block exchanges its tokens over ``ep``
+    (``moe.ep_context``; by default the active mesh's)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlpk == "moe":
-        y, aux = MOE.moe_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+        y, aux = MOE.moe_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
+                               ep)
         x = x + y
     elif mlpk == "dense":
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
@@ -187,8 +200,10 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     twice), MLA layers their compressed ``ckv``/``kpe`` rows once. An
     ``xdec`` layer reads the encoder output ``ctx["enc_out"]`` and adds its
     cross k/v to the cache as ``xk``/``xv``. ``aux`` is an MoE layer's
-    load-balance loss, else 0. ``ctx["tp"]`` is the train step's
-    tensor-parallel region or None."""
+    load-balance loss, else 0. ``ctx["tp"]`` is the tensor-parallel
+    region or None, ``ctx["ep"]`` the expert axis (``moe.ep_context``);
+    in a region a split block's cache is this rank's shard of it
+    (``tp.CacheShard``)."""
     mixer, mlpk = kind
     tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
@@ -206,7 +221,13 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         # frames' positions
         mtp = _split(tp, mixer)
         q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"], tp=mtp)
-        if capacity is not None:
+        if capacity is not None and mtp is not None:
+            shard = mtp.shard(mixer)
+            kc, vc = A.cache_kv(cfg, p["mixer"], h, ctx["positions"], k, v,
+                                mtp, shard)
+            cache = A.attn_prefill_cache(cfg, kc, vc, capacity, kind=mixer,
+                                         shard=shard)
+        elif capacity is not None:
             cache = A.attn_prefill_cache(cfg, k, v, capacity,
                                          kind=_self_kind(mixer))
         mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=_self_kind(mixer),
@@ -220,7 +241,7 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         x = x + A.xattn_forward(cfg, p["cross"],
                                 apply_norm(cfg, p["ln_x"], x), xk, xv,
                                 impl=ctx.get("impl"))
-    x, aux = _mlp_residual(cfg, mlpk, p, x, tp)
+    x, aux = _mlp_residual(cfg, mlpk, p, x, tp, ctx.get("ep", MOE.ACTIVE))
     return x, cache, aux
 
 
@@ -264,8 +285,11 @@ def layer_cache_axes(cfg, kind):
 
 
 def layer_decode(cfg, kind, p, x, cache, ctx):
-    """One token; the cache's leaves are written in place."""
+    """One token; the cache's leaves are written in place. In a
+    tensor-parallel region (``ctx["tp"]``) a split block computes on this
+    rank's heads and ffn columns over its cache shard."""
     mixer, mlpk = kind
+    tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
     if mixer == "ssm":
         mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache)
@@ -275,12 +299,13 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
         mx, cache = A.mla_decode(cfg, p["mixer"], h, cache, ctx["positions"])
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
-                                  ctx["positions"], kind=_self_kind(mixer))
+                                  ctx["positions"], kind=_self_kind(mixer),
+                                  tp=_split(tp, mixer))
     x = x + mx
     if mixer == "xdec":
         x = x + A.xattn_decode(cfg, p["cross"], apply_norm(cfg, p["ln_x"], x),
                                cache)
-    x, _ = _mlp_residual(cfg, mlpk, p, x)
+    x, _ = _mlp_residual(cfg, mlpk, p, x, tp, ctx.get("ep", MOE.ACTIVE))
     return x, cache
 
 
@@ -650,7 +675,7 @@ class LM(nn.Module):
         x, enc_out, off = self._inputs(batch, impl, tp)
         B, S, _ = x.shape
         ctx = {"positions": self._positions(B, S), "enc_out": enc_out,
-               "impl": impl, "tp": tp}
+               "impl": impl, "tp": tp, "ep": MOE.ep_context(self.cfg)}
         x, aux = self.decoder(x, ctx)
         return self._logits(x, tp), aux, off
 
@@ -681,33 +706,78 @@ class LM(nn.Module):
         """Logical axes of ``init_cache``'s leaves, in its structure."""
         return {"lengths": ("batch",), "layers": self.decoder.cache_axes()}
 
+    def cache_layouts(self, mesh, batch, capacity, rules=None):
+        """Each split-able mixer kind's (``partition.TP_MIXERS``) cache
+        layout on ``mesh`` (``partition.cache_layout`` of its ``k``) for a
+        global ``batch`` at ``capacity``: what ``sharding.tp.region``
+        takes for a serving call."""
+        out = {}
+        for kind in self.decoder.kinds:
+            mixer = kind[0]
+            if mixer in part.TP_MIXERS and mixer not in out:
+                k = layer_cache_def(self.cfg, kind, batch, capacity,
+                                    self.compute_dtype)["k"]
+                out[mixer] = part.cache_layout(
+                    layer_cache_axes(self.cfg, kind)["k"], k.shape, mesh,
+                    rules)
+        return out
+
+    def cache_split(self, plan):
+        """A tree of ``cache_logical``'s structure: True at each leaf of a
+        block ``plan`` computes split (its serving call keeps the leaf at
+        this rank's shard), else False."""
+        def layer(kind, axes):
+            split = _split_plan(plan, kind[0])
+            return {n: split for n in axes}
+        d = self.decoder
+        axes = d.cache_axes()
+        return {"lengths": False, "layers": {
+            sec: [layer(k, a) for k, a in zip(kinds, axes[sec])]
+            for sec, kinds in (("head", d.head_kinds),
+                               ("core", d.period_kinds),
+                               ("tail", d.tail_kinds))}}
+
     def materialize_cache(self, batch, capacity):
         return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                               device=self.device),
                         self.init_cache(batch, capacity))
 
+    def _whole_logits(self, x, tp):
+        """``_logits`` over the whole vocabulary: under a vocabulary split
+        every rank's columns all-gathered."""
+        logits = self._logits(x, tp)
+        if _split(tp, "vocab", "embed") is not None:
+            logits = TP.all_gather(logits, tp.group, -1)
+        return logits
+
     @torch.no_grad()
     def prefill(self, batch, capacity, *, impl=None):
         """-> (cache, last logits [B,V]); the cache's ``lengths`` count the
         vision embeds too, and an encoder-decoder's ``xdec`` layers hold the
-        cross k/v of the batch's frames as ``xk``/``xv``."""
-        x, enc_out, _ = self._inputs(batch, impl)
+        cross k/v of the batch's frames as ``xk``/``xv``. In a
+        tensor-parallel region a split block's cache leaves are this
+        rank's shards."""
+        tp = TP.active()
+        x, enc_out, _ = self._inputs(batch, impl, tp)
         B, S, _ = x.shape
         ctx = {"positions": self._positions(B, S), "enc_out": enc_out,
-               "impl": impl}
+               "impl": impl, "tp": tp, "ep": MOE.ep_context(self.cfg)}
         x, layer_cache, _ = self.decoder.prefill(x, ctx, capacity)
         cache = {"lengths": torch.full((B,), S, dtype=torch.int32,
                                        device=self.device),
                  "layers": layer_cache}
-        return cache, self._logits(x[:, -1:])[:, 0]
+        return cache, self._whole_logits(x[:, -1:], tp)[:, 0]
 
     @torch.no_grad()
     def decode_step(self, cache, tokens):
         """tokens: [B,1] -> (cache, logits [B,V]). The cache's layer leaves
         (k/v rows, SSM conv window and state) are written in place;
-        ``lengths`` is a new tensor."""
-        x = self._embed(tokens)
-        ctx = {"positions": cache["lengths"]}
+        ``lengths`` is a new tensor. In a tensor-parallel region a split
+        block's leaves are this rank's shards (``prefill``'s)."""
+        tp = TP.active()
+        x = self._embed(tokens, tp)
+        ctx = {"positions": cache["lengths"], "tp": tp,
+               "ep": MOE.ep_context(self.cfg)}
         x, layers = self.decoder.decode(x, cache["layers"], ctx)
         new = {"lengths": cache["lengths"] + 1, "layers": layers}
-        return new, self._logits(x)[:, 0]
+        return new, self._whole_logits(x, tp)[:, 0]

@@ -178,14 +178,29 @@ def ep_partial(path: str) -> bool:
     return path.endswith(".mlp.router") or ".mlp.shared." in path
 
 
-def moe_apply(cfg: ModelConfig, p, x):
-    """x: [B,S,D] -> (y [B,S,D], aux loss, a scalar fp32). Takes the EP
-    path when an active mesh has an expert axis that applies
-    (``expert_axis``), else the local path."""
+def ep_context(cfg: ModelConfig):
+    """(mesh, rules, expert axis) of the active mesh when EP applies to
+    ``cfg`` (``expert_axis``), else None. ``LM`` reads it once per call
+    and carries it in its layers' context: a remat recompute may run on
+    the autograd engine's device thread, where no mesh is active."""
     ax = expert_axis(cfg)
-    if ax is not None:
-        mesh, rules = part._active()
-        return _moe_ep(cfg, p, x, mesh, rules, ax)
+    if ax is None:
+        return None
+    mesh, rules = part._active()
+    return mesh, rules, ax
+
+
+ACTIVE = object()     # moe_apply's default: read the active mesh
+
+
+def moe_apply(cfg: ModelConfig, p, x, ep=ACTIVE):
+    """x: [B,S,D] -> (y [B,S,D], aux loss, a scalar fp32). Takes the EP
+    path over ``ep`` (``ep_context``'s value; by default the caller's
+    active mesh, read here), else the local path (``ep`` None)."""
+    if ep is ACTIVE:
+        ep = ep_context(cfg)
+    if ep is not None:
+        return _moe_ep(cfg, p, x, *ep)
     return _moe_local(cfg, p, x)
 
 

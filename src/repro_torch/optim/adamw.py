@@ -299,16 +299,23 @@ def _relayout(t, mesh, src, dst):
     it enters is cut; over one rank only the cut (a no-op) is taken. These
     are c10d calls on the mesh's groups, which gloo takes for CUDA tensors
     (staged through the host), where DTensor's functional all-gather of a
-    CUDA tensor crashed gloo. Each tensor dim lies on at most one mesh dim
-    and shards are even (``partition.resolve`` drops an axis that does not
-    divide; the tensor-parallel plan splits whole units)."""
+    CUDA tensor crashed gloo. Shards are even (``partition.resolve`` drops
+    an axis that does not divide; the tensor-parallel plan splits whole
+    units). A tensor dim over two mesh dims (a decode cache's sequence
+    over ("data", "model"), split major to minor) is gathered minor dim
+    first and cut major dim first, whole, and takes no Partial."""
     import torch.distributed as dist
     owner = {}
     for d in range(mesh.ndim):
         for pl in (src[d], dst[d]):
-            if pl.is_shard() and owner.setdefault(pl.dim, d) != d:
-                raise NotImplementedError(f"two mesh dims on one tensor "
-                                          f"dim: {src} -> {dst}")
+            if pl.is_shard():
+                owner.setdefault(pl.dim, set()).add(d)
+    multi = {i for i, ds in owner.items() if len(ds) > 1}
+    if multi:
+        if any(pl.is_partial() for pl in src):
+            raise NotImplementedError(f"a Partial beside two mesh dims on "
+                                      f"one tensor dim: {src} -> {dst}")
+        return _relayout_multi(t, mesh, src, dst, multi)
     for d in range(mesh.ndim):
         a, b, n = src[d], dst[d], mesh.size(d)
         if a == b:
@@ -337,6 +344,36 @@ def _relayout(t, mesh, src, dst):
     return t
 
 
+def _relayout_multi(t, mesh, src, dst, multi):
+    """``_relayout`` where the tensor dims ``multi`` lie on two mesh dims
+    or more: such a dim whose mesh dims change is gathered whole and cut
+    again; one whose mesh dims stay (a batch over ("pod", "data")) is
+    left as it is."""
+    import torch.distributed as dist
+
+    def dims(pls, i):
+        return [d for d, pl in enumerate(pls) if pl.is_shard() and
+                pl.dim == i]
+    redo = {i for i in multi if dims(src, i) != dims(dst, i)}
+
+    def moves(a, b):
+        return a != b or (a.is_shard() and a.dim in redo) or \
+            (b.is_shard() and b.dim in redo)
+    for d in reversed(range(mesh.ndim)):
+        a, n = src[d], mesh.size(d)
+        if a.is_shard() and n > 1 and moves(a, dst[d]):
+            x = t.movedim(a.dim, 0).contiguous()
+            out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+            dist.all_gather_into_tensor(out, x, group=mesh.get_group(d))
+            t = out.movedim(0, a.dim)
+    for d in range(mesh.ndim):
+        b, n = dst[d], mesh.size(d)
+        if b.is_shard() and moves(src[d], b):
+            k = t.shape[b.dim] // n
+            t = t.narrow(b.dim, mesh.get_local_rank(d) * k, k)
+    return t
+
+
 def _point_at(lm, params, mesh, compute_placements):
     with torch.no_grad():
         for n, p in lm.named_parameters():
@@ -346,12 +383,15 @@ def _point_at(lm, params, mesh, compute_placements):
             p.grad = None
 
 
-def gather_params(lm, params, mesh):
-    """Point each of the LM's parameters at its compute copy: the DTensor
-    ``params[name]`` gathered whole (an expert weight under EP only over
-    the other axes); clears the gradients. What a serving call on a mesh
-    does before it runs (the train step keeps split leaves split)."""
-    _point_at(lm, params, mesh, _compute_placements(lm, mesh))
+def point_params(lm, params, mesh, plan=None):
+    """Point each of the LM's parameters at its compute copy, as the train
+    step does: the DTensor ``params[name]`` gathered, but an expert
+    weight's shard over the expert axis under EP and, with ``plan``
+    (``tp_plan``), a split leaf's shard over the model axis; clears the
+    gradients. What a serving call on a mesh does before it runs
+    (``launch.specs.build_fn``); without ``plan`` every other leaf is
+    gathered whole."""
+    _point_at(lm, params, mesh, _compute_placements(lm, mesh, plan))
 
 
 def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,

@@ -16,7 +16,9 @@ inside its head on a model axis of 4. How the train step *computes* a
 leaf over ``TP_AXIS`` is decided by whole units instead (``tp_plan`` and
 ``compute_axis``): attention by heads, the dense MLP by ffn columns, the
 embedding, head and cross-entropy by vocabulary rows; every other leaf is
-gathered whole.
+gathered whole. A split block's decode cache is the other way round: it
+stays at its storage spec, and ``cache_layout`` says which mesh axes that
+puts on its sequence and its kv heads.
 
 A mesh is anything with named axes and sizes: a ``DeviceMesh`` built with
 ``mesh_dim_names`` (``launch.mesh``), or an ``AbstractMesh`` for resolving
@@ -153,6 +155,38 @@ def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
     return (plan is not None and block in TP_MIXERS and plan.heads and
             (leaf in ("q_norm", "k_norm") or
              (leaf in ("wk", "wv") and not plan.kv)))
+
+
+class CacheLayout(NamedTuple):
+    """The mesh axes a decode-cache leaf's resolved spec puts on its batch,
+    sequence (or ring-slot) and kv-heads dims, major to minor (() where a
+    dim is whole)."""
+    batch: Tuple[str, ...]
+    seq: Tuple[str, ...]
+    heads: Tuple[str, ...]
+
+
+def cache_layout(logical: Sequence[Optional[str]], shape: Sequence[int],
+                 mesh, rules: Optional[Dict[str, Axis]] = None
+                 ) -> CacheLayout:
+    """Where a cache leaf of a split block is stored: the cache
+    counterpart of ``compute_axis``, and storage, not compute. The
+    reference's ``attn_cache_axes`` resolve to heads over "model" with the
+    sequence on "data" where the batch leaves it (a kv-head-rich cache), or
+    the sequence over ("data", "model") less the axes the batch takes (any
+    other), or over no axis where the dim does not divide. A split block's
+    decode reads and writes this shard in place (``sharding.tp``), so no
+    relayout meets two mesh axes on one tensor dim."""
+    spec = resolve(logical, shape, mesh, rules)
+
+    def axes(names):
+        for i, name in enumerate(logical):
+            if name in names and i < len(spec) and spec[i] is not None:
+                e = spec[i]
+                return (e,) if isinstance(e, str) else tuple(e)
+        return ()
+    return CacheLayout(axes(("batch",)), axes(("seq_kv", "seq_data")),
+                       axes(("heads",)))
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

@@ -23,14 +23,31 @@ engine's device thread, computes in the same region. Each primitive is an
                     all-reduce, the gold logit from the rank that owns the
                     label.
 
-Without a region (no mesh, a model axis of 1, or a serving call) the model
-calls none of them and computes as on one device.
+Serving (``LM.prefill``/``LM.decode_step`` in a region that
+``launch.specs.build_fn`` opens) runs the same blocks under no_grad, and
+keeps each decode-cache leaf of a split block at its storage shard
+(``CacheShard``, from ``partition.cache_layout``): its slice of the
+sequence or ring slots, and of the kv heads where those are split over the
+model axis. Two more primitives serve it, plain c10d calls without
+autograd:
+
+* ``all_gather``      — every rank's tensor concatenated along a dim
+                        (``all_gather_into_tensor``, never DTensor's
+                        ``redistribute``);
+* ``combine_partial`` — attention's partial softmax over each rank's keys
+                        (``ops.attention_decode_partial``) combined over the
+                        sequence axes' groups: the largest score by an
+                        all-reduce MAX, each share rescaled to it, then the
+                        sums and the weighted values by one all-reduce.
+
+Without a region (no mesh, or a model axis of 1) the model calls none of
+them and computes as on one device.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,12 +55,51 @@ import torch.nn.functional as F
 from repro_torch.sharding import partition as part
 
 
+class CacheShard(NamedTuple):
+    """This rank's shard of a split block's decode-cache leaves: slice
+    ``seq_index`` of ``seq_count`` along the sequence (or ring-slot) dim,
+    whose partial softmax is combined over ``seq_groups`` (the groups of
+    the sequence's mesh axes, major to minor), and slice ``heads_index`` of
+    ``heads_count`` along the kv heads (1: every kv head)."""
+    seq_groups: Tuple[object, ...]
+    seq_index: int
+    seq_count: int
+    heads_index: int
+    heads_count: int
+
+
+WHOLE = CacheShard((), 0, 1, 0, 1)
+
+
+def cache_shard(mesh, layout: part.CacheLayout) -> CacheShard:
+    """``layout``'s shard on this rank of ``mesh``: its index along the
+    sequence axes taken major to minor, as a spec over several axes
+    splits a dim; the combine runs over those of more than one rank."""
+    names = list(part.axis_sizes(mesh))
+
+    def where(axes):
+        i, n = 0, 1
+        for a in axes:
+            d = names.index(a)
+            i, n = i * mesh.size(d) + mesh.get_local_rank(d), n * mesh.size(d)
+        return i, n
+    (si, sn), (hi, hn) = where(layout.seq), where(layout.heads)
+    groups = tuple(mesh.get_group(a) for a in layout.seq
+                   if mesh.size(names.index(a)) > 1)
+    return CacheShard(groups, si, sn, hi, hn)
+
+
 class Region(NamedTuple):
-    """This rank's place on the model axis, and what computes split."""
+    """This rank's place on the model axis, what computes split, and, for
+    serving, each split mixer kind's ``CacheShard`` (None: whole)."""
     group: object
     rank: int
     size: int
     plan: part.TPPlan
+    cache: Optional[Dict[str, CacheShard]] = None
+
+    def shard(self, kind: str) -> CacheShard:
+        return (self.cache or {}).get(kind, WHOLE)
 
 
 _state = threading.local()
@@ -54,16 +110,20 @@ def active() -> Optional[Region]:
 
 
 @contextlib.contextmanager
-def region(mesh, plan: Optional[part.TPPlan]):
+def region(mesh, plan: Optional[part.TPPlan],
+           cache: Optional[Dict[str, part.CacheLayout]] = None):
     """Compute split over ``mesh``'s ``TP_AXIS`` by ``plan`` in the block;
     the identity context without a plan, or where the axis is missing or
-    of size 1."""
+    of size 1. ``cache`` maps a split mixer kind to its cache leaves'
+    layout (``LM.cache_layouts``); a serving call reads and writes those
+    leaves as this rank's shards."""
     prev = active()
     names = list(part.axis_sizes(mesh))
     if plan is not None and part.TP_AXIS in names and plan.size > 1:
+        shards = {k: cache_shard(mesh, v) for k, v in (cache or {}).items()}
         _state.region = Region(mesh.get_group(part.TP_AXIS),
                                mesh.get_local_rank(part.TP_AXIS), plan.size,
-                               plan)
+                               plan, shards)
     try:
         yield
     finally:
@@ -157,3 +217,45 @@ def vocab_ce(logits, labels, tp: Region):
     cross-entropy, the same on every rank of the axis."""
     lo = tp.rank * logits.shape[-1]
     return _VocabCE.apply(logits, labels.long(), lo, tp.group)
+
+
+# ---------------------------------------------------------------------------
+# Serving: no autograd
+# ---------------------------------------------------------------------------
+
+
+def all_gather(t, group, dim: int):
+    """``t`` of every rank of ``group`` concatenated along ``dim`` in rank
+    order (c10d's ``all_gather_into_tensor``, which gloo takes for CUDA
+    tensors too)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def combine_partial(o, m, l, groups):
+    """Attention over keys split across ``groups``: ``o`` [B,1,H,hd], the
+    exp-weighted sum of this rank's values, ``m`` [B,H] its largest score,
+    ``l`` [B,H] its sum of weights, all fp32 (``ops.attention_decode_
+    partial``) -> the attention output [B,1,H,hd] fp32 over every rank's
+    keys. The largest score by an all-reduce MAX, each rank's share scaled
+    by exp(m - max) (0 for a rank without a valid key, whose o and l are
+    0), then o and l summed by one all-reduce."""
+    import torch.distributed as dist
+    if groups:
+        B, _, H, hd = o.shape
+        top = m.clone()
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        c = torch.exp(m - top)
+        buf = torch.cat([(o * c[:, None, :, None]).reshape(B, -1), l * c],
+                        -1)
+        for g in groups:
+            dist.all_reduce(buf, group=g)
+        o, l = buf[:, :H * hd].reshape(B, 1, H, hd), buf[:, H * hd:]
+    return o / l[:, None, :, None]

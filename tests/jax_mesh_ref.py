@@ -18,7 +18,13 @@ by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run) and
 overrides, mesh shape, key]: the weights ``<model>.<path>`` placed at their
 specs, the batch at its spec; the logits and one AdamW step, whose ``m``
 is (1 - b1) times each leaf's clipped gradient, in one jitted call per
-case, written under the case's key).
+case, written under the case's key) and ``serve`` (GSPMD serving cells
+of the cases of ``cases.json``, [key, arch, config overrides, mesh
+shape, global batch, capacity]: ``launch.specs``' prefill of the tokens
+``<key>.tokens`` and three decode steps of ``<key>.dec``, each at the
+cell's in and out shardings; the logits of each call, the cache after
+the prefill and after the last step, and each cache leaf's
+``devices_indices_map`` in the mesh's device order, in ``indices.json``).
 """
 import json
 import os
@@ -245,6 +251,72 @@ def job_tp(d):
     np.savez(os.path.join(d, "out.npz"), **out)
 
 
+def _index_rows(sharding, shape, mesh):
+    imap = sharding.devices_indices_map(tuple(shape))
+    return [[[s.start or 0, shape[i] if s.stop is None else s.stop]
+             for i, s in enumerate(imap[dev])]
+            for dev in mesh.devices.reshape(-1)]
+
+
+def job_serve(d):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from repro.configs.base import ShapeConfig, get_smoke_config
+    from repro.launch import specs
+    from repro.models.model import LM
+    from repro.sharding import partition as part
+    z = dict(np.load(os.path.join(d, "in.npz")))
+    with open(os.path.join(d, "cases.json")) as f:
+        cases = json.load(f)
+    out, indices = {}, {}
+    for key, arch, over, mshape, B, cap in cases:
+        cfg = get_smoke_config(arch).replace(**over)
+        lm = LM(cfg)
+        pre = f"{key}.p."
+        params = _tree_from({k[len(pre):]: v for k, v in z.items()
+                             if k.startswith(pre)},
+                            jax.eval_shape(lm.init, jax.random.PRNGKey(0)))
+        mesh = _mesh(mshape, ("data", "model"))
+        with part.activate(mesh):
+            sp = specs.input_specs(cfg, ShapeConfig("p", cap, B, "prefill"),
+                                   mesh)
+            sd = specs.input_specs(cfg, ShapeConfig("d", cap, B, "decode"),
+                                   mesh)
+            params = jax.device_put(params, sp["in_shardings"][0])
+            prefill = jax.jit(specs.build_fn(sp),
+                              in_shardings=sp["in_shardings"],
+                              out_shardings=sp["out_shardings"])
+            decode = jax.jit(specs.build_fn(sd),
+                             in_shardings=sd["in_shardings"],
+                             out_shardings=sd["out_shardings"])
+            tokens = jax.device_put(jnp.asarray(z[f"{key}.tokens"]),
+                                    sp["in_shardings"][1]["tokens"])
+            cache, logits = prefill(params, {"tokens": tokens})
+            out[f"{key}.logits.0"] = np.asarray(logits)
+            cache = jax.device_put(cache, sd["in_shardings"][1])
+            for k, v in _flat(cache).items():
+                out[f"{key}.prefill.{k}"] = v
+            dec = z[f"{key}.dec"]
+            for i in range(dec.shape[1]):
+                cache, logits = decode(params, cache,
+                                       jnp.asarray(dec[:, i:i + 1]))
+                out[f"{key}.logits.{i + 1}"] = np.asarray(logits)
+            for k, v in _flat(cache).items():
+                out[f"{key}.decode.{k}"] = v
+            shs = jax.tree_util.tree_leaves(
+                sd["in_shardings"][1],
+                is_leaf=lambda x: isinstance(x, NamedSharding))
+            indices[key] = {
+                _dotted(path): _index_rows(sh, a.shape, mesh)
+                for (path, a), sh in zip(
+                    jax.tree_util.tree_leaves_with_path(sd["args"][1]), shs)}
+    np.savez(os.path.join(d, "out.npz"), **out)
+    with open(os.path.join(d, "indices.json"), "w") as f:
+        json.dump(indices, f)
+
+
 if __name__ == "__main__":
     {"indices": job_indices, "ep": job_ep, "specs": job_specs,
-     "flops": job_flops, "tp": job_tp}[sys.argv[1]](sys.argv[2])
+     "flops": job_flops, "tp": job_tp, "serve": job_serve}[sys.argv[1]](
+        sys.argv[2])

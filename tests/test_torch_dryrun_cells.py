@@ -1,7 +1,6 @@
 """``repro_torch.launch.dryrun`` at full width: a ``train_4k`` cell on the
 256-rank single-pod mesh (its tensor-parallel compute per device), and
-``--qkv-constraint``: taken by train cells, refused by serving cells until
-their tensor-parallel slice (ROADMAP Queue 1 item 4b)."""
+``--qkv-constraint``, taken by every kind of cell."""
 import pytest
 
 from repro_torch.configs import base as TB
@@ -60,22 +59,20 @@ def test_full_width_train_cell_on_the_single_pod_mesh():
     assert sum(rec["op_histogram"].values()) > 0
 
 
-def test_qkv_constraint_needs_tensor_parallel_compute():
-    """``batch`` pins q, k and v to heads over "model", which the train
-    step's tensor-parallel compute does: a train cell takes it and traces
-    the same step; a prefill cell, which computes gathered, refuses it and
-    names the serving slice."""
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_qkv_constraint_traces_every_kind_of_cell(kind):
+    """``batch`` pins q, k and v to heads over "model", which is how the
+    port computes them in every cell once serving computes split: a
+    train, a prefill and a decode cell take it and trace the same step
+    (the same FLOPs and bytes) as without it; so does the CLI on a
+    full-width decode cell."""
     cfg = TB.get_smoke_config("deepseek-7b")
-    train = TB.ShapeConfig("cell", 64, 4, "train")
-    rec = dryrun.run_cell(cfg, train, mesh_shape=(2, 2), verbose=False,
+    shape = TB.ShapeConfig("cell", 64, 4, kind)
+    rec = dryrun.run_cell(cfg, shape, mesh_shape=(2, 2), verbose=False,
                           cfg_overrides={"qkv_constraint": "batch"})
-    plain = dryrun.run_cell(cfg, train, mesh_shape=(2, 2), verbose=False)
+    plain = dryrun.run_cell(cfg, shape, mesh_shape=(2, 2), verbose=False)
     assert rec["qkv_constraint"] == "batch"
     assert rec["cost"] == plain["cost"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        dryrun.main(["--arch", "deepseek-7b", "--shape", "prefill_32k",
-                     "--qkv-constraint", "batch"])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        dryrun.run_cell(cfg, TB.ShapeConfig("cell", 64, 4, "prefill"),
-                        mesh_shape=(2, 2), verbose=False,
-                        cfg_overrides={"qkv_constraint": "batch"})
+    if kind == "decode":
+        assert dryrun.main(["--arch", "stablelm-1.6b", "--shape",
+                            "decode_32k", "--qkv-constraint", "batch"]) == 0

@@ -1,8 +1,8 @@
 """``repro_torch.launch.dryrun`` on small meshes and through its CLI: the
 reference's JSONL record on both production meshes, the port's
-tensor-parallel train compute (on (2, 4) each rank does (2, 1)'s FLOPs
-less 3/4 of the split blocks'; serving cells and a model none of whose
-layers split still compute gathered, ROADMAP Queue 1 items 4b and 4c),
+tensor-parallel compute of train and serving cells (on (2, 4) each rank
+does (2, 1)'s FLOPs less 3/4 of the split blocks'; a model none of whose
+layers split still computes gathered, ROADMAP Queue 1 item 4c),
 and a train cell traced with the ``OptConfig`` it is given."""
 import json
 
@@ -48,21 +48,40 @@ def _split_flops(cfg, B, S):
     return cfg.num_layers * layer + 3 * 2 * T * D * V
 
 
+def _serve_flops(cfg, B, S, kind):
+    """The matmul FLOPs of a serving call on one rank of a mesh without a
+    model axis, B sequences: a prefill of S tokens (the projections, the
+    attention's two products over one 512-row block, the MLP, the head on
+    the last token) or a decode step over a cache of S slots (the
+    projections of one token, its scores and values over every slot, the
+    MLP, the head)."""
+    D, F, V, hd = cfg.d_model, cfg.d_ff, cfg.padded_vocab, cfg.head_dim
+    T = B * S if kind == "prefill" else B
+    proj = 2 * T * D * (cfg.q_dim + 2 * cfg.kv_dim) + 2 * T * cfg.q_dim * D
+    core = 2 * 2 * B * cfg.num_heads * (S if kind == "prefill" else 1) * \
+        S * hd
+    mlp = 3 * 2 * T * D * F
+    return cfg.num_layers * (proj + core + mlp) + 2 * B * D * V
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b"])
 def test_model_axis_splits_the_train_compute(arch, kind):
-    """deepseek-7b's train step on (2, 4): each rank does (2, 1)'s FLOPs
-    less 3/4 of its attention's, MLPs' and head's (``_split_flops``),
-    which are all of them. Its prefill and decode, and every step of
-    mamba2-2.7b (no layer block splits, so neither does its vocabulary),
-    compute gathered: (2, 4) does (2, 1)'s FLOPs."""
+    """deepseek-7b on (2, 4): each rank does (2, 1)'s FLOPs less 3/4 of
+    its attention's, MLPs' and head's, which are all of them: in the train
+    step (``_split_flops``) and in the serving calls (``_serve_flops``; a
+    decode step attends every head over its quarter of the cache, whose
+    sequence is split over "model"). Every step of mamba2-2.7b (no layer
+    block splits, so neither does its vocabulary) computes gathered: (2,
+    4) does (2, 1)'s FLOPs."""
     cfg = TB.get_smoke_config(arch)
     shape = TB.ShapeConfig("cell", 128, 8, kind)
     f = {m: dryrun.run_cell(cfg, shape, mesh_shape=m, verbose=False)
          ["cost"]["flops_per_dev"] for m in ((2, 4), (2, 1), (8, 1))}
     assert f[(2, 1)] == 4 * f[(8, 1)]
-    if arch == "deepseek-7b" and kind == "train":
-        split = _split_flops(cfg, 8 // 2, 128)
+    if arch == "deepseek-7b":
+        split = (_split_flops(cfg, 8 // 2, 128) if kind == "train" else
+                 _serve_flops(cfg, 8 // 2, 128, kind))
         assert split == f[(2, 1)]
         assert f[(2, 4)] == f[(2, 1)] - 3 * split / 4
     else:
