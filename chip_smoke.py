@@ -155,21 +155,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
              recompute, timed on its own), with its scan's witness (the
              plain scan in other chunks, or in pieces carried through h0)
              and control (the carry dropped) in the step-1 gate:
-             ``train-mamba`` (mamba2-2.7b at its full 64 layers, 2.703 B
-             params, fp32 twin at 2) and ``train-rg`` (recurrentgemma-9b at
-             3 of its (rec, rec, local) periods, 9 layers, 2.829 B params,
-             the windowed flash kernels too; fp32 twin one period).
+             ``train-mamba`` (mamba2-2.7b at 32 of its 64 layers, fp32 twin
+             at 2) and ``train-rg`` (recurrentgemma-9b at 2 of its (rec,
+             rec, local) periods, 6 layers, the windowed flash kernels too;
+             fp32 twin one period).
              Then the other attention archs, with their flash backwards at
              head dims 256 and 64 and the non-causal ones: ``train-gemma``
              (gemma-7b at 9 of 28 layers, 3.278 B params, tied 256000-wide
-             head; twin 2), ``train-stablelm`` (stablelm-1.6b, all 24
-             layers; twin 2), ``train-gemma3`` (gemma3-1b, all 26 layers:
-             windowed MQA at head dim 256, window 512; twin one period of
-             6), ``train-vlm`` (internvl2-76b at 1 of 80 layers, 256 seeded
-             vision embeds ahead of 1792 tokens; twin 1) and
-             ``train-encdec`` (seamless-m4t-large-v2, all 24 encoder and 24
-             decoder layers over 2048 seeded frames, 72 flash forwards a
-             forward; its bf16 gate at 2 + 2 layers, twin 1 + 1).
+             head; twin 2), ``train-stablelm`` (stablelm-1.6b at 12 of 24
+             layers; twin 2), ``train-gemma3`` (gemma3-1b at 13 of 26
+             layers: windowed MQA at head dim 256, window 512; twin one
+             period of 6), ``train-vlm`` (internvl2-76b at 1 of 80 layers,
+             256 seeded vision embeds ahead of 1792 tokens; twin 1) and
+             ``train-encdec`` (seamless-m4t-large-v2 at 12 of 24 encoder
+             and 12 of 24 decoder layers over 2048 seeded frames, 36 flash
+             forwards a forward; its bf16 gate at 2 + 2 layers, twin 1 +
+             1).
   roofline — per train path: the reference's model FLOPs (6 N D) at the
              path's depth, B=1 and S=2048, the FLOPs and bytes of a
              world-1 trace of the same step on meta tensors
@@ -186,30 +187,39 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``remesh_state(state, logical, None, mesh)``, every leaf of
              params, m and v bit-equal to the same steps without a mesh
              (64-bit digests), ms per step and peak beside the unsharded
-             steps'. ``dist-ep``: four spawned processes share the card
-             through gloo on a (1, 4) mesh; deepseek-moe-16b's MoE layer
-             at full width over 2048 tokens through ``moe._moe_ep``
-             against the local path (y, aux, every gradient; fp32), the
-             share of routings that differ and, in bf16 at capacity
-             factor 1.25, of copies dropped, and gloo's host-staged times.
-             ``dist-tp``: four gloo ranks on the card, a (1, 4) mesh; the
-             tensor-parallel train step (heads, ffn and vocabulary split
-             over "model") of deepseek-7b at full width and 4 layers and
-             gemma3-1b at one period (6 layers), B=1, S=2048, from the
-             seeded weights of an unsharded step on rank 0: fp32 (FMA
-             flash) loss, grad_norm and every updated leaf, bf16 (``tc``)
-             step 1 against the fp32 step between witnesses and a control;
-             each rank's flash launches counted and held against the
-             plain versions at their local head counts; ms per step, peak
-             per rank, gloo's host-staged all-reduce. Then each path
-             serves on the same ranks through ``launch.specs.build_fn``:
-             4 prompts (2048 down to 256) prefilled into caches of 2304
-             slots kept at their storage shards (deepseek-7b's by kv
-             heads, gemma3-1b's MQA cache and ring by sequence), 16
-             decode steps; fp32 greedy tokens equal to the unsharded
-             run's, logits of every call within a limit between a witness
-             and (bf16) a control; prefill and decode ms, peak and cache
-             GiB per rank, the collectives a decode step.
+             steps'. ``dist-tp``: four gloo ranks on the card, a (1, 4)
+             mesh, in two spawns. First the tensor-parallel train step
+             (heads, ffn and vocabulary split over "model") of deepseek-7b
+             at full width and 4 layers and gemma3-1b at one period (6
+             layers), B=1, S=2048, from the seeded weights of an unsharded
+             step on rank 0: fp32 (FMA flash) loss, grad_norm and every
+             updated leaf, bf16 (``tc``) step 1 against the fp32 step
+             between witnesses and a control; each rank's flash launches
+             counted and held against the plain versions at their local
+             head counts; ms per step, peak per rank, gloo's host-staged
+             all-reduce. Then each path serves on the same ranks through
+             ``launch.specs.build_fn``: 4 prompts (2048 down to 256)
+             prefilled into caches of 2304 slots kept at their storage
+             shards (deepseek-7b's by kv heads, gemma3-1b's MQA cache and
+             ring by sequence), 8 decode steps; fp32 greedy tokens equal
+             to the unsharded run's, logits of every call within a limit
+             between a witness and (bf16) a control; prefill and decode
+             ms, peak and cache GiB per rank, the collectives a decode
+             step. Then the MoE families with EP and TP both over "model"
+             (capacity factor 8, each code replaying the unsharded run's
+             routing): deepseek-moe-16b at 4 layers (1 dense + 3 MoE) and
+             deepseek-v2-236b at its layer 0 (MLA at [1,S,32,192] a rank)
+             trained in fp32 with the same gates (the control also summing
+             MLA's q_norm and kv_norm again), then served in bf16,
+             deepseek-moe-16b at 4 layers (its cache by kv heads) and
+             deepseek-v2-236b at 2 (its ckv/kpe cache by sequence), 4
+             decode steps, with the bf16 serving gate; and the former
+             ``dist-ep``'s checks of one deepseek-moe-16b MoE layer over
+             2048 tokens through ``moe._moe_ep`` against the local path (y,
+             aux, every gradient; fp32), its drops at capacity factor 0.5
+             against the same EP on CPU copies, the share of routings that
+             differ and, in bf16 at capacity factor 1.25, of copies
+             dropped, and gloo's host-staged times.
  9. ckpt   — deepseek-7b's training state at full width and 1 layer
              ({step, params, m, v}: 1.04 B params, 12.50 GB in 37 leaves),
              batches from the port's TokenPipeline: 2 AdamW steps, an
@@ -2106,9 +2116,9 @@ MLA_GRAD_REL_L2_BF16 = 3e-2
 # (on an H100)
 MOE_GRAD_REL_L2_BF16 = 0.6
 MOE_GRAD_NORM_REL_BF16 = 0.3
-# the scan models: mamba2-2.7b's layers are all SSD (a stacked core of 64
+# the scan models: mamba2-2.7b's layers are all SSD (a stacked core of 32
 # periods, the twin's of 2), recurrentgemma-9b's (rec, rec, local)
-# periods (a stacked core of 3 at 9 layers; the twin's one period is
+# periods (a stacked core of 2 at 6 layers; the twin's one period is
 # unstacked, in the tail). Each leaf is one matrix; tied embeddings: the
 # embedding's gradient carries the head's
 SCAN_GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.0.mixer.{w}", i)
@@ -2133,22 +2143,24 @@ SCAN_FED = (".in_proj", ".out_proj", ".wx", ".wg", ".wo", "embed")
 SCAN_NORM_REL = 1e-2
 # the bf16 models: no code keeps a digit of any leaf's gradient (0.79 to
 # 1.50, the plain code's own witnesses aside), so no leaf is gated.
-# recurrentgemma-9b's grad_norm (9 layers): the witnesses read 4.3e-5
+# recurrentgemma-9b's grad_norm (read at 9 layers, held at 6 since the
+# depth was cut for time): the witnesses read 4.3e-5
 # (scan pieces) to 0.066 (SDPA), the kernel 0.070, the dropped carry 0.92;
 # against the fp32 code's, the correct codes 0.086-0.185, the control 0.93
 RG_NORM_REL_BF16 = 0.3
-# mamba2-2.7b's grad_norm (64 layers, 95% of it the embedding's) cannot
-# tell the dropped carry (6.4e-3) from the kernel (0.014): its loss can,
-# the witness 2.0e-4, the kernel 1.4e-4, the dropped carry 1.6e-3
+# mamba2-2.7b's grad_norm (read at 64 layers, held at 32 since the depth
+# was cut for time; 95% of it the embedding's) cannot tell the dropped
+# carry (6.4e-3) from the kernel (0.014): its loss can, the witness
+# 2.0e-4, the kernel 1.4e-4, the dropped carry 1.6e-3
 SCAN_LOSS_REL_BF16 = 5e-4
 # the other attention-only archs. Tied embeddings (gemma-7b, gemma3-1b,
 # seamless-m4t): the embedding's gradient carries the head's, labelled
 # "head" so that it keeps the head's control (the off-by-one mask).
-# gemma-7b at 9 layers and stablelm-1.6b at 24 stack one core of 9 and 24
+# gemma-7b at 9 layers and stablelm-1.6b at 12 stack one core of 9 and 12
 # periods; the twins' 2 layers a core of 2, so GRAD_LEAVES' paths hold
 TIED_GRAD_LEAVES = dict(GRAD_LEAVES, head=("embed", None))
-# gemma3-1b: 4 core periods of (local x 5, attn) and a tail of 2 local
-# layers at 26; its twin is one period (6 layers: the reference stacks no
+# gemma3-1b: 2 core periods of (local x 5, attn) and a tail of 1 local
+# layer at 13; its twin is one period (6 layers: the reference stacks no
 # single period, so all 6 sit in the tail)
 GEMMA3_GRAD_LEAVES = {f"{at}.{w}": (f"decoder.core.{j}.mixer.{w}", 0)
                       for at, j in (("l0", 0), ("global", 5))
@@ -2165,7 +2177,7 @@ VLM_GRAD_LEAVES = {f"l0.{w}": (f"decoder.tail.0.mixer.{w}", None)
 VLM_GRAD_LEAVES["head"] = ("head", None)
 # seamless-m4t: the encoder's layer 0 (non-causal), the decoder's layer 0
 # self-attention (causal) and cross-attention (non-causal over the
-# frames); 24 + 24 layers stack two cores, the twin's 1 + 1 two tails
+# frames); 12 + 12 layers stack two cores, the twin's 1 + 1 two tails
 ENCDEC_GRAD_LEAVES = {f"{at}.{w}": (f"{stack}.core.0.{m}.{w}", 0)
                       for at, stack, m in (("enc0", "encoder", "mixer"),
                                            ("l0", "decoder", "mixer"),
@@ -2247,19 +2259,20 @@ TRAIN_PATHS = {
                       bf16_gated=tuple(MLA_GRAD_LEAVES),
                       grad_bf16=MLA_GRAD_REL_L2_BF16,
                       bf16_norm=(MOE_NORM_REL, "drops_delta")),
-    # mamba2-2.7b at full depth: 64 layers, 2.703 B params, 40.3 GiB at 16
-    # B/param; the SSD forward on the kernels, its backward by plain
-    # recompute
-    "train-mamba": dict(arch="mamba2-2.7b", label="train-mamba", layers=64,
+    # mamba2-2.7b at 32 of its 64 layers (all 64 until dist-tp's MoE
+    # paths took their time; 2.703 B params, 40.3 GiB at 16 B/param); the
+    # SSD forward on the kernels, its backward by plain recompute
+    "train-mamba": dict(arch="mamba2-2.7b", label="train-mamba", layers=32,
                         twin_layers=2, leaves=SCAN_GRAD_LEAVES,
                         twin_leaves=SCAN_GRAD_LEAVES, scan="ssd",
                         twin_norm=(SCAN_NORM_REL, "drops_carry"),
                         bf16_gated=(), grad_bf16=None, bf16_norm=None,
                         bf16_loss=(SCAN_LOSS_REL_BF16, "drops_carry")),
-    # recurrentgemma-9b: 3 of its 12 (rec, rec, local) periods, 9 layers,
-    # 2.829 B params, 42.2 GiB; 4 periods would take 51.1 GiB, beside a
-    # 256000-wide head whose fp32 logits and gradient take 2 GiB each
-    "train-rg": dict(arch="recurrentgemma-9b", label="train-rg", layers=9,
+    # recurrentgemma-9b: 2 of its 12 (rec, rec, local) periods, 6 layers (3
+    # periods, 2.829 B params, 42.2 GiB, until dist-tp's MoE paths took
+    # their time), beside a 256000-wide head whose fp32 logits and gradient
+    # take 2 GiB each
+    "train-rg": dict(arch="recurrentgemma-9b", label="train-rg", layers=6,
                      twin_layers=3, leaves=RG_GRAD_LEAVES,
                      twin_leaves=RG_TWIN_LEAVES, scan="rglru",
                      twin_norm=(SCAN_NORM_REL, "drops_carry"),
@@ -2280,12 +2293,13 @@ TRAIN_PATHS = {
                         bf16_gated=(), grad_bf16=None,
                         bf16_norm=(GEMMA_NORM_REL_BF16, "drops_diagonal"),
                         fp32_norm=False),
-    # stablelm-1.6b at all 24 layers: 1.644 B params, 24.5 GiB; its bf16
+    # stablelm-1.6b at 12 of its 24 layers (all 24 until dist-tp's MoE
+    # paths took their time): 1.024 B params; its bf16
     # gate at 6 layers (at 24 its grad_norm could not tell: the kernel
     # 0.044, the control 0.049; at 6 SDPA 0.043, the control 0.059): the
     # head and the loss
     "train-stablelm": dict(arch="stablelm-1.6b", label="train-stablelm",
-                           layers=24, twin_layers=2, gate_layers=6,
+                           layers=12, twin_layers=2, gate_layers=6,
                            leaves=GRAD_LEAVES,
                            twin_leaves=GRAD_LEAVES,
                            twin_norm=(TWIN_NORM_REL_ATTN, "drops_diagonal"),
@@ -2293,10 +2307,11 @@ TRAIN_PATHS = {
                            grad_bf16=STABLELM_HEAD_REL_L2_BF16, bf16_norm=None,
                            bf16_loss=(STABLELM_LOSS_REL_BF16,
                                       "drops_diagonal")),
-    # gemma3-1b at all 26 layers (5 local, window 512 : 1 global MQA, head
-    # dim 256): 1.000 B params, 14.9 GiB, and a 262144-wide tied head; its
+    # gemma3-1b at 13 of its 26 layers (two periods of 5 local, window 512
+    # : 1 global MQA, head dim 256, and a local layer; all 26 until
+    # dist-tp's MoE paths took their time) and a 262144-wide tied head; its
     # bf16 gate at two periods, 12 layers
-    "train-gemma3": dict(arch="gemma3-1b", label="train-gemma3", layers=26,
+    "train-gemma3": dict(arch="gemma3-1b", label="train-gemma3", layers=13,
                          twin_layers=6, gate_layers=12,
                          leaves=GEMMA3_GRAD_LEAVES,
                          twin_leaves=GEMMA3_TWIN_LEAVES,
@@ -2317,8 +2332,9 @@ TRAIN_PATHS = {
                       bf16_norm=(VLM_NORM_REL_BF16, "drops_delta"),
                       fp32_norm=False,
                       bf16_loss=(VLM_LOSS_REL_BF16, "drops_diagonal")),
-    # seamless-m4t-large-v2 at all 24 encoder + 24 decoder layers: 1.370 B
-    # params, 20.4 GiB; 2048 seeded frames (the reference's train batch
+    # seamless-m4t-large-v2 at 12 of its 24 encoder and 12 of its 24
+    # decoder layers (24 + 24 until dist-tp's MoE paths took their time);
+    # 2048 seeded frames (the reference's train batch
     # sizes them by S), so the cross-attention's shape is the encoder's.
     # Its random-init encoder carries bf16 roundings so far that at 24 + 24
     # no reading tells a correct code from the controls (as in serving,
@@ -2330,7 +2346,7 @@ TRAIN_PATHS = {
     # gradients under Adam's eps, so the decoder takes no step and the
     # loss does not fall (12.655, 12.667, 12.661 with clipping)
     "train-encdec": dict(arch="seamless-m4t-large-v2", label="train-encdec",
-                         layers=24, twin_layers=1, gate_layers=2,
+                         layers=12, twin_layers=1, gate_layers=2,
                          leaves=ENCDEC_GRAD_LEAVES,
                          twin_leaves=ENCDEC_TWIN_LEAVES,
                          twin_norm=(TWIN_NORM_REL_ATTN, "drops_delta"),
@@ -2411,14 +2427,15 @@ def _step1_grads(lm, batch, impl, leaves):
 
 
 @contextmanager
-def pinned_routing(record):
+def pinned_routing(record, seen=None):
     """The MoE layers' expert choices recorded, or replayed. While
     ``record`` (a list) is empty, each ``moe.route`` call appends its
     ``eidx``; else each call takes the next recorded one (in call order:
     the forward's layers, then their recompute under remat) and its gates
     at those experts from its own probabilities, renormalised as
-    ``route`` does, so the router's gradient still flows. Every recorded
-    choice must be taken once."""
+    ``route`` does, so the router's gradient still flows; a replaying
+    call appends its own choice to ``seen`` (a list) where given. Every
+    recorded choice must be taken once."""
     import torch
     from repro_torch.models import moe as MOE
     orig, replay = MOE.route, bool(record)
@@ -2429,6 +2446,8 @@ def pinned_routing(record):
         if not replay:
             record.append(eidx)
             return probs, gates, eidx
+        if seen is not None:
+            seen.append(eidx)
         eidx = todo.pop(0)
         top = torch.gather(probs, 1, eidx)
         return probs, top / torch.clamp_min(top.sum(-1, keepdim=True),
@@ -3016,9 +3035,10 @@ def phase_roofline(trains, traces):
 # compute tensors copied at world 1 (it aliases the state's storage)
 DIST_ARCH, DIST_LAYERS = "deepseek-moe-16b", 4
 DIST_TIMEOUT_S = 300     # a collective's longest wait; a spawned rank's join
-# dist-ep: four processes share the card through gloo, a (1, 4) mesh, one
-# MoE layer of deepseek-moe-16b at full width over 2048 seeded tokens
-DIST_EP_WORLD, DIST_EP_TOKENS = 4, 2048
+# dist-ep's checks (``_dist_ep_rank``, in dist-tp's spawn): the four ranks'
+# (1, 4) mesh, one MoE layer of deepseek-moe-16b at full width over 2048
+# seeded tokens
+DIST_EP_TOKENS = 2048
 DIST_EP_REL_L2 = 1e-5    # fp32, no drops: EP against the local path
 # fp32 at a capacity factor where EP drops copies at both of its capacities
 # (C_send and C_loc): the card's EP against the same EP on CPU copies
@@ -3175,7 +3195,7 @@ def phase_dist_train():
 
 
 def _dist_ep_rank(rank, world, device, base, T):
-    """One of DIST_EP_WORLD ranks sharing the card through gloo: one MoE
+    """One of the ranks sharing the card through gloo: one MoE
     layer of deepseek-moe-16b at full width on a (1, world) mesh.
     fp32 at capacity factor 8 (no drops): the local path on rank 0 (y,
     aux, every gradient under one seeded cotangent; aux also per token
@@ -3360,54 +3380,6 @@ def _dist_ep_rank(rank, world, device, base, T):
     return out
 
 
-def phase_dist_ep():
-    """Expert parallelism on the card: DIST_EP_WORLD spawned processes
-    share it through gloo (NCCL refuses two ranks on one card), each on
-    cuda:0, a (1, 4) ("data", "model") mesh, deepseek-moe-16b's first MoE
-    layer at full width (D 2048, 64 experts, 16 a rank, top-6, 2 shared,
-    1408 wide) over DIST_EP_TOKENS seeded tokens. Gates, fp32 at capacity
-    factor 8 (no drops), against the local path on rank 0: y on the rows
-    whose routing agrees, EP's aux against the local path's per token
-    slice (EP's definition, as the reference's), and, replaying the local
-    run's routing, y and every gradient (the input's too) under one
-    seeded cotangent, all at DIST_EP_REL_L2. The drop path, fp32 at
-    DIST_EP_LOW_CF: copies dropped at both of EP's capacities, the same
-    counts on the card and on the CPU under the same routing, and y and aux
-    against the CPU's at DIST_EP_REL_L2 (the tests hold the CPU's EP at
-    such factors against the reference's). Reported: the share of (token,
-    expert) assignments that differ (routing on 512-token slices), bf16 at
-    1.25 the share of copies each path drops, the times (the exchange
-    staged through the host by gloo; not EP on NVLink)."""
-    import torch
-    from repro_torch.launch.mesh import run_ranks
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    from repro_torch.configs.base import get_config
-    res = run_ranks(_dist_ep_rank, DIST_EP_WORLD,
-                    (DEVICE, get_config(DIST_ARCH), DIST_EP_TOKENS),
-                    backend="gloo", device=DEVICE, timeout_s=DIST_TIMEOUT_S)
-    out = dict(res[0], spawn_and_run_s=time.perf_counter() - t0,
-               timing_by_rank=[r["timing"] for r in res])
-    out.pop("timing")
-    log(f"dist-ep: {DIST_EP_WORLD} gloo ranks on one card, "
-        f"{json.dumps(out)}")
-    worst = max(out["pinned_grad_rel_l2"].values())
-    assert out["y_rel_l2_rows_alike"] <= DIST_EP_REL_L2, out
-    assert out["aux_rel"] <= DIST_EP_REL_L2, out
-    assert out["pinned_y_rel_l2"] <= DIST_EP_REL_L2, out
-    assert worst <= DIST_EP_REL_L2, out["pinned_grad_rel_l2"]
-    assert out["rows_routed_alike"] > 0, out
-    low = out["low_cf"]
-    assert low["drops_card"] == low["drops_cpu"], low
-    assert low["drops_card"]["dropped_send"] > 0, low
-    assert low["drops_card"]["dropped"] > 0, low
-    assert low["y_finite"], low
-    assert low["y_rel_l2_to_cpu"] <= DIST_EP_REL_L2, low
-    assert low["aux_rel_to_cpu"] <= DIST_EP_REL_L2, low
-    return out
-
-
 # dist-tp: tensor-parallel train steps (``sharding/tp.py``) on DIST_TP_WORLD
 # gloo ranks sharing the card, a (1, 4) ("data", "model") mesh, B=1,
 # S=TRAIN_S. deepseek-7b at full width, 4 of its 30 layers: 8 of 32 heads,
@@ -3424,13 +3396,18 @@ DIST_TP_LOSS_REL = 1e-4  # fp32 step 1's loss: the forward keeps its digits
 # code against the fp32 unsharded step on the same weights and batch, by
 # path and dtype. At full width and random init deepseek-7b's gradient
 # keeps few digits: its sums taken in parts (a witness) move its norm 1.7%
-# in fp32, 27% in bf16; gemma3-1b's keeps them. Each limit sits between
+# in fp32, 27% in bf16; gemma3-1b's keeps them, and so does
+# deepseek-v2-236b's layer 0; deepseek-moe-16b's (4 layers, the routing
+# replayed) keeps fewer: 8.4% in fp32 under the witness, 7.0% split.
+# Each limit sits between
 # the witnesses and the control as read on an H100 (PERF.md §6), and each
 # run reads them again
 DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
                ("deepseek-7b", "bfloat16"): 0.5,
                ("gemma3-1b", "float32"): 1e-3,
-               ("gemma3-1b", "bfloat16"): 1e-2}
+               ("gemma3-1b", "bfloat16"): 1e-2,
+               ("deepseek-moe-16b", "float32"): 0.1,
+               ("deepseek-v2-236b", "float32"): 1e-3}
 # the fp32 gradient, leaf by leaf: ``m`` after step 1 is (1 - b1) x the
 # gradient, and each rank's shard of each leaf is held against the same cut
 # of the unsharded step's ``m`` by relative L2 (the worst shard). Each
@@ -3442,7 +3419,8 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
 # multiplies their gradients by the model axis) must not. Both are read
 # each run (PERF.md §6)
 DIST_TP_M_MULT = 1.25
-DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4}
+DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4,
+                   "deepseek-moe-16b": 1e-2, "deepseek-v2-236b": 1e-4}
 
 
 # dist-tp serving, after each path's train steps in each dtype, on the same
@@ -3460,15 +3438,56 @@ DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4}
 # cache combines nothing: the attention's all-reduce dropped; it decodes
 # DIST_TP_CONTROL_DECODE steps), both read each run. Random-init
 # deepseek-7b keeps few fp32 digits in its logits as in its gradient: the
-# witness moves them 8.5e-4 (PERF.md §6)
+# witness moves them 8.5e-4 (PERF.md §6). Random-init deepseek-moe-16b
+# keeps fewer in bf16: with the routing replayed its teacher-forced decode
+# logits move 0.56 under the witness, 0.64 split, 1.42 under the control
+# (an H100), so its bf16 limit is 1.0; its fp32 witness moves them 3.7e-4
 DIST_TP_PROMPTS = (2048, 1024, 512, 256)
 DIST_TP_CAPACITY = 2304
-DIST_TP_DECODE = 16
+DIST_TP_DECODE = 8
 DIST_TP_CONTROL_DECODE = 2
 DIST_TP_SERVE_REL = {("deepseek-7b", "float32"): 2e-3,
                      ("deepseek-7b", "bfloat16"): 0.1,
                      ("gemma3-1b", "float32"): 1e-4,
-                     ("gemma3-1b", "bfloat16"): 0.1}
+                     ("gemma3-1b", "bfloat16"): 0.1,
+                     ("deepseek-moe-16b", "float32"): 2e-3,
+                     ("deepseek-moe-16b", "bfloat16"): 1.0,
+                     ("deepseek-v2-236b", "bfloat16"): 0.1}
+# dist-tp's MoE paths, a second spawn of the four ranks on the same (1, 4)
+# mesh, EP and TP both over "model", at full width. deepseek-moe-16b at 4 of
+# its 28 layers (1 dense + 3 MoE), trained and served: a rank holds 4 of 16
+# heads (and kv heads: its cache's heads over "model"), 16 of 64 experts,
+# 2736 of 10944 dense and 704 of 2816 shared columns and 25600 of 102400
+# vocabulary rows; 2.3 B params, some 36 GB of fp32 state over the ranks.
+# deepseek-v2-236b trained at its layer 0 alone (MLA + dense, 1.39 B: two
+# layers with an MoE one would take 86 GB of fp32 state) and served at 2 of
+# 60 (5.36 B params, some 21 GB of fp32 weights over the ranks): 32 of 128
+# MLA heads (the flash kernels at [1,S,32,192]) and 40 of 160 experts a
+# rank, its ckv/kpe cache split by sequence. Trained in fp32 with the dense
+# paths' fp32 gates (the control also sums MLA's q_norm and kv_norm again),
+# served in bf16 teacher-forced with their bf16 gate (the control: an
+# all-reduce dropped, or the combine's) over DIST_TP_MOE_DECODE steps. Each
+# code replays the unsharded run's routing (``pinned_routing``), and the
+# share of step 1's (or a serving run's) rows its own router would have
+# routed otherwise is recorded. At a capacity factor DIST_TP_MOE_CF of the
+# model axis or more, EP drops no copy before its exchange, and a local
+# expert's capacity (C_loc) is the local path's (C) up to their rounding
+# to 4 rows (equal at every deepseek-v2-236b prompt here), both keeping an
+# expert's first copies in token order: where they agree, the two paths
+# drop the same copies. Each run counts its drops, and the split run must
+# drop as many as the unsharded one (random-init deepseek-v2-236b routes
+# enough of a long prompt's tokens to a few experts that both drop
+# copies; dist-ep's checks hold EP's drops). deepseek-moe-16b also serves
+# in fp32 (greedy tokens equal):
+# its random-init bf16 decode keeps few digits. dist-ep's checks of one MoE
+# layer (``_dist_ep_rank``) run after the paths, in the same spawn, whose
+# join waits DIST_TP_JOIN_S
+DIST_TP_MOE_PATHS = (("deepseek-moe-16b", 4, 4, ("float32", "bfloat16")),
+                     ("deepseek-v2-236b", 1, 2, ("bfloat16",)))
+DIST_TP_MOE_CF = 4.0
+DIST_TP_MOE_STEPS = {"float32": 2}
+DIST_TP_MOE_DECODE = 4
+DIST_TP_JOIN_S = 2 * DIST_TIMEOUT_S
 
 
 def _stack_caches(caches, axes):
@@ -3529,11 +3548,14 @@ def _decode_in_parts(n):
 
 def _norms_summed_again(partial_over_model):
     """``partition.partial_over_model`` that also names the norms ahead of
-    a split block (``ln1``, ``ln2``, ``final_norm``): their whole
-    gradients summed over "model" once more. The fp32 gradient's control."""
+    a split block (``ln1``, ``ln2``, ``final_norm``, and MLA's ``q_norm``
+    and ``kv_norm``, ahead of its copy-to-region): their whole gradients
+    summed over "model" once more. The fp32 gradient's control."""
     def rule(plan, block, leaf):
         return partial_over_model(plan, block, leaf) or (
-            plan is not None and block is None and leaf in ("scale", "bias"))
+            plan is not None and block is None and leaf in ("scale", "bias")
+        ) or (plan is not None and block == "mla" and
+              leaf in ("q_norm", "kv_norm"))
     return rule
 
 
@@ -3541,17 +3563,19 @@ def _norms_summed_again(partial_over_model):
 def _sums_in_parts(n):
     """The unsharded step with the split step's order of sums, in one
     process: each column-parallel product (q, k and v where the kv heads
-    split, the MLP's wi*, the logits) taken as ``n`` column groups, so that
-    the backward sums ``n`` partial input gradients, and each row-parallel
-    one (attention's and the MLP's wo) as ``n`` partial products summed in
-    fp32, each rounded to the compute dtype first. A correct code that
-    differs from the unsharded one in order alone: the witness of the
-    split step's gates."""
+    split, MLA's wq_b and wkv_b, the MLPs' and the shared experts' wi*,
+    the logits) taken as ``n`` column groups, so that the backward sums
+    ``n`` partial input gradients, and each row-parallel one (attention's,
+    MLA's, the MLPs' and the shared experts' wo) as ``n`` partial products
+    summed in fp32, each rounded to the compute dtype first. A correct
+    code that differs from the unsharded one in order alone: the witness
+    of the split step's gates."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     from repro_torch.models.layers import apply_norm, apply_rope
 
     def cols(x, w, split=True):
@@ -3601,13 +3625,47 @@ def _sums_in_parts(n):
         if cfg.logits_softcap > 0:
             out = torch.tanh(out / cfg.logits_softcap) * cfg.logits_softcap
         return out
-    saved = A._qkv, A.attn_core, M.apply_mlp, M.LM._logits
-    A._qkv, A.attn_core, M.apply_mlp, M.LM._logits = \
-        qkv, attn_core, apply_mlp, logits
+
+    def shared(p, xf, tp=None):
+        sp = p["shared"]
+        return rows(F.silu(cols(xf, sp["wi_gate"])) * cols(xf, sp["wi_up"]),
+                    sp["wo"])
+
+    def mla_prefill(cfg, p, x, positions, *, capacity=None, impl=None,
+                    tp=None):
+        m = cfg.mla
+        B, S, _ = x.shape
+        H, nope, v = cfg.num_heads, m.qk_nope_head_dim, m.v_head_dim
+        qk_head = nope + m.qk_rope_head_dim
+        if m.q_lora_rank:
+            qa = A._rms_head(x @ p["wq_a"].to(x.dtype), p["q_norm"],
+                             cfg.norm_eps)
+            q = cols(qa, p["wq_b"])
+        else:
+            q = cols(x, p["wq"])
+        q = q.reshape(B, S, H, qk_head)
+        q_pe = apply_rope(q[..., nope:], positions, 1.0, cfg.rope_theta)
+        c, kpe = A._mla_ckv(cfg, p, x, positions)
+        kv = cols(c, p["wkv_b"]).reshape(B, S, H, nope + v)
+        q = torch.cat([q[..., :nope], q_pe], -1)
+        k = torch.cat([kv[..., :nope], kpe[:, :, None].expand(q_pe.shape)],
+                      -1)
+        vp = F.pad(kv[..., nope:], (0, qk_head - v))
+        o = ops.attention(q, k, vp, causal=True, scale=qk_head ** -0.5,
+                          impl=impl)[..., :v]
+        y = rows(o.reshape(B, S, H * v), p["wo"])
+        return y, (A.mla_prefill_cache(c, kpe, capacity)
+                   if capacity is not None else None)
+    saved = (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
+             A.mla_prefill)
+    (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
+     A.mla_prefill) = (qkv, attn_core, apply_mlp, logits, shared,
+                       mla_prefill)
     try:
         yield
     finally:
-        A._qkv, A.attn_core, M.apply_mlp, M.LM._logits = saved
+        (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
+         A.mla_prefill) = saved
 
 
 def _tp_placements(lm, mesh):
@@ -3670,30 +3728,58 @@ def _tp_place(lm, mesh):
             "m": zeros(), "v": zeros()}
 
 
-def _dist_tp_rank(rank, world, device, paths, steps, seq):
+def _dist_tp_paths():
+    """dist-tp's paths (``_dist_tp_rank``): the dense ones, trained and
+    served in both dtypes at one depth, then the MoE ones."""
+    dense = [dict(label=a, train=_train_cfg(a, n, "bfloat16"),
+                  serve=_train_cfg(a, n, "bfloat16"), steps=DIST_TP_STEPS,
+                  serve_dtypes=tuple(DIST_TP_STEPS), decode=DIST_TP_DECODE)
+             for a, n in DIST_TP_PATHS]
+    import dataclasses
+
+    def no_drops(cfg):
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=DIST_TP_MOE_CF))
+    moe = [dict(label=a, train=no_drops(_train_cfg(a, nt, "bfloat16")),
+                serve=no_drops(_train_cfg(a, ns, "bfloat16")),
+                steps=DIST_TP_MOE_STEPS, serve_dtypes=dts,
+                decode=DIST_TP_MOE_DECODE)
+           for a, nt, ns, dts in DIST_TP_MOE_PATHS]
+    return dense + moe
+
+
+def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
     """One of DIST_TP_WORLD ranks sharing the card through gloo: for each
-    (label, full-width config cut in depth) of ``paths`` and each compute
-    dtype, rank 0 takes ``steps[dtype]`` AdamW steps without a mesh from
-    the seeded weights, and step 1 again with the split step's sums in
-    parts (``_sums_in_parts``, the witness); then every rank takes the same steps from the same
-    weights through the tensor-parallel ``make_train_step`` on a (1, world)
-    mesh, the kernel counts set to 0 just before and read just after,
-    every flash launch's shapes recorded and held against the plain
-    versions after. fp32, after step 1: each rank's shard of ``m`` against
-    rank 0's unsharded step 1 (scattered leaf by leaf), rank 0's shards of
-    the params too, then step 1 again with the norms' gradients summed over "model"
-    once more (``_norms_summed_again``, the control) against the same
-    shards of ``m``. bf16: step 1 again with the attention's all-reduce
-    over "model" dropped, the control. Then the path serves in that dtype
-    (``serve_case``: rank 0 unsharded and its witness, then every rank
-    through ``launch.specs.build_fn`` on the mesh, counted and recorded as
-    the steps, and in bf16 the control). Then one all-reduce of a layer's
-    activations timed in each dtype. Each rank returns its readings; rank
-    0's carry the unsharded runs and the witnesses."""
+    path of ``paths`` (``_dist_tp_paths``: a label, the full-width configs
+    it trains and serves, cut in depth, the dtypes it trains in with their
+    step counts, those it serves in, its decode steps) and each dtype,
+    rank 0 takes the path's steps without a mesh from the seeded weights,
+    and step 1 again with the split step's sums in parts
+    (``_sums_in_parts``, the witness); then every rank takes the same
+    steps from the same weights through the tensor-parallel
+    ``make_train_step`` on a (1, world) mesh (EP beside it for the MoE
+    families, every code replaying the unsharded run's routing), each
+    rank building its weights in turn, the kernel counts set to 0 just
+    before and read just after, every flash launch's shapes recorded and
+    held against the plain versions after. fp32, after step 1: each
+    rank's shard of ``m`` against rank 0's unsharded step 1 (scattered
+    leaf by leaf), rank 0's shards of the params too, then step 1 again
+    with the norms' gradients summed over "model" once more
+    (``_norms_summed_again``, the control) against the same shards of
+    ``m``. bf16: step 1 again with the attention's all-reduce over "model"
+    dropped, the control. Then the path serves in each of its serving
+    dtypes (``serve_case``: rank 0 unsharded and its witness, then every
+    rank through ``launch.specs.build_fn`` on the mesh, counted and
+    recorded as the steps, and in bf16 the control). Then one all-reduce
+    of a layer's activations timed in each dtype, and with ``ep`` (an MoE
+    config and a token count) dist-ep's checks of one MoE layer
+    (``_dist_ep_rank``). Each rank returns its readings; rank 0's carry
+    the unsharded runs and the witnesses."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
     from repro_torch.models.model import LM
     from repro_torch.optim import adamw
     from repro_torch.sharding import partition as part
@@ -3724,6 +3810,59 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         if cuda:
             torch.cuda.empty_cache()
 
+    def placed(cfg, dtype, place):
+        """Every rank's LM and batch built in turn, each placed by
+        ``place(lm)`` (its whole weights freed as they are placed) before
+        the next rank builds: one whole copy on the card at a time."""
+        got = None
+        for i in range(world):
+            if rank == i:
+                lm, batch = build(cfg, dtype)
+                got = lm, batch, place(lm)
+                free()
+            dist.barrier()
+        return got
+
+    def shared_record(rec):
+        """Rank 0's recorded routing (``pinned_routing``), on every rank."""
+        obj = [[t.cpu() for t in rec] if rank == 0 else None]
+        dist.broadcast_object_list(obj, src=0)
+        return obj[0]
+
+    def pins(rec, seen=None):
+        """Replay ``rec``'s routing on this rank: under EP each call
+        routes this rank's slice of the tokens (``moe._moe_ep``), the
+        rows of the unsharded call's choices it owns."""
+        if not rec:
+            return nullcontext()
+        own = []
+        for t in rec:
+            n = -(-t.shape[0] // world)
+            own.append(t[rank * n:(rank + 1) * n].to(DEVICE))
+        return pinned_routing(own, seen)
+
+    def dropped(counts, over_ranks=True):
+        """The copies a run's MoE layers dropped (``moe.drop_counts``),
+        summed over the ranks."""
+        v = torch.tensor([sum(float(counts.get(k, 0)) for k in (
+            "dropped", "dropped_send"))], dtype=torch.float64)
+        if over_ranks:
+            dist.all_reduce(v)
+        return float(v)
+
+    def otherwise(seen, rec):
+        """The rows the split run's own router would have routed to other
+        experts than the replayed ones, and the rows, over every rank."""
+        n = torch.zeros(2, dtype=torch.float64)
+        for t, want in zip(seen, rec):
+            k = -(-want.shape[0] // world)
+            w = want[rank * k:(rank + 1) * k].to(t.device)
+            n[0] += float((t.sort(-1).values != w.sort(-1).values).any(-1)
+                          .sum())
+            n[1] += w.shape[0]
+        dist.all_reduce(n)
+        return n.tolist()
+
     def steps_in_two(name, step, state, batch, n, quiet=False,
                      after_first=None):
         """``n`` steps; after step 1 the peak is read and ``after_first``
@@ -3740,8 +3879,7 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         return state, rows + more, first_peak
 
     def tp_run(name, cfg, dtype, n, quiet=True, after_first=None):
-        lm, batch = build(cfg, dtype)
-        state = _tp_place(lm, mesh)
+        lm, batch, state = placed(cfg, dtype, lambda lm: _tp_place(lm, mesh))
         with part.activate(mesh):
             state, rows, first_peak = steps_in_two(
                 name, adamw.make_train_step(lm, opt), state, batch, n,
@@ -3814,9 +3952,8 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
             out.append(r if math.isfinite(r) else math.inf)
         return out
 
-    def serve_case(key, cfg, dtype):
+    def serve_case(key, cfg, dtype, decode_steps):
         """The serving half of a path in one dtype (``phase_dist_tp``)."""
-        from torch.distributed.tensor import DTensor
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.launch import specs
         fp32 = dtype == "float32"
@@ -3824,6 +3961,9 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         prompts = [torch.randint(0, cfg.vocab_size, (1, s), generator=g,
                                  device=DEVICE) for s in DIST_TP_PROMPTS]
         res, want, t0 = {"s": {}}, [None], time.perf_counter()
+        rec = []          # the unsharded run's routing, replayed by each code
+        moe_layers = cfg.num_layers - cfg.moe.first_k_dense if cfg.moe \
+            else 0
 
         def lap(name):
             nonlocal t0
@@ -3834,13 +3974,18 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
             axes = lm.cache_logical()
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
-            ref = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
-                            lm.decode_step, axes, prompts)
+            with pinned_routing(rec), MOE.drop_counts() as drops:
+                ref = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
+                                lm.decode_step, axes, prompts,
+                                steps=decode_steps)
             res["unsharded_peak_gib"] = peak()
-            with _sums_in_parts(world), _decode_in_parts(world):
+            res["unsharded_dropped"] = dropped(drops, False)
+            with _sums_in_parts(world), _decode_in_parts(world), \
+                    (pinned_routing(list(rec)) if rec else nullcontext()):
                 wit = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
                                 lm.decode_step, axes, prompts,
-                                forced=ref["tokens"][:, :-1])
+                                forced=ref["tokens"][:, :-1],
+                                steps=decode_steps)
             res.update(unsharded={k: ref[k] for k in (
                 "prefill_ms", "decode_ms", "cache_gib")},
                 tokens=ref["tokens"].tolist(),
@@ -3848,11 +3993,12 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
             want[0] = ref
             del lm, wit
             free()
-        forced = torch.zeros((len(prompts), DIST_TP_DECODE + 1),
+        forced = torch.zeros((len(prompts), decode_steps + 1),
                              dtype=torch.int64)
         if rank == 0:
             forced.copy_(want[0]["tokens"])
         dist.broadcast(forced, src=0)
+        rec = shared_record(rec) if moe_layers else []
         lap("unsharded")
         forced = None if fp32 else forced[:, :-1]
 
@@ -3876,9 +4022,8 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
                 return c, lg.to_local()
             return prefill, decode, lm.cache_logical()
 
-        lm, _ = build(cfg, dtype)
+        lm, _, params = placed(cfg, dtype, lambda lm: _tp_params(lm, mesh))
         layouts = lm.cache_layouts(mesh, len(prompts), cap)
-        params = _tp_params(lm, mesh)
         prefill, decode, axes = sharded(lm, params)
         lap("build")
         counted = {"all_reduce": 0, "all_gather_into_tensor": 0,
@@ -3904,22 +4049,27 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         reset_kernel_counts()
+        seen = []
         for k in counted:
             setattr(dist, k, counting(k))
         try:
-            with _flash_inputs(calls):
+            with _flash_inputs(calls), pins(rec, seen), \
+                    MOE.drop_counts() as drops:
                 got = serve_run(prefill, decode_counted, axes, prompts,
-                                forced)
+                                forced, decode_steps)
         finally:
             for k in counted:
                 setattr(dist, k, real[k])
         sync()
+        res["dropped"] = dropped(drops)
         res.update(launches=kernel_counts(), flash=flash_counts(),
                    peak_gib=peak(), prefill_ms=got["prefill_ms"],
                    decode_ms=got["decode_ms"], cache_gib=got["cache_gib"],
                    collectives_per_decode_step={
-                       k: v / DIST_TP_DECODE for k, v in counted.items()},
+                       k: v / decode_steps for k, v in counted.items()},
                    layouts={k: v._asdict() for k, v in layouts.items()})
+        if rec:
+            res["rows_routed_otherwise"] = otherwise(seen, rec)
         lap("sharded")
         res["held"] = _hold_recorded(f"dist-tp: {key} serving rank {rank}",
                                      calls)
@@ -3950,8 +4100,10 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
                     combine_partial=TP.combine_partial)
                 real_c, A.TP = A.TP, shim
             try:
-                ctl = serve_run(prefill, decode, axes, prompts, forced,
-                                DIST_TP_CONTROL_DECODE)
+                with pins(rec[:(len(prompts) + DIST_TP_CONTROL_DECODE) *
+                              moe_layers]):
+                    ctl = serve_run(prefill, decode, axes, prompts, forced,
+                                    DIST_TP_CONTROL_DECODE)
             finally:
                 if combines:
                     TP.combine_partial = real_c
@@ -3983,139 +4135,165 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
         free()
         return res
 
-    cap = DIST_TP_CAPACITY
-    out = {"rank": rank, "cases": {}}
-    for label, cfg in paths:
-        for dtype, n in steps.items():
-            key = f"{label} {dtype}"
-            fp32 = dtype == "float32"
-            res = out["cases"][key] = {}
-            want = None
-            if rank == 0:
-                lm, batch = build(cfg, dtype)
-                res["n_params"] = sum(p.numel() for p in lm.parameters())
+    def train_case(res, key, cfg, dtype, n):
+        """The train half of a path in one dtype (``phase_dist_tp``)."""
+        fp32 = dtype == "float32"
+        want, rec = None, []
+        if rank == 0:
+            lm, batch = build(cfg, dtype)
+            res["n_params"] = sum(p.numel() for p in lm.parameters())
 
-                def keep(state, _):
-                    nonlocal want
-                    want = {k: {m: t.detach().to("cpu", copy=True)
-                                for m, t in state[k].items()}
-                            for k in ("m", "params")}
+            def keep(state, _):
+                nonlocal want
+                want = {k: {m: t.detach().to("cpu", copy=True)
+                            for m, t in state[k].items()}
+                        for k in ("m", "params")}
+            with pinned_routing(rec), MOE.drop_counts() as drops:
                 state, res["unsharded_steps"], res["unsharded_peak_gib"] = \
                     steps_in_two(f"dist-tp: {key} unsharded",
                                  adamw.make_train_step(lm, opt),
                                  adamw.init_state(lm), batch, n,
                                  after_first=keep if fp32 else None)
-                del state, lm, batch
-                free()
-                lm, batch = build(cfg, dtype)
-                with _sums_in_parts(world):
-                    state, res["witness_steps"] = _timed_steps(
-                        f"dist-tp: {key} unsharded, sums in {world} parts",
-                        adamw.make_train_step(lm, opt), adamw.init_state(lm),
-                        batch, 1)
-                if fp32:     # the witness's m, cut as the ranks hold it
-                    pls = _tp_placements(lm, mesh)
-                    res["m_rel_witness"] = {
-                        k: max(_m_rel(a, b) for a, b in zip(
-                            _tp_cut(state["m"][k], pls[k], world),
-                            _tp_cut(want["m"][k].to(DEVICE), pls[k], world)))
-                        for k in pls}
-                del state, lm, batch
-                free()
-            dist.barrier()
-
-            def hold_step1(state, row):
-                """Each rank's shard of m after step 1 against the same cut
-                of rank 0's unsharded m, scattered leaf by leaf from the
-                host, by relative L2 (``m_rels``); and, a sanity check on
-                rank 0's shards, the params within 2 x lr of the unsharded
-                ones, plus the one fp32 rounding each weight takes after its
-                update (an ulp, at most 2^-23 of the weight)."""
-                t0 = time.perf_counter()
-                for k, local in state["m"].items():
-                    cut = torch.empty(local.to_local().shape,
-                                      dtype=local.dtype)
-                    pl = local.placements
-                    if pl[1].is_shard():
-                        dist.scatter(cut, [c.contiguous() for c in _tp_cut(
-                            want["m"][k], pl, world)] if rank == 0 else None,
-                            src=0)
-                    else:
-                        if rank == 0:
-                            cut.copy_(want["m"][k])
-                        dist.broadcast(cut, src=0)
-                    mine[k] = cut.to(DEVICE)
-                res["m_rel"] = m_rels(state)
-                if rank == 0:
-                    lim, worst, beyond = 2 * row["lr"], 0.0, -math.inf
-                    for k, local in state["params"].items():
-                        cut = _tp_cut(want["params"][k], local.placements,
-                                      world)[0].to(DEVICE)
-                        d = (local.to_local() - cut).abs()
-                        worst = max(worst, float(d.max()))
-                        beyond = max(beyond, float(
-                            (d - lim - cut.abs() * 2.0**-23).max()))
-                        del d, cut
-                    res.update(params_max_abs_err=worst, params_limit=lim,
-                               params_max_beyond_limit=beyond)
-                res["hold_s"] = time.perf_counter() - t0
-
-            # the tensor-parallel steps, counted and recorded
-            calls, n_reduce = {}, [0]
-            reduce = TP._all_reduce
-
-            def counted(t, group, op=None):
-                n_reduce[0] += 1
-                return reduce(t, group, op)
-            sync()
-            reset_kernel_counts()
-            TP._all_reduce = counted
-            try:
-                with _flash_inputs(calls):
-                    lm, state, rows, res["peak_gib"] = tp_run(
-                        f"dist-tp: {key} on (1, 4)", cfg, dtype, n,
-                        quiet=rank != 0,
-                        after_first=hold_step1 if fp32 else None)
-            finally:
-                TP._all_reduce = reduce
-            sync()
-            res.update(steps=rows, launches=kernel_counts(),
-                       flash=flash_counts(), flash_bwd=bwd_counts(),
-                       all_reduces_per_step=n_reduce[0] / n,
-                       plan=adamw.tp_plan(lm, mesh)._asdict())
-            res["held"] = _hold_recorded(f"dist-tp: {key} rank {rank}", calls)
-            del calls, state, lm, want
+            res["unsharded_dropped"] = dropped(drops, False)
+            del state, lm, batch
             free()
-            if fp32:      # the control: the norms' gradients summed again
-                real = part.partial_over_model
-                part.partial_over_model = _norms_summed_again(real)
-                try:
+            lm, batch = build(cfg, dtype)
+            with _sums_in_parts(world), \
+                    (pinned_routing(rec[:len(rec) // n]) if rec
+                     else nullcontext()):
+                state, res["witness_steps"] = _timed_steps(
+                    f"dist-tp: {key} unsharded, sums in {world} parts",
+                    adamw.make_train_step(lm, opt), adamw.init_state(lm),
+                    batch, 1)
+            if fp32:     # the witness's m, cut as the ranks hold it
+                pls = _tp_placements(lm, mesh)
+                res["m_rel_witness"] = {
+                    k: max(_m_rel(a, b) for a, b in zip(
+                        _tp_cut(state["m"][k], pls[k], world),
+                        _tp_cut(want["m"][k].to(DEVICE), pls[k], world)))
+                    for k in pls}
+            del state, lm, batch
+            free()
+        rec = shared_record(rec) if cfg.moe is not None else []
+        dist.barrier()
+
+        def hold_step1(state, row):
+            """Each rank's shard of m after step 1 against the same cut
+            of rank 0's unsharded m, scattered leaf by leaf from the
+            host, by relative L2 (``m_rels``); and, a sanity check on
+            rank 0's shards, the params within 2 x lr of the unsharded
+            ones, plus the one fp32 rounding each weight takes after its
+            update (an ulp, at most 2^-23 of the weight)."""
+            t0 = time.perf_counter()
+            for k, local in state["m"].items():
+                cut = torch.empty(local.to_local().shape,
+                                  dtype=local.dtype)
+                pl = local.placements
+                if pl[1].is_shard():
+                    dist.scatter(cut, [c.contiguous() for c in _tp_cut(
+                        want["m"][k], pl, world)] if rank == 0 else None,
+                        src=0)
+                else:
+                    if rank == 0:
+                        cut.copy_(want["m"][k])
+                    dist.broadcast(cut, src=0)
+                mine[k] = cut.to(DEVICE)
+            res["m_rel"] = m_rels(state)
+            if rank == 0:
+                lim, worst, beyond = 2 * row["lr"], 0.0, -math.inf
+                for k, local in state["params"].items():
+                    cut = _tp_cut(want["params"][k], local.placements,
+                                  world)[0].to(DEVICE)
+                    d = (local.to_local() - cut).abs()
+                    worst = max(worst, float(d.max()))
+                    beyond = max(beyond, float(
+                        (d - lim - cut.abs() * 2.0**-23).max()))
+                    del d, cut
+                res.update(params_max_abs_err=worst, params_limit=lim,
+                           params_max_beyond_limit=beyond)
+            res["hold_s"] = time.perf_counter() - t0
+
+        # the tensor-parallel steps, counted and recorded
+        calls, n_reduce, seen = {}, [0], []
+        reduce = TP._all_reduce
+
+        def counted(t, group, op=None):
+            n_reduce[0] += 1
+            return reduce(t, group, op)
+        sync()
+        reset_kernel_counts()
+        TP._all_reduce = counted
+        try:
+            with _flash_inputs(calls), pins(rec, seen), \
+                    MOE.drop_counts() as drops:
+                lm, state, rows, res["peak_gib"] = tp_run(
+                    f"dist-tp: {key} on (1, 4)", cfg, dtype, n,
+                    quiet=rank != 0,
+                    after_first=hold_step1 if fp32 else None)
+        finally:
+            TP._all_reduce = reduce
+        sync()
+        res["dropped"] = dropped(drops)
+        res.update(steps=rows, launches=kernel_counts(),
+                   flash=flash_counts(), flash_bwd=bwd_counts(),
+                   all_reduces_per_step=n_reduce[0] / n,
+                   plan=adamw.tp_plan(lm, mesh)._asdict())
+        if rec:         # step 1's calls
+            res["rows_routed_otherwise"] = otherwise(
+                seen[:len(rec) // n], rec[:len(rec) // n])
+        res["held"] = _hold_recorded(f"dist-tp: {key} rank {rank}", calls)
+        del calls, state, lm
+        want = None
+        free()
+        if fp32:      # the control: the norms' gradients summed again
+            real = part.partial_over_model
+            part.partial_over_model = _norms_summed_again(real)
+            try:
+                with pins(rec[:len(rec) // n]):
                     lm, state, rows, _ = tp_run(
                         f"dist-tp: {key} control", cfg, dtype, 1)
-                finally:
-                    part.partial_over_model = real
-                res["control_steps"] = rows
-                res["m_rel_control"] = m_rels(state)
-            else:         # the control: attention not summed
-                shim = types.SimpleNamespace(copy_to=TP.copy_to,
-                                             reduce_from=lambda y, tp: y)
-                real, A.TP = A.TP, shim
-                try:
+            finally:
+                part.partial_over_model = real
+            res["control_steps"] = rows
+            res["m_rel_control"] = m_rels(state)
+        else:         # the control: attention not summed
+            shim = types.SimpleNamespace(copy_to=TP.copy_to,
+                                         reduce_from=lambda y, tp: y)
+            real, A.TP = A.TP, shim
+            try:
+                with pins(rec[:len(rec) // n]):
                     lm, state, rows, _ = tp_run(f"dist-tp: {key} control",
                                                 cfg, dtype, 1)
-                finally:
-                    A.TP = real
-                res["control_steps"] = rows
-            del lm, state
-            mine.clear()
-            free()
-            res["serve"] = serve_case(key, cfg, dtype)
+            finally:
+                A.TP = real
+            res["control_steps"] = rows
+        del lm, state
+        mine.clear()
+        free()
+
+    cap = DIST_TP_CAPACITY
+    out = {"rank": rank, "cases": {}, "seconds": {}}
+    for path in paths:
+        for dtype in dict.fromkeys(tuple(path["steps"]) +
+                                   tuple(path["serve_dtypes"])):
+            key = f"{path['label']} {dtype}"
+            res = out["cases"][key] = {}
+            t0 = time.perf_counter()
+            if dtype in path["steps"]:
+                train_case(res, key, path["train"], dtype,
+                           path["steps"][dtype])
+            t1 = time.perf_counter()
+            if dtype in path["serve_dtypes"]:
+                res["serve"] = serve_case(key, path["serve"], dtype,
+                                          path["decode"])
+            out["seconds"][key] = {"train": t1 - t0,
+                                   "serve": time.perf_counter() - t1}
 
     # one layer's activations all-reduced over the four ranks, staged
     # through the host by gloo
     out["all_reduce_ms"] = {}
-    d = max(cfg.d_model for _, cfg in paths)
-    for dtype in steps:
+    d = max((p["train"].d_model for p in paths), default=0)
+    for dtype in dict.fromkeys(dt for p in paths for dt in p["steps"]):
         x = torch.ones((1, seq, d), dtype=getattr(torch, dtype),
                        device=DEVICE)
         ts = []
@@ -4127,12 +4305,18 @@ def _dist_tp_rank(rank, world, device, paths, steps, seq):
             ts.append((time.perf_counter() - t0) * 1e3)
         out["all_reduce_ms"][dtype] = {"shape": [1, seq, d],
                                        "median_ms": sorted(ts[1:])[2]}
+    if ep is not None:       # dist-ep's checks of one MoE layer
+        free()
+        t0 = time.perf_counter()
+        out["ep"] = _dist_ep_rank(rank, world, device, *ep)
+        out["seconds"]["dist-ep checks"] = time.perf_counter() - t0
     return out
 
 
-def _serve_report(arch, layers, key, route, res, bad):
-    """The serving half of ``phase_dist_tp`` for one path and dtype: its
-    gates (appended to ``bad``) and its record."""
+def _serve_report(arch, layers, key, route, res, bad, decode):
+    """The serving half of ``phase_dist_tp`` for one path and dtype
+    (``layers`` deep, ``decode`` steps): its gates (appended to ``bad``)
+    and its record."""
     dtype = key.rsplit(" ", 1)[1]
     r0 = res[0]["cases"][key]["serve"]
     ranks = [r["cases"][key]["serve"] for r in res]
@@ -4142,7 +4326,7 @@ def _serve_report(arch, layers, key, route, res, bad):
     def med(xs):
         return sorted(xs)[len(xs) // 2]
     sv = {"prompts": list(DIST_TP_PROMPTS), "capacity": DIST_TP_CAPACITY,
-          "decode_steps": DIST_TP_DECODE, "layouts": r0["layouts"],
+          "decode_steps": decode, "layouts": r0["layouts"],
           "limit": lim, "rel_max": max(r0["rel"]),
           "rel_prefill_max": max(r0["rel"][:n_pre]),
           "witness_rel_max": max(r0["witness_rel"]),
@@ -4166,6 +4350,12 @@ def _serve_report(arch, layers, key, route, res, bad):
                            h["options"].get("window", 0)]
                           for h in r0["held"]],
           "tokens": r0["tokens"]}
+    if "rows_routed_otherwise" in r0:
+        n, rows = r0["rows_routed_otherwise"]
+        sv["routing_rows_otherwise_share"] = n / rows
+    sv["copies_dropped"] = [r0["unsharded_dropped"], r0["dropped"]]
+    if sv["copies_dropped"][0] != sv["copies_dropped"][1]:
+        bad.append(f"{key} serving: copies dropped {sv['copies_dropped']}")
     if dtype == "float32":
         if not sv["tokens_equal"]:
             bad.append(f"{key} serving: greedy tokens differ")
@@ -4188,12 +4378,152 @@ def _serve_report(arch, layers, key, route, res, bad):
     return sv
 
 
+def _train_report(arch, layers, key, n, res, bad, out):
+    """The train half of ``phase_dist_tp`` for one path and dtype
+    (``layers`` deep, ``n`` steps): its gates (appended to ``bad``), its
+    launches added to ``out``'s, and its record."""
+    dtype = key.rsplit(" ", 1)[1]
+    label = key.rsplit(" ", 1)[0]
+    r0 = res[0]["cases"][key]
+    ranks = [r["cases"][key] for r in res]
+    route = "tc" if dtype == "bfloat16" else "fma"
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    c = {"layers": layers, "steps": n, "n_params": r0["n_params"],
+         "plan": r0["plan"],
+         "unsharded_steps": r0["unsharded_steps"],
+         "unsharded_peak_gib": r0.get("unsharded_peak_gib"),
+         "tp_steps_rank0": r0["steps"],
+         "ms_per_step_by_rank": [
+             sum(s["ms"] for s in r["steps"][1:]) / (n - 1)
+             for r in ranks],
+         "unsharded_ms_per_step": sum(
+             s["ms"] for s in r0["unsharded_steps"][1:]) / (n - 1),
+         "peak_gib_by_rank": [r.get("peak_gib") for r in ranks],
+         "all_reduces_per_step": r0["all_reduces_per_step"],
+         "launches_by_rank": [r["launches"] for r in ranks],
+         "flash_by_rank": [r["flash"] for r in ranks],
+         "flash_bwd_by_rank": [r["flash_bwd"] for r in ranks],
+         "held_shapes": [[h["kind"], h["q"], h["k"], h["dtype"],
+                          h["options"].get("window", 0)]
+                         for h in r0["held"]]}
+    if "rows_routed_otherwise" in r0:
+        k, rows = r0["rows_routed_otherwise"]
+        c["routing_rows_otherwise_share_step1"] = k / rows
+    c["copies_dropped"] = [r0["unsharded_dropped"], r0["dropped"]]
+    if c["copies_dropped"][0] != c["copies_dropped"][1]:
+        bad.append(f"{key}: copies dropped {c['copies_dropped']}")
+    # step 1 of each code (and each later step's loss) against the fp32
+    # unsharded step on the same weights and batch
+    f32 = res[0]["cases"][f"{label} float32"]["unsharded_steps"]
+    codes = {"tp": r0["steps"], "witness_sums_in_parts": r0["witness_steps"]}
+    if dtype == "bfloat16":
+        codes.update(control_attention_not_summed=r0["control_steps"],
+                     witness_unsharded_bf16=r0["unsharded_steps"])
+    c["rel_to_fp32"] = {
+        k: {"loss": [rel(a["loss"], b["loss"]) for a, b in zip(
+            v if dtype == "float32" else v[:1], f32)],
+            "grad_norm": rel(v[0]["grad_norm"], f32[0]["grad_norm"])}
+        for k, v in codes.items()}
+    c["limit"] = lim = DIST_TP_REL[arch, dtype]
+    worst = {k: max(v["loss"] + [v["grad_norm"]])
+             for k, v in c["rel_to_fp32"].items()}
+    control = worst.pop("control_attention_not_summed", math.inf)
+    if max(worst.values()) > lim or control <= lim:
+        bad.append(f"{key}: {worst}, control {control}")
+    if dtype == "float32":
+        c["loss_rel_step1"] = c["rel_to_fp32"]["tp"]["loss"][0]
+        c.update({k: r0[k] for k in (
+            "m_rel", "m_rel_witness", "m_rel_control",
+            "params_max_abs_err", "params_limit",
+            "params_max_beyond_limit", "hold_s")})
+        # each leaf's distance over its limit: at most 1 for the
+        # tensor-parallel step, over 1 somewhere for the control
+        lim = {k: DIST_TP_M_MULT * w + DIST_TP_M_FLOOR[arch]
+               for k, w in c["m_rel_witness"].items()}
+        c["m_over_limit"], c["m_over_limit_control"] = (
+            max((v[k] / lim[k], k) for k in lim)
+            for v in (c["m_rel"], c["m_rel_control"]))
+        if c["loss_rel_step1"] > DIST_TP_LOSS_REL:
+            bad.append(f"{key}: step 1's loss")
+        if c["m_over_limit"][0] > 1 or c["m_over_limit_control"][0] <= 1:
+            bad.append(f"{key}: m after step 1 over its limit, TP "
+                       f"{c['m_over_limit']}, control "
+                       f"{c['m_over_limit_control']}")
+        if c["params_max_beyond_limit"] > 0:
+            bad.append(f"{key}: params beyond 2 x lr")
+    want = {"flash_attention_fwd": 2 * layers * n,
+            "flash_attention_bwd": layers * n}
+    for r in ranks:
+        for kname, v in want.items():
+            if r["launches"][kname] != v:
+                bad.append(f"{key}: {kname} {r['launches']}")
+        if r["flash"][route] != want["flash_attention_fwd"] or \
+                r["flash_bwd"][route] != want["flash_attention_bwd"]:
+            bad.append(f"{key}: route {r['flash']} {r['flash_bwd']}")
+        _add_launches(out, r)
+    return c
+
+
+def _add_launches(out, r):
+    """One rank's kernel launches (a train or serving record) added to
+    ``phase_dist_tp``'s totals."""
+    for kname, v in r["launches"].items():
+        out["launches"][kname] = out["launches"].get(kname, 0) + v
+    for k in ("tc", "fma"):
+        out["flash_launches_by_kernel"][k] += r["flash"][k]
+        if "flash_bwd" in r:
+            out["flash_bwd_launches_by_route"][k] += r["flash_bwd"][k]
+
+
+def _ep_report(res, bad):
+    """dist-ep's checks of one MoE layer (``_dist_ep_rank``, run in
+    ``phase_dist_tp``'s MoE spawn): its gates (appended to ``bad``) and
+    its record. fp32 at capacity factor 8 (no drops), against the local
+    path on rank 0: y on the rows whose routing agrees, EP's aux against
+    the local path's per token slice (EP's definition, as the
+    reference's), and, replaying the local run's routing, y and every
+    gradient (the input's too) under one seeded cotangent, all at
+    DIST_EP_REL_L2. The drop path, fp32 at DIST_EP_LOW_CF: copies dropped
+    at both of EP's capacities, the same counts on the card and on the CPU
+    under the same routing, and y and aux against the CPU's at
+    DIST_EP_REL_L2 (the tests hold the CPU's EP at such factors against
+    the reference's). Reported: the share of (token, expert) assignments
+    that differ (routing on 512-token slices), bf16 at 1.25 the share of
+    copies each path drops, the times (the exchange staged through the
+    host by gloo; not EP on NVLink)."""
+    out = dict(res[0]["ep"], timing_by_rank=[r["ep"]["timing"] for r in res])
+    out.pop("timing")
+    checks = {
+        "y on rows routed alike": out["y_rel_l2_rows_alike"] <= DIST_EP_REL_L2,
+        "aux": out["aux_rel"] <= DIST_EP_REL_L2,
+        "pinned y": out["pinned_y_rel_l2"] <= DIST_EP_REL_L2,
+        "pinned gradients": max(out["pinned_grad_rel_l2"].values()) <=
+        DIST_EP_REL_L2,
+        "rows routed alike": out["rows_routed_alike"] > 0}
+    low = out["low_cf"]
+    checks.update({
+        "drops card = cpu": low["drops_card"] == low["drops_cpu"],
+        "drops at C_send": low["drops_card"]["dropped_send"] > 0,
+        "drops at C_loc": low["drops_card"]["dropped"] > 0,
+        "low-cf y finite": low["y_finite"],
+        "low-cf y": low["y_rel_l2_to_cpu"] <= DIST_EP_REL_L2,
+        "low-cf aux": low["aux_rel_to_cpu"] <= DIST_EP_REL_L2})
+    bad.extend(f"dist-ep: {k}" for k, ok in checks.items() if not ok)
+    return out
+
+
 def phase_dist_tp():
     """Tensor-parallel compute on the card: DIST_TP_WORLD spawned processes
     share it through gloo (NCCL refuses two ranks on one card) on a (1, 4)
-    ("data", "model") mesh, DIST_TP_PATHS at full width, B=1, S=TRAIN_S
-    (``_dist_tp_rank``). Gates, against the unsharded step on the same
-    weights and batch: in fp32 (the FMA flash kernels) step 1's loss within
+    ("data", "model") mesh, at full width, B=1, S=TRAIN_S
+    (``_dist_tp_rank``), in two spawns: DIST_TP_PATHS, then the MoE
+    families' DIST_TP_MOE_PATHS with EP beside TP and dist-ep's checks of
+    one MoE layer (``_ep_report``). Gates, against the unsharded step on
+    the same weights and batch (the MoE paths replaying its routing): in
+    fp32 (the FMA flash kernels)
+    step 1's loss within
     DIST_TP_LOSS_REL, the gradient leaf by leaf (each rank's shard of ``m``
     after step 1) within DIST_TP_M_MULT times the witness's distance on
     that leaf plus DIST_TP_M_FLOOR, the control (the norms summed again)
@@ -4219,118 +4549,49 @@ def phase_dist_tp():
     unsharded run's, the collectives a decode step and one's host-staged
     ms."""
     import torch
+    from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import run_ranks
     gc.collect()
     torch.cuda.empty_cache()
+    paths = _dist_tp_paths()
     t0 = time.perf_counter()
-    paths = [(arch, _train_cfg(arch, layers, "bfloat16"))
-             for arch, layers in DIST_TP_PATHS]
     res = run_ranks(_dist_tp_rank, DIST_TP_WORLD,
-                    (DEVICE, paths, DIST_TP_STEPS, TRAIN_S), backend="gloo",
-                    device=DEVICE, timeout_s=DIST_TIMEOUT_S)
+                    (DEVICE, paths, TRAIN_S,
+                     (get_config(DIST_ARCH), DIST_EP_TOKENS)),
+                    backend="gloo", device=DEVICE, timeout_s=DIST_TP_JOIN_S)
     out = {"spawn_and_run_s": time.perf_counter() - t0, "cases": {},
            "all_reduce_ms": res[0]["all_reduce_ms"], "launches": {},
            "flash_launches_by_kernel": {"tc": 0, "fma": 0},
-           "flash_bwd_launches_by_route": {"tc": 0, "fma": 0}}
+           "flash_bwd_launches_by_route": {"tc": 0, "fma": 0},
+           "seconds_by_case_rank0": res[0]["seconds"]}
     bad = []
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-    for (arch, layers), (label, _) in zip(DIST_TP_PATHS, paths):
-        for dtype, n in DIST_TP_STEPS.items():
-            key = f"{label} {dtype}"
-            r0 = res[0]["cases"][key]
-            ranks = [r["cases"][key] for r in res]
-            route = "tc" if dtype == "bfloat16" else "fma"
-            c = {"layers": layers, "steps": n, "n_params": r0["n_params"],
-                 "plan": r0["plan"],
-                 "unsharded_steps": r0["unsharded_steps"],
-                 "unsharded_peak_gib": r0.get("unsharded_peak_gib"),
-                 "tp_steps_rank0": r0["steps"],
-                 "ms_per_step_by_rank": [
-                     sum(s["ms"] for s in r["steps"][1:]) / (n - 1)
-                     for r in ranks],
-                 "unsharded_ms_per_step": sum(
-                     s["ms"] for s in r0["unsharded_steps"][1:]) / (n - 1),
-                 "peak_gib_by_rank": [r.get("peak_gib") for r in ranks],
-                 "all_reduces_per_step": r0["all_reduces_per_step"],
-                 "launches_by_rank": [r["launches"] for r in ranks],
-                 "flash_by_rank": [r["flash"] for r in ranks],
-                 "flash_bwd_by_rank": [r["flash_bwd"] for r in ranks],
-                 "held_shapes": [[h["kind"], h["q"], h["k"], h["dtype"],
-                                  h["options"].get("window", 0)]
-                                 for h in r0["held"]]}
-            # step 1 of each code (and each later step's loss) against
-            # the fp32 unsharded step on the same weights and batch
-            f32 = res[0]["cases"][f"{label} float32"]["unsharded_steps"]
-            codes = {"tp": r0["steps"],
-                     "witness_sums_in_parts": r0["witness_steps"]}
-            if dtype == "bfloat16":
-                codes.update(control_attention_not_summed=r0["control_steps"],
-                             witness_unsharded_bf16=r0["unsharded_steps"])
-            c["rel_to_fp32"] = {
-                k: {"loss": [rel(a["loss"], b["loss"]) for a, b in zip(
-                    v if dtype == "float32" else v[:1], f32)],
-                    "grad_norm": rel(v[0]["grad_norm"], f32[0]["grad_norm"])}
-                for k, v in codes.items()}
-            c["limit"] = lim = DIST_TP_REL[arch, dtype]
-            worst = {k: max(v["loss"] + [v["grad_norm"]])
-                     for k, v in c["rel_to_fp32"].items()}
-            control = worst.pop("control_attention_not_summed", math.inf)
-            if max(worst.values()) > lim or control <= lim:
-                bad.append(f"{key}: {worst}, control {control}")
-            if dtype == "float32":
-                c["loss_rel_step1"] = c["rel_to_fp32"]["tp"]["loss"][0]
-                c.update({k: r0[k] for k in (
-                    "m_rel", "m_rel_witness", "m_rel_control",
-                    "params_max_abs_err", "params_limit",
-                    "params_max_beyond_limit", "hold_s")})
-                # each leaf's distance over its limit: at most 1 for the
-                # tensor-parallel step, over 1 somewhere for the control
-                lim = {k: DIST_TP_M_MULT * w + DIST_TP_M_FLOOR[arch]
-                       for k, w in c["m_rel_witness"].items()}
-                c["m_over_limit"], c["m_over_limit_control"] = (
-                    max((v[k] / lim[k], k) for k in lim)
-                    for v in (c["m_rel"], c["m_rel_control"]))
-                if c["loss_rel_step1"] > DIST_TP_LOSS_REL:
-                    bad.append(f"{key}: step 1's loss")
-                if c["m_over_limit"][0] > 1 or \
-                        c["m_over_limit_control"][0] <= 1:
-                    bad.append(f"{key}: m after step 1 over its limit, TP "
-                               f"{c['m_over_limit']}, control "
-                               f"{c['m_over_limit_control']}")
-                if c["params_max_beyond_limit"] > 0:
-                    bad.append(f"{key}: params beyond 2 x lr")
-            want = {"flash_attention_fwd": 2 * layers * n,
-                    "flash_attention_bwd": layers * n}
-            for r in ranks:
-                for kname, v in want.items():
-                    if r["launches"][kname] != v:
-                        bad.append(f"{key}: {kname} {r['launches']}")
-                if r["flash"][route] != want["flash_attention_fwd"] or \
-                        r["flash_bwd"][route] != want["flash_attention_bwd"]:
-                    bad.append(f"{key}: route {r['flash']} {r['flash_bwd']}")
-                for kname, v in r["launches"].items():
-                    out["launches"][kname] = out["launches"].get(kname, 0) + v
-                for k2 in ("tc", "fma"):
-                    out["flash_launches_by_kernel"][k2] += r["flash"][k2]
-                    out["flash_bwd_launches_by_route"][k2] += \
-                        r["flash_bwd"][k2]
-            c["serve"] = sv = _serve_report(arch, layers, key, route, res,
-                                            bad)
-            for r in res:
-                for kname, v in r["cases"][key]["serve"]["launches"].items():
-                    out["launches"][kname] = out["launches"].get(kname, 0) + v
-                for k2 in ("tc", "fma"):
-                    out["flash_launches_by_kernel"][k2] += \
-                        r["cases"][key]["serve"]["flash"][k2]
+    for path in paths:
+        arch = path["label"]
+        for dtype in dict.fromkeys(tuple(path["steps"]) +
+                                   tuple(path["serve_dtypes"])):
+            key = f"{arch} {dtype}"
+            c = {}
+            if dtype in path["steps"]:
+                c = _train_report(arch, path["train"].num_layers, key,
+                                  path["steps"][dtype], res, bad, out)
+                log(f"dist-tp: {key}: {json.dumps(c)}")
+            if dtype in path["serve_dtypes"]:
+                route = "tc" if dtype == "bfloat16" else "fma"
+                c["serve"] = sv = _serve_report(
+                    arch, path["serve"].num_layers, key, route, res, bad,
+                    path["decode"])
+                for r in res:
+                    _add_launches(out, r["cases"][key]["serve"])
+                log(f"dist-tp: {key} serving: {json.dumps(sv)}")
             out["cases"][key] = c
-            log(f"dist-tp: {key}: {json.dumps(c)}")
-            log(f"dist-tp: {key} serving: {json.dumps(sv)}")
+    out["ep"] = _ep_report(res, bad)
+    log(f"dist-tp: dist-ep's checks of one MoE layer: "
+        f"{json.dumps(out['ep'])}")
     log(f"dist-tp: {DIST_TP_WORLD} gloo ranks on one card, launches "
         f"{json.dumps(out['launches'])}, all-reduce of a layer's activations"
         f" (host-staged by gloo) {json.dumps(out['all_reduce_ms'])}, "
-        f"{out['spawn_and_run_s']:.1f} s")
+        f"{out['spawn_and_run_s']:.1f} s; by case (rank 0) "
+        f"{json.dumps(out['seconds_by_case_rank0'])}")
     assert not bad, bad
     return out
 
@@ -5058,14 +5319,13 @@ def _phases(run, failed, name, smi, traces):
                    {t: r for t, r in trains.items() if r is not None},
                    traces)
     dist_train = run("dist-train", phase_dist_train)
-    dist_ep = run("dist-ep", phase_dist_ep)
     dist_tp = run("dist-tp", phase_dist_tp)
     saved = run("ckpt", phase_ckpt)
     examples = run("examples", phase_examples)
     timings = (timing, timing_ssd, timing_rglru, timing_bwd)
     if failed or any(t is None for t in timings) or len(paths) < len(PATHS) \
             or None in trains.values() or saved is None or examples is None \
-            or dist_train is None or dist_ep is None or dist_tp is None \
+            or dist_train is None or dist_tp is None \
             or roofline is None:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
@@ -5194,8 +5454,8 @@ def _phases(run, failed, name, smi, traces):
                     "timing_rglru": timing_rglru, "timing_bwd": timing_bwd,
                     "serving": {a: p[2] for a, p in paths.items()},
                     "train": trains, "roofline": roofline,
-                    "dist_train": dist_train,
-                    "dist_ep": dist_ep, "dist_tp": dist_tp, "ckpt": saved,
+                    "dist_train": dist_train, "dist_tp": dist_tp,
+                    "ckpt": saved,
                     "examples": examples}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,9 +13,10 @@ rank 0's (``roofline.counter``). The step runs the plain path
 (``impl="plain"``): the kernels are ``ctypes`` launches that meta and fake
 tensors cannot trace; the reference likewise lowers its XLA "blocked" path
 on host devices. A train cell traces the tensor-parallel step (attention
-by heads, dense MLPs by ffn, the vocabulary over "model", with their
-all-reduces; ``partition.tp_plan``), and so does a serving cell, whose
-decode cache stays at its storage shard (``launch.specs.build_fn``).
+and MLA by heads, dense MLPs and the MoE layers' shared experts by ffn,
+the vocabulary over "model", with their all-reduces, the routed experts
+on EP beside them; ``partition.tp_plan``), and so does a serving cell,
+whose decode cache stays at its storage shard (``launch.specs.build_fn``).
 ``--qkv-constraint batch`` pins q, k and v to heads over "model", which is
 how the port computes them in every cell: it traces the same step.
 

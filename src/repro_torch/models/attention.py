@@ -38,7 +38,17 @@ model axis (or, where the kv heads are gathered, projected whole), so that
 a leaf replicated over the axis stays equal on every rank; where the cache
 holds every kv head over a slice of the sequence, q is all-gathered over
 the axis, every head attends, and each rank keeps its own heads for its
-row shard of ``wo``. The other mixers compute on gathered weights.
+row shard of ``wo``. MLA splits the same way by heads (``wq_b`` or
+``wq``, ``wkv_b`` and ``wo``): its ``wq_a``, ``q_norm``, ``wkv_a`` and
+``kv_norm`` act ahead of the split on gathered weights, so the region
+starts after them (``copy_to`` on the normed q LoRA ``qa``, or on x without
+one, and on ``c`` and ``kpe``), and their gradients come out whole. Its
+cache has no heads dim: the sequence is split, this rank's slice of the
+capacity's positions kept at the prefill, the new row written by the rank
+that owns its slot, and the decode, 4b's MQA case, scores every head
+against the local rows (``q_eff``/``q_pe`` all-gathered), combines the
+partial softmax over the sequence's axes and keeps this rank's heads for
+``w_v`` and ``wo``. The other mixers compute on gathered weights.
 """
 from __future__ import annotations
 
@@ -342,17 +352,26 @@ def mla_def(cfg: ModelConfig):
     return d
 
 
-def _mla_q(cfg: ModelConfig, p, x, positions):
-    """-> (q_nope [B,S,H,nope], q_pe [B,S,H,rope] with RoPE)."""
+def _mla_heads(cfg: ModelConfig, tp):
+    return cfg.num_heads if tp is None else cfg.num_heads // tp.size
+
+
+def _mla_q(cfg: ModelConfig, p, x, positions, tp=None):
+    """-> (q_nope [B,S,H,nope], q_pe [B,S,H,rope] with RoPE); under ``tp``
+    this rank's heads, the region entered after ``q_norm``."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = _mla_heads(cfg, tp)
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     dt = x.dtype
     if m.q_lora_rank:
         qa = _rms_head(x @ p["wq_a"].to(dt), p["q_norm"], cfg.norm_eps)
+        if tp is not None:
+            qa = TP.copy_to(qa, tp)
         q = (qa @ p["wq_b"].to(dt)).reshape(B, S, H, qk_head)
     else:
+        if tp is not None:
+            x = TP.copy_to(x, tp)
         q = (x @ p["wq"].to(dt)).reshape(B, S, H, qk_head)
     q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_pe, positions, 1.0, cfg.rope_theta)
@@ -371,36 +390,46 @@ def _mla_ckv(cfg: ModelConfig, p, x, positions):
 
 
 def mla_prefill(cfg: ModelConfig, p, x, positions, *, capacity=None,
-                impl=None):
+                impl=None, tp=None):
     """x: [B,S,D] -> (y [B,S,D], the decode cache or None). RoPE on the
     rope part of q and k only, the rope key shared by every head; v
     zero-padded to ``qk_head`` for the flash call (scale ``qk_head**-0.5``)
     and the output sliced back to ``v_head_dim``. With ``capacity`` the
     same ``c``/``kpe`` also fill the cache (the reference computes them
-    twice)."""
+    twice). Under ``tp`` the flash call runs on this rank's heads, ``c``
+    and ``kpe`` enter the region by ``copy_to``, ``wo`` is a row shard
+    followed by ``reduce_from``, and the cache is this rank's shard
+    (``tp.shard("mla")``)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.num_heads
+    H = _mla_heads(cfg, tp)
     dt = x.dtype
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
-    q_nope, q_pe = _mla_q(cfg, p, x, positions)
+    q_nope, q_pe = _mla_q(cfg, p, x, positions, tp)
     c, kpe = _mla_ckv(cfg, p, x, positions)
-    kv = (c @ p["wkv_b"].to(dt)).reshape(
+    cr, kper = (c, kpe) if tp is None else (TP.copy_to(c, tp),
+                                            TP.copy_to(kpe, tp))
+    kv = (cr @ p["wkv_b"].to(dt)).reshape(
         B, S, H, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_pe], -1)
-    k = torch.cat([k_nope, kpe[:, :, None].expand(q_pe.shape)], -1)
+    k = torch.cat([k_nope, kper[:, :, None].expand(q_pe.shape)], -1)
     vp = F.pad(v, (0, qk_head - m.v_head_dim))
     o = ops.attention(q, k, vp, causal=True, scale=qk_head ** -0.5,
                       impl=impl)[..., :m.v_head_dim]
     y = o.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(dt)
-    cache = (mla_prefill_cache(c, kpe, capacity)
-             if capacity is not None else None)
+    if tp is not None:
+        y = TP.reduce_from(y, tp)
+    cache = None
+    if capacity is not None:
+        cache = mla_prefill_cache(c, kpe, capacity,
+                                  shard=None if tp is None
+                                  else tp.shard("mla"))
     return y, cache
 
 
-def mla_forward(cfg: ModelConfig, p, x, positions, *, impl=None):
-    return mla_prefill(cfg, p, x, positions, impl=impl)[0]
+def mla_forward(cfg: ModelConfig, p, x, positions, *, impl=None, tp=None):
+    return mla_prefill(cfg, p, x, positions, impl=impl, tp=tp)[0]
 
 
 def mla_cache_def(cfg: ModelConfig, batch, capacity, dtype):
@@ -411,22 +440,32 @@ def mla_cache_def(cfg: ModelConfig, batch, capacity, dtype):
                                dtype=dtype, device="meta")}
 
 
-def mla_prefill_cache(c, kpe, capacity):
+def mla_prefill_cache(c, kpe, capacity, shard=None):
     """A decode cache from a prefix's ``c`` [B,S,kv_lora] and ``kpe``
-    [B,S,rope] at positions 0..S-1, zero rows after them."""
+    [B,S,rope] at positions 0..S-1, zero rows after them. With ``shard``
+    (a ``tp.CacheShard``) only its slice of the capacity's positions, as
+    ``attn_prefill_cache`` keeps it."""
     B, S, _ = c.shape
+    count = shard.seq_count if shard is not None else 1
+    n = capacity // count
+    lo = shard.seq_index * n if shard is not None else 0
+    hi = min(max(S, lo), lo + n)
 
     def padded(t):
-        pad = torch.zeros((B, capacity - S, t.shape[-1]), dtype=t.dtype,
+        pad = torch.zeros((B, n - (hi - lo), t.shape[-1]), dtype=t.dtype,
                           device=t.device)
-        return torch.cat([t, pad], 1)
+        return torch.cat([t[:, lo:hi], pad], 1)
     return {"ckv": padded(c), "kpe": padded(kpe)}
 
 
-def mla_decode(cfg: ModelConfig, p, x, cache, positions):
+def mla_decode(cfg: ModelConfig, p, x, cache, positions, tp=None):
     """Absorbed-matmul decode over the compressed cache, in fp32 as the
     reference computes it. x: [B,1,D]; positions: [B]. The new token's
-    ``c``/``kpe`` are written into the cache in place."""
+    ``c``/``kpe`` are written into the cache in place. Under ``tp`` the
+    cache leaves are this rank's ``tp.shard("mla")``
+    (``_mla_decode_split``)."""
+    if tp is not None:
+        return _mla_decode_split(cfg, p, x, cache, positions, tp)
     m = cfg.mla
     B = x.shape[0]
     H = cfg.num_heads
@@ -452,6 +491,52 @@ def mla_decode(cfg: ModelConfig, p, x, cache, positions):
     o = torch.einsum("bhl,lhv->bhv", ctx, w_v.float())
     y = o.reshape(B, 1, H * m.v_head_dim).to(dt) @ p["wo"].to(dt)
     return y, cache
+
+
+def _mla_decode_split(cfg: ModelConfig, p, x, cache, positions, tp):
+    """``mla_decode`` on this rank's heads over its cache shard: the new
+    row written where its slot lives; ``q_eff`` and ``q_pe`` all-gathered
+    over the model axis, so that every head scores the local rows (fp32);
+    the partial softmax (a rank without a valid row adds exactly 0)
+    combined over the sequence's axes; this rank's heads for ``w_v`` and
+    its rows of ``wo``, summed by ``reduce_from``."""
+    m = cfg.mla
+    B = x.shape[0]
+    Hl = _mla_heads(cfg, tp)
+    dt = x.dtype
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    shard = tp.shard("mla")
+    q_nope, q_pe = _mla_q(cfg, p, x, positions[:, None], tp)   # [B,1,Hl,*]
+    c, kpe = _mla_ckv(cfg, p, x, positions[:, None])
+    n = cache["ckv"].shape[1]
+    lo = shard.seq_index * n
+    slot = positions.clamp(0, n * shard.seq_count - 1) - lo
+    _write_own(cache["ckv"], c, slot)
+    _write_own(cache["kpe"], kpe, slot)
+    wkv_b = p["wkv_b"].to(dt).reshape(
+        m.kv_lora_rank, Hl, m.qk_nope_head_dim + m.v_head_dim)
+    w_k = wkv_b[..., :m.qk_nope_head_dim]                      # [L,Hl,nope]
+    w_v = wkv_b[..., m.qk_nope_head_dim:]                      # [L,Hl,v]
+    q_eff = torch.einsum("bhn,lhn->bhl", q_nope[:, 0], w_k)    # [B,Hl,L]
+    q_eff = TP.all_gather(q_eff, tp.group, 1)                  # [B,H,L]
+    q_pe = TP.all_gather(q_pe[:, 0], tp.group, 1)              # [B,H,rope]
+    ckv = cache["ckv"].float()
+    sc = (torch.einsum("bhl,bsl->bhs", q_eff.float(), ckv) +
+          torch.einsum("bhr,bsr->bhs", q_pe.float(),
+                       cache["kpe"].float())) * qk_head ** -0.5
+    kpos = lo + torch.arange(n, device=x.device)
+    valid = (kpos[None] < (positions + 1)[:, None])[:, None]   # [B,1,n]
+    sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+    top = sc.amax(-1)                                          # [B,H]
+    pr = torch.where(valid, torch.exp(sc - top[..., None]),
+                     torch.zeros((), dtype=sc.dtype, device=sc.device))
+    o = torch.einsum("bhs,bsl->bhl", pr, ckv)                  # [B,H,L]
+    ctx = TP.combine_partial(o[:, None], top, pr.sum(-1),
+                             shard.seq_groups)[:, 0]
+    ctx = ctx[:, tp.rank * Hl:(tp.rank + 1) * Hl]
+    o = torch.einsum("bhl,lhv->bhv", ctx, w_v.float())
+    y = o.reshape(B, 1, Hl * m.v_head_dim).to(dt) @ p["wo"].to(dt)
+    return TP.reduce_from(y, tp), cache
 
 
 # ---------------------------------------------------------------------------

@@ -45,8 +45,9 @@ model computes on this rank's local tensors: the train step
 (``optim.adamw``) hands it its batch slice and its compute weights, and
 an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``).
 Inside the train step's tensor-parallel region (``sharding.tp``) the
-``attn``/``local`` mixers run on this rank's heads, the dense MLPs on its
-ffn columns, and the embedding, logits and cross-entropy on its
+``attn``/``local``/``mla`` mixers run on this rank's heads, the dense MLPs
+and an MoE layer's shared experts on its ffn columns (the routed experts
+on EP beside them), and the embedding, logits and cross-entropy on its
 vocabulary rows, by ``partition.compute_axis`` (``_split`` decides per
 block); the other blocks compute gathered. The region is read once per
 forward and carried in the layers' context, so a remat recompute issues
@@ -180,11 +181,12 @@ def _mlp_residual(cfg, mlpk, p, x, tp=None, ep=MOE.ACTIVE):
     """x plus the layer's MLP (dense or MoE) -> (x, aux). The dense MLP
     takes its width from its weights, and splits where ``tp``'s plan
     splits it; the MoE block exchanges its tokens over ``ep``
-    (``moe.ep_context``; by default the active mesh's)."""
+    (``moe.ep_context``; by default the active mesh's), its shared experts
+    split where the plan splits them."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlpk == "moe":
         y, aux = MOE.moe_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
-                               ep)
+                               ep, _split(tp, "shared"))
         x = x + y
     elif mlpk == "dense":
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
@@ -215,7 +217,8 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
             cache = c
     elif mixer == "mla":
         mx, cache = A.mla_prefill(cfg, p["mixer"], h, ctx["positions"],
-                                  capacity=capacity, impl=ctx.get("impl"))
+                                  capacity=capacity, impl=ctx.get("impl"),
+                                  tp=_split(tp, mixer))
     else:
         # the encoder's "enc" layers see every frame, with RoPE at the
         # frames' positions
@@ -296,7 +299,8 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
     elif mixer == "rec":
         mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache)
     elif mixer == "mla":
-        mx, cache = A.mla_decode(cfg, p["mixer"], h, cache, ctx["positions"])
+        mx, cache = A.mla_decode(cfg, p["mixer"], h, cache, ctx["positions"],
+                                 _split(tp, mixer))
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
                                   ctx["positions"], kind=_self_kind(mixer),
@@ -393,8 +397,10 @@ class Stack(nn.Module):
 
     def leaf_blocks(self):
         """Each layer parameter's block, keyed by its path under the stack:
-        the mixer kind for ``mixer.*``, the MLP kind for ``mlp.*``, None
-        for the rest (norms, cross-attention)."""
+        the mixer kind for ``mixer.*``, the MLP kind for ``mlp.*`` but
+        "shared" for an MoE layer's shared experts (``mlp.shared.*``,
+        whose leaf names are the routed experts'), None for the rest
+        (norms, cross-attention)."""
         out = {}
         for sec, kinds in (("head", self.head_kinds),
                            ("core", self.period_kinds),
@@ -403,7 +409,9 @@ class Stack(nn.Module):
                 block = {"mixer": mixer, "mlp": mlpk}
                 for path, _ in flatten_paths(layer_def(self.cfg,
                                                        (mixer, mlpk))):
-                    out[f"{sec}.{i}.{path}"] = block.get(path.split(".")[0])
+                    out[f"{sec}.{i}.{path}"] = (
+                        "shared" if path.startswith("mlp.shared.")
+                        else block.get(path.split(".")[0]))
         return out
 
     def cache_defs(self, batch, capacity, dtype):
@@ -568,14 +576,15 @@ class LM(nn.Module):
                                     ("encoder", self.encoder))
                 if s is not None]
 
-    def tp_plan(self, size: int) -> part.TPPlan:
-        """What computes split over a model axis of ``size`` ranks
-        (``partition.tp_plan`` of this model's mixers and dense MLPs)."""
+    def tp_plan(self, size: int, rules=None) -> part.TPPlan:
+        """What computes split over a model axis of ``size`` ranks under
+        ``rules`` (default: the active ones): ``partition.tp_plan`` of this
+        model's mixers, dense MLPs and shared experts."""
         kinds = [k for _, s in self._stacks() for k in s.kinds]
         dense = any(mlpk == "dense" for _, mlpk in kinds)
         return part.tp_plan(self.cfg, [m for m, _ in kinds],
                             _mlp_width(self.cfg, "dense") if dense else 0,
-                            size)
+                            size, rules)
 
     def leaf_blocks(self):
         """Each parameter path's block for ``partition.compute_axis``:
@@ -708,17 +717,18 @@ class LM(nn.Module):
 
     def cache_layouts(self, mesh, batch, capacity, rules=None):
         """Each split-able mixer kind's (``partition.TP_MIXERS``) cache
-        layout on ``mesh`` (``partition.cache_layout`` of its ``k``) for a
-        global ``batch`` at ``capacity``: what ``sharding.tp.region``
-        takes for a serving call."""
+        layout on ``mesh`` (``partition.cache_layout`` of its ``k``, or
+        MLA's ``ckv``) for a global ``batch`` at ``capacity``: what
+        ``sharding.tp.region`` takes for a serving call."""
         out = {}
         for kind in self.decoder.kinds:
             mixer = kind[0]
             if mixer in part.TP_MIXERS and mixer not in out:
-                k = layer_cache_def(self.cfg, kind, batch, capacity,
-                                    self.compute_dtype)["k"]
+                leaf = "ckv" if mixer == "mla" else "k"
+                t = layer_cache_def(self.cfg, kind, batch, capacity,
+                                    self.compute_dtype)[leaf]
                 out[mixer] = part.cache_layout(
-                    layer_cache_axes(self.cfg, kind)["k"], k.shape, mesh,
+                    layer_cache_axes(self.cfg, kind)[leaf], t.shape, mesh,
                     rules)
         return out
 

@@ -51,6 +51,13 @@ The expert weights' gradients are their local shards'. The router's and
 the shared experts' are partial: each rank's comes from its token slice,
 and the train step sums them over the expert axis (``ep_partial``), as
 the transpose of ``shard_map``'s replicated ``in_specs`` does in JAX.
+Inside a tensor-parallel region whose plan splits the shared experts
+(``sharding.tp``; ``moe_apply``'s ``tp``) they run outside the exchange
+instead, as the reference's run outside its ``shard_map`` under GSPMD: on
+all of the block's tokens, by this rank's ffn columns of ``wi_gate``/
+``wi_up`` and rows of ``wo``, the input entering by ``copy_to`` and the
+output summed by ``reduce_from``; their gradients are then their shards'
+whole ones, and ``ep_partial`` no longer names them.
 ``aux`` is averaged over the batch axes and the expert axis; its backward
 scales by 1 / (expert-axis size), so that the train step's mean over the
 batch axes and sum over the expert axis give the gradient of the one
@@ -66,6 +73,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef
 from repro_torch.sharding import partition as part
+from repro_torch.sharding import tp as TP
 
 
 def moe_def(cfg: ModelConfig):
@@ -155,10 +163,16 @@ def _count(key, n):
         _drops[key] = _drops.get(key, 0) + n
 
 
-def _shared(p, xf):
+def _shared(p, xf, tp=None):
+    """The shared experts on ``xf`` [T,D]; under ``tp`` (a
+    ``sharding.tp.Region`` whose plan splits them) this rank's ffn columns
+    and rows, summed over the model axis."""
     sp, dt = p["shared"], xf.dtype
+    if tp is not None:
+        xf = TP.copy_to(xf, tp)
     h = F.silu(xf @ sp["wi_gate"].to(dt)) * (xf @ sp["wi_up"].to(dt))
-    return h @ sp["wo"].to(dt)
+    y = h @ sp["wo"].to(dt)
+    return y if tp is None else TP.reduce_from(y, tp)
 
 
 def expert_axis(cfg: ModelConfig):
@@ -172,10 +186,12 @@ def expert_axis(cfg: ModelConfig):
     return ax if size > 1 and cfg.moe.num_experts % size == 0 else None
 
 
-def ep_partial(path: str) -> bool:
+def ep_partial(path: str, plan=None) -> bool:
     """Whether a parameter's gradient under EP is partial over the expert
-    axis: an MoE layer's router and shared experts."""
-    return path.endswith(".mlp.router") or ".mlp.shared." in path
+    axis: an MoE layer's router, and its shared experts unless ``plan``
+    (a ``partition.TPPlan``) splits them."""
+    return path.endswith(".mlp.router") or (
+        ".mlp.shared." in path and not (plan is not None and plan.shared))
 
 
 def ep_context(cfg: ModelConfig):
@@ -193,18 +209,27 @@ def ep_context(cfg: ModelConfig):
 ACTIVE = object()     # moe_apply's default: read the active mesh
 
 
-def moe_apply(cfg: ModelConfig, p, x, ep=ACTIVE):
+def moe_apply(cfg: ModelConfig, p, x, ep=ACTIVE, tp=None):
     """x: [B,S,D] -> (y [B,S,D], aux loss, a scalar fp32). Takes the EP
     path over ``ep`` (``ep_context``'s value; by default the caller's
-    active mesh, read here), else the local path (``ep`` None)."""
+    active mesh, read here), else the local path (``ep`` None). With
+    ``tp`` (a ``sharding.tp.Region`` whose plan splits the shared experts)
+    the shared experts run split on all of ``x``'s tokens, beside either
+    path (the module's docstring)."""
     if ep is ACTIVE:
         ep = ep_context(cfg)
+    inner = tp is None
     if ep is not None:
-        return _moe_ep(cfg, p, x, *ep)
-    return _moe_local(cfg, p, x)
+        y, aux = _moe_ep(cfg, p, x, *ep, shared=inner)
+    else:
+        y, aux = _moe_local(cfg, p, x, shared=inner)
+    if not inner and cfg.moe.num_shared > 0:
+        B, S, D = x.shape
+        y = y + _shared(p, x.reshape(B * S, D), tp).reshape(B, S, D)
+    return y, aux
 
 
-def _moe_local(cfg: ModelConfig, p, x):
+def _moe_local(cfg: ModelConfig, p, x, shared=True):
     m = cfg.moe
     B, S, D = x.shape
     dt = x.dtype
@@ -234,7 +259,7 @@ def _moe_local(cfg: ModelConfig, p, x):
     contrib = torch.empty((T * K, D), dtype=dt, device=x.device)
     contrib[order] = flat[dest] * w[:, None]                   # unsorted slots
     y = contrib.reshape(T, K, D).sum(1)
-    if m.num_shared > 0:
+    if shared and m.num_shared > 0:
         y = y + _shared(p, xf)
     return y.reshape(B, S, D), aux
 
@@ -313,11 +338,13 @@ def _local_experts(w, idx, E_loc):
     return w[idx * E_loc:(idx + 1) * E_loc] if w.shape[0] != E_loc else w
 
 
-def _moe_ep(cfg: ModelConfig, p, x, mesh, rules, expert_axis):
+def _moe_ep(cfg: ModelConfig, p, x, mesh, rules, expert_axis, shared=True):
     """The reference's ``_moe_ep`` on this rank. ``x`` [B,S,D] is this
     rank's activations (its batch slice; the same on every rank of the
     expert axis); expert weights are the full ``[E, ...]`` tensors or this
-    rank's ``[E/n, ...]`` shard. Returns (y [B,S,D], aux)."""
+    rank's ``[E/n, ...]`` shard. The shared experts run on this rank's
+    token slice where ``shared`` (else the caller adds them). Returns
+    (y [B,S,D], aux)."""
     import torch.distributed as dist
     import torch.distributed.nn.functional as dnn
     m = cfg.moe
@@ -397,7 +424,7 @@ def _moe_ep(cfg: ModelConfig, p, x, mesh, rules, expert_axis):
     contrib = torch.empty((T * K, D), dtype=dt, device=x.device)
     contrib[order] = flat_ret[dest] * w[:, None]               # unsorted slots
     y = contrib.reshape(T, K, D).sum(1)
-    if m.num_shared > 0:
+    if shared and m.num_shared > 0:
         y = y + _shared(p, xf)
     # gather the token slices back from every rank of the expert axis
     y_all = _TokenGather.apply(y, T_all, idx, group)

@@ -26,7 +26,8 @@ remesh_state`` places them), and ``make_train_step``'s step:
   inside the tensor-parallel region (``sharding.tp``);
 * brings each gradient back to its leaf's placement: summed over the
   batch axes and divided by their size (a mean), summed over the expert
-  axis for the leaves ``moe.ep_partial`` names and over the model axis for
+  axis for the leaves ``moe.ep_partial`` names (the router, and the shared
+  experts where they compute gathered) and over the model axis for
   those ``partition.partial_over_model`` names (``q_norm``/``k_norm``, and
   gathered ``wk``/``wv``, used by this rank's heads only), then this
   rank's shard. A split leaf's gradient is its shard's already; the norms
@@ -256,11 +257,12 @@ def _ep_dim(lm, mesh):
     return list(part.axis_sizes(mesh)).index(ep) if ep else None
 
 
-def tp_plan(lm, mesh):
-    """The LM's tensor-parallel plan on ``mesh``'s model axis, or None when
-    the mesh has none or it is of size 1."""
+def tp_plan(lm, mesh, rules=None):
+    """The LM's tensor-parallel plan on ``mesh``'s model axis under
+    ``rules`` (default: the active ones), or None when the mesh has no
+    model axis or it is of size 1."""
     size = part.axis_sizes(mesh).get(part.TP_AXIS, 1)
-    return lm.tp_plan(size) if size > 1 else None
+    return lm.tp_plan(size, rules) if size > 1 else None
 
 
 def _compute_placements(lm, mesh, plan=None):
@@ -400,7 +402,7 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
     from repro_torch.sharding import tp as TP
     from torch.distributed.tensor import Partial
     ep_dim = _ep_dim(lm, mesh)
-    plan = tp_plan(lm, mesh)
+    plan = tp_plan(lm, mesh, rules)
     blocks = lm.leaf_blocks()
     params = dict(lm.named_parameters())
     compute_placements = _compute_placements(lm, mesh, plan)
@@ -419,7 +421,7 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
             dt = state["params"][n]
             pl = compute_placements(n, dt)
             partial = list(dims) + ([ep_dim] if ep_dim is not None and
-                                    MOE.ep_partial(n) else [])
+                                    MOE.ep_partial(n, plan) else [])
             if part.partial_over_model(plan, blocks.get(n),
                                        n.rsplit(".", 1)[-1]):
                 partial.append(tp_dim)

@@ -14,9 +14,11 @@ Storage is not compute. ``resolve`` checks divisibility on a flattened
 dimension, so gemma3-1b's ``wk`` (one kv head of 256) is stored split
 inside its head on a model axis of 4. How the train step *computes* a
 leaf over ``TP_AXIS`` is decided by whole units instead (``tp_plan`` and
-``compute_axis``): attention by heads, the dense MLP by ffn columns, the
-embedding, head and cross-entropy by vocabulary rows; every other leaf is
-gathered whole. A split block's decode cache is the other way round: it
+``compute_axis``), where the active rules put the unit's logical axis on
+``TP_AXIS``: attention and MLA by heads, the dense MLP and an MoE layer's
+shared experts by ffn columns, the embedding, head and cross-entropy by
+vocabulary rows; the routed experts keep their EP shard and every other
+leaf is gathered whole. A split block's decode cache is the other way round: it
 stays at its storage spec, and ``cache_layout`` says which mesh axes that
 puts on its sequence and its kv heads.
 
@@ -90,54 +92,83 @@ class NamedSharding(NamedTuple):
 
 
 # the mesh axis tensor-parallel compute splits over, and the mixers it
-# splits (the other mixers, ssm, rec, mla, enc and xdec, compute gathered)
+# splits by heads (the other mixers, ssm, rec, enc and xdec, compute
+# gathered)
 TP_AXIS = "model"
-TP_MIXERS = ("attn", "local")
+TP_MIXERS = ("attn", "local", "mla")
 
 
 class TPPlan(NamedTuple):
     """Which blocks of a model compute split over ``TP_AXIS`` of ``size``
     ranks (``tp_plan``)."""
     size: int
-    heads: bool     # attn/local mixers: wq and wo by heads
+    heads: bool     # attn/local: wq and wo by heads; mla: wq_b/wq, wkv_b, wo
     kv: bool        # wk/wv by kv heads too (else gathered)
     ffn: bool       # dense MLPs by ffn columns (wi*) and rows (wo)
     vocab: bool     # embed and head by vocabulary rows
+    shared: bool    # MoE shared experts by ffn columns (wi*) and rows (wo)
 
 
-def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int) -> TPPlan:
+def _on_model(rules, logical: str) -> bool:
+    """Whether ``rules`` put the logical axis on ``TP_AXIS``."""
+    axis = rules.get(logical)
+    return axis == TP_AXIS or (isinstance(axis, tuple) and TP_AXIS in axis)
+
+
+def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int,
+            rules: Optional[Dict[str, Axis]] = None) -> TPPlan:
     """The compute plan of a model with layer ``mixers`` and dense MLPs of
-    ``dense_width`` (0: none) on a model axis of ``tp`` ranks. A block
-    splits only where its unit divides the axis: attention when
-    ``num_heads % tp == 0`` (wk/wv only when ``num_kv_heads % tp == 0``,
-    else each rank projects the kv heads its q heads read from the whole
-    wk/wv), the MLP when ``dense_width % tp == 0``, the vocabulary when
-    ``padded_vocab % tp == 0`` and some layer block splits (a model none
-    of whose layers split, mamba2-2.7b's, computes wholly gathered). The
-    MoE families (deepseek-moe-16b, deepseek-v2-236b) split nothing yet:
-    EP beside gathered compute, as before (ROADMAP Queue 1 item 4c)."""
-    tp = int(tp) if cfg.moe is None else 1
-    heads = tp > 1 and any(m in TP_MIXERS for m in mixers) and \
-        cfg.num_heads % tp == 0
+    ``dense_width`` (0: none) on a model axis of ``tp`` ranks, under
+    ``rules`` (default: the active ones). A block splits only where the
+    rules put its logical axis on ``TP_AXIS`` ("heads" for the mixers,
+    "ffn" for the MLPs, "vocab" for the embedding and head), as the
+    reference's GSPMD splits a leaf only there, and only where its unit
+    divides the axis: attention when ``num_heads % tp == 0`` (wk/wv only
+    when ``num_kv_heads % tp == 0``, else each rank projects the kv heads
+    its q heads read from the whole wk/wv), the MLP when ``dense_width %
+    tp == 0``, an MoE layer's shared experts when ``num_shared *
+    d_ff_expert % tp == 0`` (the routed experts stay on EP), the
+    vocabulary when ``padded_vocab % tp == 0`` and some layer block splits
+    (a model none of whose layers split, mamba2-2.7b's, computes wholly
+    gathered)."""
+    rules = _active()[1] if rules is None else dict(DEFAULT_RULES, **rules)
+    tp = int(tp)
+    heads = tp > 1 and _on_model(rules, "heads") and \
+        any(m in TP_MIXERS for m in mixers) and cfg.num_heads % tp == 0
     kv = heads and cfg.num_kv_heads % tp == 0
-    ffn = tp > 1 and dense_width > 0 and dense_width % tp == 0
-    vocab = (heads or ffn) and cfg.padded_vocab % tp == 0
-    return TPPlan(tp, heads, kv, ffn, vocab)
+    ffn_on = tp > 1 and _on_model(rules, "ffn")
+    ffn = ffn_on and dense_width > 0 and dense_width % tp == 0
+    moe = cfg.moe
+    shared = ffn_on and moe is not None and moe.num_shared > 0 and \
+        (moe.num_shared * moe.d_ff_expert) % tp == 0
+    vocab = (heads or ffn or shared) and _on_model(rules, "vocab") and \
+        cfg.padded_vocab % tp == 0
+    return TPPlan(tp, heads, kv, ffn, vocab, shared)
+
+
+_MLA_SPLIT = ("wq", "wq_b", "wkv_b", "wo")
 
 
 def compute_axis(plan: Optional[TPPlan], block: Optional[str],
                  leaf: str) -> Optional[str]:
     """How the train step computes a leaf: the logical axis it is split on
     over ``TP_AXIS`` ("heads", "ffn" or "vocab"), or None for gathered.
-    ``block`` is the leaf's block: a mixer kind, "dense" or "moe" for an
-    MLP, "vocab" for ``embed``/``head``, None for the rest (norms,
-    cross-attention)."""
+    ``block`` is the leaf's block: a mixer kind, "dense" or "moe" (the
+    routed experts and router, never split) for an MLP, "shared" for an
+    MoE layer's shared experts, "vocab" for ``embed``/``head``, None for
+    the rest (norms, cross-attention). MLA splits ``wq_b`` (or ``wq``),
+    ``wkv_b`` and ``wo`` by heads; its ``wq_a``, ``wkv_a`` and norms act
+    ahead of the split and are gathered."""
     if plan is None:
         return None
-    if block in TP_MIXERS and plan.heads:
+    if block == "mla" and plan.heads:
+        if leaf in _MLA_SPLIT:
+            return "heads"
+    elif block in TP_MIXERS and plan.heads:
         if leaf in ("wq", "wo") or (leaf in ("wk", "wv") and plan.kv):
             return "heads"
-    elif block == "dense" and plan.ffn:
+    elif (block == "dense" and plan.ffn) or (block == "shared" and
+                                             plan.shared):
         if leaf in ("wi_gate", "wi_up", "wi", "wo"):
             return "ffn"
     elif block == "vocab" and plan.vocab:
@@ -148,13 +179,15 @@ def compute_axis(plan: Optional[TPPlan], block: Optional[str],
 def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
                        leaf: str) -> bool:
     """Whether a gathered leaf's gradient is partial over ``TP_AXIS``: it
-    is used by this rank's heads only (``q_norm``/``k_norm``, and
-    ``wk``/``wv`` when gathered), so the train step sums it over the
-    axis. The norms ahead of a split block get whole gradients (the
-    copy-to-region's all-reduce) and are not summed."""
-    return (plan is not None and block in TP_MIXERS and plan.heads and
-            (leaf in ("q_norm", "k_norm") or
-             (leaf in ("wk", "wv") and not plan.kv)))
+    is used by this rank's heads only (``q_norm``/``k_norm`` of an
+    ``attn``/``local`` mixer, and ``wk``/``wv`` when gathered), so the
+    train step sums it over the axis. The norms ahead of a split block get
+    whole gradients (the copy-to-region's all-reduce) and are not summed;
+    so do MLA's ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm``, which act
+    ahead of its copy-to-region."""
+    return (plan is not None and block in ("attn", "local") and plan.heads
+            and (leaf in ("q_norm", "k_norm") or
+                 (leaf in ("wk", "wv") and not plan.kv)))
 
 
 class CacheLayout(NamedTuple):

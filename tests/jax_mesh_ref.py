@@ -15,7 +15,8 @@ the first), ``specs`` (``launch.specs.input_specs`` of the cells in
 ``flops`` (per-device FLOPs of each cell in ``cases.json``, smoke configs,
 by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run) and
 ``tp`` (GSPMD on the cases of ``cases.json``, [model, arch, config
-overrides, mesh shape, key]: the weights ``<model>.<path>`` placed at their
+overrides (a ``moe`` entry a dict of ``MoEConfig`` fields), mesh
+shape, key]: the weights ``<model>.<path>`` placed at their
 specs, the batch at its spec; the logits and one AdamW step, whose ``m``
 is (1 - b1) times each leaf's clipped gradient, in one jitted call per
 case, written under the case's key) and ``serve`` (GSPMD serving cells
@@ -62,6 +63,18 @@ def _flat(tree):
     import jax
     return {_dotted(kp): np.asarray(x) for kp, x in
             jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _smoke(arch, over):
+    """The reference's smoke config of ``arch`` with ``over``; its ``moe``
+    entry, a dict, replaces those fields of the config's ``MoEConfig``."""
+    import dataclasses
+    from repro.configs.base import get_smoke_config
+    cfg = get_smoke_config(arch)
+    over = dict(over)
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
+    return cfg.replace(**over)
 
 
 def job_indices(d):
@@ -212,7 +225,6 @@ def job_tp(d):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
-    from repro.configs.base import get_smoke_config
     from repro.models.model import LM
     from repro.optim import adamw
     from repro.sharding import partition as part
@@ -222,7 +234,7 @@ def job_tp(d):
     opt = adamw.OptConfig(**json.loads(str(z["opt"])))
     out = {}
     for name, arch, over, mshape, i in cases:
-        lm = LM(get_smoke_config(arch).replace(**over))
+        lm = LM(_smoke(arch, over))
         pre = f"{name}."
         params = _tree_from({k[len(pre):]: v for k, v in z.items()
                              if k.startswith(pre)},
@@ -262,7 +274,7 @@ def job_serve(d):
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
-    from repro.configs.base import ShapeConfig, get_smoke_config
+    from repro.configs.base import ShapeConfig
     from repro.launch import specs
     from repro.models.model import LM
     from repro.sharding import partition as part
@@ -271,7 +283,7 @@ def job_serve(d):
         cases = json.load(f)
     out, indices = {}, {}
     for key, arch, over, mshape, B, cap in cases:
-        cfg = get_smoke_config(arch).replace(**over)
+        cfg = _smoke(arch, over)
         lm = LM(cfg)
         pre = f"{key}.p."
         params = _tree_from({k[len(pre):]: v for k, v in z.items()

@@ -1,8 +1,10 @@
 """``repro_torch.launch.dryrun`` on small meshes and through its CLI: the
 reference's JSONL record on both production meshes, the port's
 tensor-parallel compute of train and serving cells (on (2, 4) each rank
-does (2, 1)'s FLOPs less 3/4 of the split blocks'; a model none of whose
-layers split still computes gathered, ROADMAP Queue 1 item 4c),
+does (2, 1)'s FLOPs less 3/4 of the split blocks'; the MoE families' do
+their gathered (2, 4) step's less 3/4 of theirs, the routed experts on EP
+in both; a model none of whose layers split still computes gathered,
+ROADMAP Queue 1 item 4c),
 and a train cell traced with the ``OptConfig`` it is given."""
 import json
 
@@ -64,8 +66,45 @@ def _serve_flops(cfg, B, S, kind):
     return cfg.num_layers * (proj + core + mlp) + 2 * B * D * V
 
 
+def _moe_split_flops(cfg, B, S, kind):
+    """The matmul FLOPs of the MoE families' split blocks on one rank
+    computing them whole, B sequences: per layer the attention (q/k/v/o,
+    or MLA's ``wq_b``, ``wkv_b``, ``wo`` and its two products at head dim
+    ``qk_nope + qk_rope``; a decode step's absorbed products, ``q_eff``,
+    the scores and the context over S slots and ``w_v``), the dense layer
+    0's MLP and the head, counted as ``_split_flops`` and ``_serve_flops``
+    count them. The shared experts are not among them: gathered beside EP
+    they run on the rank's quarter of the tokens, split on every token at
+    a quarter of the width, the same FLOPs."""
+    D, V, H, Fd = cfg.d_model, cfg.padded_vocab, cfg.num_heads, \
+        cfg.moe.d_ff_dense
+    T, Sq = (B * S, S) if kind != "decode" else (B, 1)
+    m = cfg.mla
+    if m is None:
+        proj = 2 * T * D * (cfg.q_dim + 2 * cfg.kv_dim) + \
+            2 * T * cfg.q_dim * D
+        core = 2 * 2 * B * H * Sq * S * cfg.head_dim
+    else:
+        L, v, nope = m.kv_lora_rank, m.v_head_dim, m.qk_nope_head_dim
+        qk = nope + m.qk_rope_head_dim
+        proj = 2 * T * m.q_lora_rank * H * qk + 2 * T * H * v * D
+        if kind != "decode":
+            proj += 2 * T * L * H * (nope + v)
+            core = 2 * 2 * B * H * Sq * S * qk
+        else:
+            proj += 2 * B * H * nope * L + 2 * B * H * L * v
+            core = 2 * B * H * S * (L + m.qk_rope_head_dim) + \
+                2 * B * H * S * L
+    mlp = 3 * 2 * T * D * Fd
+    if kind == "train":
+        return cfg.num_layers * 4 * (proj + core) + 4 * mlp - \
+            2 * T * Fd * D + 3 * 2 * T * D * V
+    return cfg.num_layers * (proj + core) + mlp + 2 * B * D * V
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b",
+                                  "deepseek-moe-16b", "deepseek-v2-236b"])
 def test_model_axis_splits_the_train_compute(arch, kind):
     """deepseek-7b on (2, 4): each rank does (2, 1)'s FLOPs less 3/4 of
     its attention's, MLPs' and head's, which are all of them: in the train
@@ -73,9 +112,20 @@ def test_model_axis_splits_the_train_compute(arch, kind):
     decode step attends every head over its quarter of the cache, whose
     sequence is split over "model"). Every step of mamba2-2.7b (no layer
     block splits, so neither does its vocabulary) computes gathered: (2,
-    4) does (2, 1)'s FLOPs."""
+    4) does (2, 1)'s FLOPs. The MoE families on (2, 4) do the FLOPs of the
+    same step with "heads", "ffn" and "vocab" kept off "model" (EP beside
+    gathered compute: the routed experts as in the split step) less 3/4
+    of their split blocks' (``_moe_split_flops``)."""
     cfg = TB.get_smoke_config(arch)
     shape = TB.ShapeConfig("cell", 128, 8, kind)
+    if cfg.moe is not None:
+        split, gathered = (dryrun.run_cell(
+            cfg, shape, mesh_shape=(2, 4), verbose=False, rules=rules)
+            ["cost"]["flops_per_dev"] for rules in (
+                None, {"heads": None, "ffn": None, "vocab": None}))
+        assert split == gathered - 3 * _moe_split_flops(cfg, 4, 128,
+                                                        kind) / 4
+        return
     f = {m: dryrun.run_cell(cfg, shape, mesh_shape=m, verbose=False)
          ["cost"]["flops_per_dev"] for m in ((2, 4), (2, 1), (8, 1))}
     assert f[(2, 1)] == 4 * f[(8, 1)]

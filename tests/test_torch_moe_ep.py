@@ -44,6 +44,10 @@ LOW_CFS = (0.5, 1.25)  # capacity factors at which copies drop
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 MOE_KEYS = ("router", "wi_gate", "wi_up", "wo", "shared.wi_gate",
             "shared.wi_up", "shared.wo")
+# the train steps' rules: EP beside gathered compute (the reference's rules
+# with "heads", "ffn" and "vocab" off "model"), what these steps hold; EP
+# beside the default split is tests/test_torch_tp_moe.py's
+GATHERED = {"heads": None, "ffn": None, "vocab": None}
 
 
 def _cfg(aux_weight=None, cf=8.0):
@@ -79,12 +83,12 @@ def _inputs():
 
 
 def _train(lm, z, mesh=None):
-    """Two AdamW steps of ``lm`` on the batches of ``z``; on ``mesh`` from
-    the state placed by ``remesh_state``. -> (metrics per step, params,
-    ``m`` after the first step)."""
+    """Two AdamW steps of ``lm`` on the batches of ``z``; on ``mesh`` (under
+    the ``GATHERED`` rules) from the state placed by ``remesh_state``.
+    -> (metrics per step, params, ``m`` after the first step)."""
     state = adamw.init_state(lm)
     opt = adamw.OptConfig(**OPT)
-    ctx = part.activate(mesh) if mesh is not None else None
+    ctx = part.activate(mesh, GATHERED) if mesh is not None else None
     if ctx is not None:
         ctx.__enter__()
     try:

@@ -368,7 +368,7 @@ def test_split_mlps_beside_gathered_mixers(runs, case):
     ("gqa", 4, (True, False, True, True)),            # 2 kv heads
     ("gqa", 2, (True, True, True, True)),
     ("mamba2-2.7b", 4, (False, False, False, False)),   # no split layer
-    ("deepseek-moe-16b", 4, (False, False, False, False)),   # EP alone
+    ("deepseek-moe-16b", 4, (True, True, True, True)),   # beside EP
     ("seamless-m4t-large-v2", 4, (False, False, True, True)),
 ])
 def test_the_plan_splits_whole_units(model, tp, want):

@@ -1,17 +1,19 @@
 """Tensor parallelism beside expert parallelism, held in float64.
 
-The MoE families train with EP beside gathered attention and dense MLPs:
-``partition.tp_plan`` splits nothing for them (ROADMAP Queue 1 item 4c).
-With their attention and dense layers split, the deepseek-moe-16b smoke
-model's two mesh steps in ``tests/test_torch_moe_ep.py`` move past that
-file's rtol of 1e-4 in float32. This file tells a fault of the split from
+The MoE families train with EP beside attention split by heads, dense
+MLPs and shared experts by ffn and the vocabulary by rows (the default
+rules), or beside gathered compute (rules that keep "heads", "ffn" and
+"vocab" off "model", ``GATHERED``). With the split, the deepseek-moe-16b
+smoke model's two mesh steps in ``tests/test_torch_moe_ep.py`` move past
+that file's rtol of 1e-4 in float32, which is why that file activates its
+mesh with ``GATHERED``. This file tells a fault of the split from
 float32's rounding: a float64 copy of the port (``tests/encdec_grad_norm.py``'s
 ``float64_port``) takes the same two AdamW steps of the deepseek-moe-16b
 smoke LM (aux weight 0 and capacity factor 8, as that file's unsharded
 comparison) on a (2, 2)
 ("data", "model") mesh of four gloo ranks, with EP alone and with the
-split turned on beside it, against its own unsharded steps. The float32
-port runs the same three codes beside it, for the readings.
+split beside it, against its own unsharded steps. The float32
+port runs the same codes beside it, for the readings.
 
     PYTHONPATH=src python tests/test_torch_tp_ep.py   # prints the readings
 """
@@ -36,6 +38,9 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)   # test_torch_moe_ep's
 MESH = (2, 2)
 CF = 8.0            # no copy drops on either path, as that file's steps
 F64_REL = 1e-10     # float64: loss, grad_norm, m after step 1, params
+# rules that keep the compute gathered beside EP, as the reference's GSPMD
+# computes a leaf whose logical axis is not on "model"
+GATHERED = {"heads": None, "ffn": None, "vocab": None}
 
 
 def _inputs():
@@ -52,9 +57,10 @@ def _inputs():
 
 def _steps(pkg, weights, batches, mesh_shape=None, split=False):
     """Two AdamW steps of package ``pkg``'s smoke LM from ``weights``;
-    on ``mesh_shape`` with EP, and with the MoE families' attention and
-    dense layers split over "model" where ``split``. -> (metrics per
-    step, params, ``m`` after step 1), whole tensors in float64."""
+    on ``mesh_shape`` with EP, beside the compute split over "model" (the
+    default rules) where ``split``, else gathered (``GATHERED``).
+    -> (metrics per step, params, ``m`` after step 1), whole tensors in
+    float64."""
     base = importlib.import_module(f"{pkg}.configs.base")
     LM = importlib.import_module(f"{pkg}.models.model").LM
     adamw = importlib.import_module(f"{pkg}.optim.adamw")
@@ -70,31 +76,26 @@ def _steps(pkg, weights, batches, mesh_shape=None, split=False):
     with torch.no_grad():
         for n, p in lm.named_parameters():
             p.copy_(torch.from_numpy(weights[n]))
-    plan = part.tp_plan
-    if split:           # the plan with the MoE families' exclusion lifted
-        part.tp_plan = lambda c, mixers, width, tp: plan(
-            c.replace(moe=None), mixers, width, tp)
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu") \
         if mesh_shape else None
     state = adamw.init_state(lm)
     whole = (lambda t: t.full_tensor()) if mesh else (lambda t: t)
     mets = []
-    try:
-        with (part.activate(mesh) if mesh else contextlib.nullcontext()):
-            if mesh:
-                state = remesh(state, adamw.state_logical(lm), None, mesh)
-                assert adamw.tp_plan(lm, mesh).heads == split
-            step = adamw.make_train_step(lm, adamw.OptConfig(**OPT))
-            for i, b in enumerate(batches):
-                state, m = step(state, {"tokens": torch.from_numpy(b).long()})
-                mets.append({k: float(v) for k, v in m.items()})
-                if i == 0:
-                    m1 = {n: whole(t).detach().double().clone()
-                          for n, t in state["m"].items()}
-            params = {n: whole(t).detach().double().clone()
-                      for n, t in state["params"].items()}
-    finally:
-        part.tp_plan = plan
+    with (part.activate(mesh, None if split else GATHERED) if mesh
+          else contextlib.nullcontext()):
+        if mesh:
+            state = remesh(state, adamw.state_logical(lm), None, mesh)
+            plan = adamw.tp_plan(lm, mesh)
+            assert plan.heads == plan.ffn == plan.shared == split
+        step = adamw.make_train_step(lm, adamw.OptConfig(**OPT))
+        for i, b in enumerate(batches):
+            state, m = step(state, {"tokens": torch.from_numpy(b).long()})
+            mets.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                m1 = {n: whole(t).detach().double().clone()
+                      for n, t in state["m"].items()}
+        params = {n: whole(t).detach().double().clone()
+                  for n, t in state["params"].items()}
     return mets, params, m1
 
 
@@ -154,7 +155,8 @@ def read(tmp_path_factory):
 @pytest.mark.parametrize("code", ["ep", "ep_tp"])
 def test_the_split_beside_ep_is_exact_in_float64(read, code):
     """In float64 the (2, 2) mesh's two steps, EP alone and EP beside the
-    split attention and dense MLP, equal the unsharded steps to F64_REL:
+    split attention, dense MLP, shared experts and vocabulary, equal the
+    unsharded steps to F64_REL:
     loss and grad_norm at both steps (relative), ``m`` after step 1 leaf
     by leaf (relative L2) and every param (absolute; float32 parts them
     by up to 2 x the summed lr, 3e-3)."""
