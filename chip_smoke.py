@@ -155,20 +155,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
              recompute, timed on its own), with its scan's witness (the
              plain scan in other chunks, or in pieces carried through h0)
              and control (the carry dropped) in the step-1 gate:
-             ``train-mamba`` (mamba2-2.7b at 32 of its 64 layers, fp32 twin
+             ``train-mamba`` (mamba2-2.7b at 16 of its 64 layers, fp32 twin
              at 2) and ``train-rg`` (recurrentgemma-9b at 2 of its (rec,
              rec, local) periods, 6 layers, the windowed flash kernels too;
              fp32 twin one period).
              Then the other attention archs, with their flash backwards at
              head dims 256 and 64 and the non-causal ones: ``train-gemma``
              (gemma-7b at 9 of 28 layers, 3.278 B params, tied 256000-wide
-             head; twin 2), ``train-stablelm`` (stablelm-1.6b at 12 of 24
+             head; twin 2), ``train-stablelm`` (stablelm-1.6b at 6 of 24
              layers; twin 2), ``train-gemma3`` (gemma3-1b at 13 of 26
              layers: windowed MQA at head dim 256, window 512; twin one
              period of 6), ``train-vlm`` (internvl2-76b at 1 of 80 layers,
              256 seeded vision embeds ahead of 1792 tokens; twin 1) and
-             ``train-encdec`` (seamless-m4t-large-v2 at 12 of 24 encoder
-             and 12 of 24 decoder layers over 2048 seeded frames, 36 flash
+             ``train-encdec`` (seamless-m4t-large-v2 at 6 of 24 encoder
+             and 6 of 24 decoder layers over 2048 seeded frames, 18 flash
              forwards a forward; its bf16 gate at 2 + 2 layers, twin 1 +
              1).
   roofline — per train path: the reference's model FLOPs (6 N D) at the
@@ -201,11 +201,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
              ``launch.specs.build_fn``: 4 prompts (2048 down to 256)
              prefilled into caches of 2304 slots kept at their storage
              shards (deepseek-7b's by kv heads, gemma3-1b's MQA cache and
-             ring by sequence), 8 decode steps; fp32 greedy tokens equal
+             ring by sequence), 4 decode steps; fp32 greedy tokens equal
              to the unsharded run's, logits of every call within a limit
              between a witness and (bf16) a control; prefill and decode
              ms, peak and cache GiB per rank, the collectives a decode
-             step. Then the MoE families with EP and TP both over "model"
+             step. Then the scan mixers split over "model":
+             recurrentgemma-9b at one period (rec, rec, local; the RG-LRU
+             at [1,S,1024] a rank) and mamba2-2.7b at 4 layers (the SSD at
+             [1,S,20,64] a rank), trained in fp32 with the same gates but
+             their own controls (the RG-LRU block's all-reduce dropped; the
+             gated norm's sum over heads dropped), then served in bf16
+             teacher-forced over 4 decode steps with the bf16 serving gate
+             and the same controls, their caches at the reference's specs
+             (the RG-LRU's by channels, Mamba-2's state by heads and its
+             conv window's flat shard). Then the MoE families with EP and
+             TP both over "model"
              (capacity factor 8, each code replaying the unsharded run's
              routing): deepseek-moe-16b at 4 layers (1 dense + 3 MoE) and
              deepseek-v2-236b at its layer 0 (MLA at [1,S,32,192] a rank)
@@ -233,7 +243,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
              restored) caught; every flash launch on ``tc``; the stop,
              write and restore times, bytes on disk, the compressor.
 10. examples — ``repro_torch.examples``' quickstart, train_e2e
-             (``--steps 60``: a failure at 30, a restart from step 25,
+             (``--steps 30``: a failure at 28, a restart from step 25,
              held against the uninterrupted command as in ``ckpt``) and
              serve_batch, each ``main(device="cuda")`` in-process with its
              own checks and its FMA flash launches counted.
@@ -693,6 +703,9 @@ def phase_sweep_ssd():
              for dt in (torch.float32, torch.bfloat16) for v in variants]
     cases += [((1, S, 80, 64, 1, 128), torch.bfloat16, "D")
               for S in PROMPT_LENS]            # the main path's prefills
+    # dist-tp's: a rank's 20 of 80 heads, trained in fp32, served in bf16
+    cases += [((1, 2048, 20, 64, 1, 128), dt, "D")
+              for dt in (torch.float32, torch.bfloat16)]
     bad, worst = [], {}
     ran = {"tc": 0, "fma": 0}
     for seed, (shape, dt, var) in enumerate(cases):
@@ -770,9 +783,11 @@ def phase_timing_ssd():
     import torch
     from repro_torch.kernels import ssd
     rows = []
-    for S in (512, 2048):
-        shape = (1, S, 80, 64, 1, 128)
-        x, dtv, al, bm, cm, d, _ = rand_ssd(200 + S, *shape, torch.bfloat16)
+    # the served 80 heads at two lengths, then dist-tp's rank's 20
+    for S, H in ((512, 80), (2048, 80), (2048, 20)):
+        shape = (1, S, H, 64, 1, 128)
+        x, dtv, al, bm, cm, d, _ = rand_ssd(200 + S + H, *shape,
+                                            torch.bfloat16)
         kern = lambda: ssd.ssd_scan(x, dtv, al, bm, cm, D=d)  # noqa: E731
         plain = lambda: ssd.ssd_plain(x, dtv, al, bm, cm, D=d)  # noqa: E731
         err = (kern()[0].float() - plain()[0].float()).abs().max().item()
@@ -782,14 +797,14 @@ def phase_timing_ssd():
         ms2 = time_ms(kern, iters)
         host = host_ms(kern, iters)
         bound_ms, bound_by, flops, nbytes = ssd_bound(*shape, 2)
-        row = dict(S=S, kernel=ssd.kernel_for(x.dtype, 64, 128), ms=ms,
+        row = dict(S=S, H=H, kernel=ssd.kernel_for(x.dtype, 64, 128), ms=ms,
                    ms_repeat=ms2, plain_ms=plain_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    flops=flops, bytes=nbytes, max_abs_err=err,
                    tflops=flops / (ms * 1e-3) / 1e12,
                    share_of_bound=bound_ms / ms, host_ms_per_call=host)
         rows.append(row)
-        log(f"timing-ssd [1,{S},80,64] bf16 N=128 with D ({row['kernel']} "
+        log(f"timing-ssd [1,{S},{H},64] bf16 N=128 with D ({row['kernel']} "
             f"kernel): {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
             f"ms, no library call computes SSD, bound {bound_ms:.5f} ms "
             f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
@@ -821,6 +836,10 @@ def phase_sweep_rglru():
                                                                  "h0")]
     cases += [((1, S, 4096), torch.bfloat16, "none")
               for S in RG_PROMPT_LENS]     # recurrentgemma-9b's prefills
+    # dist-tp's: a rank's 1024 of 4096 channels, trained in fp32, served
+    # in bf16
+    cases += [((1, 2048, 1024), dt, "none")
+              for dt in (torch.float32, torch.bfloat16)]
     bad, worst = [], {}
     for seed, (shape, dt, var) in enumerate(cases):
         x, al, ga, gx, h0 = rand_rglru(seed, *shape, dt)
@@ -1178,8 +1197,9 @@ def phase_timing_rglru():
     import torch
     from repro_torch.kernels import rglru
     rows = []
-    for S in (512, 2048):
-        x, al, ga, gx, _ = rand_rglru(300 + S, 1, S, 4096, torch.bfloat16)
+    # the served width at two lengths, then dist-tp's rank's 1024 channels
+    for S, D in ((512, 4096), (2048, 4096), (2048, 1024)):
+        x, al, ga, gx, _ = rand_rglru(300 + S + D, 1, S, D, torch.bfloat16)
         kern = lambda: rglru.rglru_scan(x, al, ga, gx)  # noqa: E731
         plain = lambda: rglru.rglru_plain(x, al, ga, gx)  # noqa: E731
         err = (kern()[0].float() - plain()[0].float()).abs().max().item()
@@ -1188,16 +1208,16 @@ def phase_timing_rglru():
         plain_ms = time_ms(plain, max(iters // 4, 3))
         ms2 = time_ms(kern, iters)
         host = host_ms(kern, iters)
-        bound_ms, bound_by, ops, nbytes = rglru_bound(1, S, 4096, 2)
+        bound_ms, bound_by, ops, nbytes = rglru_bound(1, S, D, 2)
         T = rglru.CHUNK_STEPS
-        row = dict(S=S, chunk_steps=T, ms=ms, ms_repeat=ms2,
+        row = dict(S=S, D=D, chunk_steps=T, ms=ms, ms_repeat=ms2,
                    plain_ms=plain_ms,
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    ops=ops, bytes=nbytes, max_abs_err=err,
                    gb_per_s=nbytes / (ms * 1e-3) / 1e9,
                    share_of_bound=bound_ms / ms, host_ms_per_call=host)
         rows.append(row)
-        log(f"timing-rglru [1,{S},4096] bf16 (chunks of {T} steps): kernel "
+        log(f"timing-rglru [1,{S},{D}] bf16 (chunks of {T} steps): kernel "
             f"{ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, no "
             f"library call computes RG-LRU, bound {bound_ms:.5f} ms "
             f"({bound_by}; {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G fp32 "
@@ -1880,8 +1900,9 @@ def phase_logits_scan(lm):
 # plain code. The gates sit where correct codes read under the limits: 2
 # encoder layers, and 2 decoder layers (fp32: the whole decoder) over one
 # encoder output, the plain code's, given to every run; the fp32 encoder
-# after 12 of its layers
-ENC_GATE_LAYERS, ENC_GATE_LAYERS_FP32, DEC_GATE_LAYERS_ENCDEC = 2, 12, 2
+# after 6 of its layers (12 until dist-tp's scan paths took their time: at
+# 12 the kernel read 1.0e-3, the witness 9.9e-4, the control 0.86)
+ENC_GATE_LAYERS, ENC_GATE_LAYERS_FP32, DEC_GATE_LAYERS_ENCDEC = 2, 6, 2
 # the MoE paths' gates. Routing is discontinuous: a last-bit difference in
 # a layer's output can change a token's top-k experts or push a copy past
 # its expert's capacity, which moves that token by a whole expert's share.
@@ -2156,7 +2177,7 @@ SCAN_LOSS_REL_BF16 = 5e-4
 # the other attention-only archs. Tied embeddings (gemma-7b, gemma3-1b,
 # seamless-m4t): the embedding's gradient carries the head's, labelled
 # "head" so that it keeps the head's control (the off-by-one mask).
-# gemma-7b at 9 layers and stablelm-1.6b at 12 stack one core of 9 and 12
+# gemma-7b at 9 layers and stablelm-1.6b at 6 stack one core of 9 and 6
 # periods; the twins' 2 layers a core of 2, so GRAD_LEAVES' paths hold
 TIED_GRAD_LEAVES = dict(GRAD_LEAVES, head=("embed", None))
 # gemma3-1b: 2 core periods of (local x 5, attn) and a tail of 1 local
@@ -2177,7 +2198,7 @@ VLM_GRAD_LEAVES = {f"l0.{w}": (f"decoder.tail.0.mixer.{w}", None)
 VLM_GRAD_LEAVES["head"] = ("head", None)
 # seamless-m4t: the encoder's layer 0 (non-causal), the decoder's layer 0
 # self-attention (causal) and cross-attention (non-causal over the
-# frames); 12 + 12 layers stack two cores, the twin's 1 + 1 two tails
+# frames); 6 + 6 layers stack two cores, the twin's 1 + 1 two tails
 ENCDEC_GRAD_LEAVES = {f"{at}.{w}": (f"{stack}.core.0.{m}.{w}", 0)
                       for at, stack, m in (("enc0", "encoder", "mixer"),
                                            ("l0", "decoder", "mixer"),
@@ -2259,10 +2280,11 @@ TRAIN_PATHS = {
                       bf16_gated=tuple(MLA_GRAD_LEAVES),
                       grad_bf16=MLA_GRAD_REL_L2_BF16,
                       bf16_norm=(MOE_NORM_REL, "drops_delta")),
-    # mamba2-2.7b at 32 of its 64 layers (all 64 until dist-tp's MoE
-    # paths took their time; 2.703 B params, 40.3 GiB at 16 B/param); the
-    # SSD forward on the kernels, its backward by plain recompute
-    "train-mamba": dict(arch="mamba2-2.7b", label="train-mamba", layers=32,
+    # mamba2-2.7b at 16 of its 64 layers (all 64 until dist-tp's MoE
+    # paths took their time, 32 until its scan paths did; 2.703 B params,
+    # 40.3 GiB at 16 B/param at 64); the SSD forward on the kernels, its
+    # backward by plain recompute
+    "train-mamba": dict(arch="mamba2-2.7b", label="train-mamba", layers=16,
                         twin_layers=2, leaves=SCAN_GRAD_LEAVES,
                         twin_leaves=SCAN_GRAD_LEAVES, scan="ssd",
                         twin_norm=(SCAN_NORM_REL, "drops_carry"),
@@ -2293,13 +2315,13 @@ TRAIN_PATHS = {
                         bf16_gated=(), grad_bf16=None,
                         bf16_norm=(GEMMA_NORM_REL_BF16, "drops_diagonal"),
                         fp32_norm=False),
-    # stablelm-1.6b at 12 of its 24 layers (all 24 until dist-tp's MoE
-    # paths took their time): 1.024 B params; its bf16
+    # stablelm-1.6b at 6 of its 24 layers (all 24 until dist-tp's MoE
+    # paths took their time, 12 until its scan paths did); its bf16
     # gate at 6 layers (at 24 its grad_norm could not tell: the kernel
     # 0.044, the control 0.049; at 6 SDPA 0.043, the control 0.059): the
     # head and the loss
     "train-stablelm": dict(arch="stablelm-1.6b", label="train-stablelm",
-                           layers=12, twin_layers=2, gate_layers=6,
+                           layers=6, twin_layers=2, gate_layers=6,
                            leaves=GRAD_LEAVES,
                            twin_leaves=GRAD_LEAVES,
                            twin_norm=(TWIN_NORM_REL_ATTN, "drops_diagonal"),
@@ -2333,7 +2355,8 @@ TRAIN_PATHS = {
                       fp32_norm=False,
                       bf16_loss=(VLM_LOSS_REL_BF16, "drops_diagonal")),
     # seamless-m4t-large-v2 at 12 of its 24 encoder and 12 of its 24
-    # decoder layers (24 + 24 until dist-tp's MoE paths took their time);
+    # decoder layers (24 + 24 until dist-tp's MoE paths took their time,
+    # 12 + 12 until its scan paths did);
     # 2048 seeded frames (the reference's train batch
     # sizes them by S), so the cross-attention's shape is the encoder's.
     # Its random-init encoder carries bf16 roundings so far that at 24 + 24
@@ -2346,7 +2369,7 @@ TRAIN_PATHS = {
     # gradients under Adam's eps, so the decoder takes no step and the
     # loss does not fall (12.655, 12.667, 12.661 with clipping)
     "train-encdec": dict(arch="seamless-m4t-large-v2", label="train-encdec",
-                         layers=12, twin_layers=1, gate_layers=2,
+                         layers=6, twin_layers=1, gate_layers=2,
                          leaves=ENCDEC_GRAD_LEAVES,
                          twin_leaves=ENCDEC_TWIN_LEAVES,
                          twin_norm=(TWIN_NORM_REL_ATTN, "drops_delta"),
@@ -3398,7 +3421,10 @@ DIST_TP_LOSS_REL = 1e-4  # fp32 step 1's loss: the forward keeps its digits
 # keeps few digits: its sums taken in parts (a witness) move its norm 1.7%
 # in fp32, 27% in bf16; gemma3-1b's keeps them, and so does
 # deepseek-v2-236b's layer 0; deepseek-moe-16b's (4 layers, the routing
-# replayed) keeps fewer: 8.4% in fp32 under the witness, 7.0% split.
+# replayed) keeps fewer: 8.4% in fp32 under the witness, 7.0% split;
+# recurrentgemma-9b's (one period) keeps its digits (the witness moves the
+# loss 1.3e-7, grad_norm not at all), mamba2-2.7b's (4 layers) most (its
+# grad_norm 1.6e-5 under the witness, 7.3e-6 split).
 # Each limit sits between
 # the witnesses and the control as read on an H100 (PERF.md §6), and each
 # run reads them again
@@ -3407,7 +3433,9 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
                ("gemma3-1b", "float32"): 1e-3,
                ("gemma3-1b", "bfloat16"): 1e-2,
                ("deepseek-moe-16b", "float32"): 0.1,
-               ("deepseek-v2-236b", "float32"): 1e-3}
+               ("deepseek-v2-236b", "float32"): 1e-3,
+               ("recurrentgemma-9b", "float32"): 1e-3,
+               ("mamba2-2.7b", "float32"): 1e-3}
 # the fp32 gradient, leaf by leaf: ``m`` after step 1 is (1 - b1) x the
 # gradient, and each rank's shard of each leaf is held against the same cut
 # of the unsharded step's ``m`` by relative L2 (the worst shard). Each
@@ -3420,7 +3448,8 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
 # each run (PERF.md §6)
 DIST_TP_M_MULT = 1.25
 DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4,
-                   "deepseek-moe-16b": 1e-2, "deepseek-v2-236b": 1e-4}
+                   "deepseek-moe-16b": 1e-2, "deepseek-v2-236b": 1e-4,
+                   "recurrentgemma-9b": 1e-4, "mamba2-2.7b": 1e-4}
 
 
 # dist-tp serving, after each path's train steps in each dtype, on the same
@@ -3441,10 +3470,14 @@ DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4,
 # witness moves them 8.5e-4 (PERF.md §6). Random-init deepseek-moe-16b
 # keeps fewer in bf16: with the routing replayed its teacher-forced decode
 # logits move 0.56 under the witness, 0.64 split, 1.42 under the control
-# (an H100), so its bf16 limit is 1.0; its fp32 witness moves them 3.7e-4
+# (an H100), so its bf16 limit is 1.0; its fp32 witness moves them 3.7e-4.
+# The scan paths' bf16 logits: recurrentgemma-9b's move 8.0e-3 under the
+# witness, 0.46 under its control (the RG-LRU block's all-reduce dropped);
+# mamba2-2.7b's 5.0e-2 and 0.71 (the gated norm's sum over heads dropped),
+# so its limit is 0.2
 DIST_TP_PROMPTS = (2048, 1024, 512, 256)
 DIST_TP_CAPACITY = 2304
-DIST_TP_DECODE = 8
+DIST_TP_DECODE = 4       # 8 until dist-tp's scan paths took their time
 DIST_TP_CONTROL_DECODE = 2
 DIST_TP_SERVE_REL = {("deepseek-7b", "float32"): 2e-3,
                      ("deepseek-7b", "bfloat16"): 0.1,
@@ -3452,7 +3485,9 @@ DIST_TP_SERVE_REL = {("deepseek-7b", "float32"): 2e-3,
                      ("gemma3-1b", "bfloat16"): 0.1,
                      ("deepseek-moe-16b", "float32"): 2e-3,
                      ("deepseek-moe-16b", "bfloat16"): 1.0,
-                     ("deepseek-v2-236b", "bfloat16"): 0.1}
+                     ("deepseek-v2-236b", "bfloat16"): 0.1,
+                     ("recurrentgemma-9b", "bfloat16"): 0.1,
+                     ("mamba2-2.7b", "bfloat16"): 0.2}
 # dist-tp's MoE paths, a second spawn of the four ranks on the same (1, 4)
 # mesh, EP and TP both over "model", at full width. deepseek-moe-16b at 4 of
 # its 28 layers (1 dense + 3 MoE), trained and served: a rank holds 4 of 16
@@ -3488,6 +3523,21 @@ DIST_TP_MOE_CF = 4.0
 DIST_TP_MOE_STEPS = {"float32": 2}
 DIST_TP_MOE_DECODE = 4
 DIST_TP_JOIN_S = 2 * DIST_TIMEOUT_S
+# dist-tp's scan paths, in the same spawn after the dense ones, at full
+# width: recurrentgemma-9b at one period (rec, rec, local: 3 of 38
+# layers), a rank holding 1024 of 4096 RNN channels (the RG-LRU kernel at
+# [1,S,1024]), 4 of 16 RNN heads, 4 of 16 q heads beside its one kv head
+# (gathered), 3072 of 12288 ffn columns and 64000 of 256000 vocabulary
+# rows (1.64 B params in all); mamba2-2.7b at 4 of 64 layers, a rank
+# holding 20 of 80 SSD heads (the SSD kernels at [1,S,20,64], N=128) and
+# 12608 of 50432 vocabulary rows. Each trained in fp32 with the dense
+# paths' fp32 gates, whose control is the path's own (its key): the RG-LRU
+# block's wo all-reduce dropped, or the gated norm's sum of squares taken
+# over this rank's heads alone (``_scan_unsummed``); served in bf16,
+# teacher-forced, over DIST_TP_SCAN_DECODE steps with the same control
+DIST_TP_SCAN_PATHS = (("recurrentgemma-9b", 3, "rec"),
+                      ("mamba2-2.7b", 4, "ssm"))
+DIST_TP_SCAN_DECODE = 4
 
 
 def _stack_caches(caches, axes):
@@ -3564,19 +3614,24 @@ def _sums_in_parts(n):
     """The unsharded step with the split step's order of sums, in one
     process: each column-parallel product (q, k and v where the kv heads
     split, MLA's wq_b and wkv_b, the MLPs' and the shared experts' wi*,
-    the logits) taken as ``n`` column groups, so that the backward sums
-    ``n`` partial input gradients, and each row-parallel one (attention's,
-    MLA's, the MLPs' and the shared experts' wo) as ``n`` partial products
-    summed in fp32, each rounded to the compute dtype first. A correct
-    code that differs from the unsharded one in order alone: the witness
-    of the split step's gates."""
+    the logits, the RG-LRU block's wx and wg, Mamba-2's in_proj) taken as
+    ``n`` column groups, so that the backward sums ``n`` partial input
+    gradients, and each row-parallel one (attention's, MLA's, the MLPs',
+    the shared experts' and the RG-LRU block's wo, Mamba-2's out_proj) as
+    ``n`` partial products summed in fp32, each rounded to the compute
+    dtype first; Mamba-2's gated norm sums its squares in ``n`` parts. A
+    correct code that differs from the unsharded one in order alone: the
+    witness of the split step's gates."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
-    from repro_torch.models.layers import apply_norm, apply_rope
+    from repro_torch.models import rglru as REC
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.layers import apply_norm, apply_rope, \
+        conv_history
 
     def cols(x, w, split=True):
         k = w.shape[-1] // n if split else w.shape[-1]
@@ -3656,16 +3711,132 @@ def _sums_in_parts(n):
         y = rows(o.reshape(B, S, H * v), p["wo"])
         return y, (A.mla_prefill_cache(c, kpe, capacity)
                    if capacity is not None else None)
-    saved = (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
-             A.mla_prefill)
-    (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
-     A.mla_prefill) = (qkv, attn_core, apply_mlp, logits, shared,
-                       mla_prefill)
+    def gated_norm(y, z, scale, eps, tp=None, width=None):
+        yf = (y * F.silu(z)).float()
+        k = yf.shape[-1] // n
+        ss = torch.stack([yf[..., i * k:(i + 1) * k].square().sum(
+            -1, keepdim=True) for i in range(n)]).sum(0)
+        o = yf * torch.rsqrt(ss / yf.shape[-1] + eps)
+        return (o * (1.0 + scale.float())).to(y.dtype)
+
+    def rec_gates(cfg, p, u):
+        nh, bh = p["w_ga"].shape[:2]
+        return (REC._block_gate(u, p["w_ga"], p["b_ga"], nh, bh),
+                REC._block_gate(u, p["w_gx"], p["b_gx"], nh, bh))
+
+    def rec_prefill(cfg, p, x, *, impl=None, tp=None, with_cache=True):
+        u = cols(x, p["wx"])
+        g = F.gelu(cols(x, p["wg"]), approximate="tanh")
+        uc = REC._conv_full(u, p["conv_w"].to(x.dtype))
+        y, hT = ops.rglru(uc, p["a_log"], *rec_gates(cfg, p, uc),
+                          c=cfg.rglru_c, impl=impl)
+        return rows(y * g, p["wo"]), ({
+            "conv": conv_history(u, cfg.rnn_conv), "h": hT}
+            if with_cache else None)
+
+    def rec_decode(cfg, p, x, cache, tp=None):
+        u = cols(x[:, 0], p["wx"])
+        g = F.gelu(cols(x[:, 0], p["wg"]), approximate="tanh")
+        hist = torch.cat([cache["conv"], u[:, None]], 1)
+        conv = torch.einsum("bkc,kc->bc", hist, p["conv_w"].to(x.dtype))
+        y, h = ops.rglru_decode(cache["h"], conv, p["a_log"],
+                                *rec_gates(cfg, p, conv), c=cfg.rglru_c)
+        cache["conv"].copy_(hist[:, 1:])
+        cache["h"].copy_(h)
+        return rows(y * g, p["wo"])[:, None], cache
+
+    def ssm_sections(cfg, xc):
+        s, d_inner, H, _ = SSM._dims(cfg)
+        gn = s.ngroups * s.d_state
+        lead = xc.shape[:-1]
+        return (xc[..., :d_inner].reshape(*lead, H, s.head_dim),
+                xc[..., d_inner:d_inner + gn].reshape(*lead, s.ngroups,
+                                                      s.d_state),
+                xc[..., d_inner + gn:].reshape(*lead, s.ngroups, s.d_state))
+
+    def ssm_prefill(cfg, p, x, *, impl=None, tp=None, with_cache=True):
+        B, S, _ = x.shape
+        z, xBC, dt, (s, d_inner, H, gn) = SSM._split(cfg,
+                                                     cols(x, p["in_proj"]))
+        xc = SSM._conv_full(xBC, p["conv_w"].to(x.dtype))
+        dt = F.softplus(dt.float() + p["dt_bias"].float())
+        xs, Bm, Cm = ssm_sections(cfg, xc)
+        y, hT = ops.ssd(xs, dt, p["A_log"], Bm, Cm, D=p["D"],
+                        chunk=s.chunk_size, impl=impl)
+        y = gated_norm(y.reshape(B, S, d_inner), z, p["norm"], cfg.norm_eps)
+        return rows(y, p["out_proj"]), ({
+            "conv": conv_history(xBC, s.d_conv), "h": hT}
+            if with_cache else None)
+
+    def ssm_decode(cfg, p, x, cache, tp=None):
+        B = x.shape[0]
+        z, xBC, dt, (s, d_inner, H, gn) = SSM._split(
+            cfg, cols(x[:, 0], p["in_proj"]))
+        hist = torch.cat([cache["conv"], xBC[:, None]], 1)
+        conv = F.silu(torch.einsum("bkc,kc->bc", hist,
+                                   p["conv_w"].to(x.dtype)))
+        xs, Bm, Cm = ssm_sections(cfg, conv)
+        dtv = F.softplus(dt.float() + p["dt_bias"].float())
+        y, h = ops.ssd_decode(cache["h"], xs, dtv, p["A_log"], Bm, Cm,
+                              D=p["D"])
+        y = gated_norm(y.reshape(B, 1, d_inner), z[:, None], p["norm"],
+                       cfg.norm_eps)
+        cache["conv"].copy_(hist[:, 1:])
+        cache["h"].copy_(h)
+        return rows(y, p["out_proj"]), cache
+    fns = ((A, "_qkv", qkv), (A, "attn_core", attn_core),
+           (M, "apply_mlp", apply_mlp), (M.LM, "_logits", logits),
+           (MOE, "_shared", shared), (A, "mla_prefill", mla_prefill),
+           (REC, "rec_prefill", rec_prefill),
+           (REC, "rec_decode", rec_decode),
+           (SSM, "ssm_prefill", ssm_prefill),
+           (SSM, "ssm_decode", ssm_decode))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in fns]
+    for mod, name, fn in fns:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (A._qkv, A.attn_core, M.apply_mlp, M.LM._logits, MOE._shared,
-         A.mla_prefill) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextmanager
+def _scan_unsummed(kind):
+    """The control of a scan path (``DIST_TP_SCAN_PATHS``): the RG-LRU
+    block's output left unsummed over "model" (``rec``: each rank's share
+    of ``wo`` taken as the whole), or Mamba-2's gated norm taking the sum
+    of squares of this rank's heads alone (``ssm``)."""
+    from repro_torch.models import rglru as REC
+    from repro_torch.models import ssm as SSM
+    from repro_torch.sharding import tp as TP
+    mod = REC if kind == "rec" else SSM
+    shim = types.SimpleNamespace(copy_to=TP.copy_to,
+                                 reduce_from=TP.reduce_from,
+                                 sum_over=TP.sum_over,
+                                 all_gather=TP.all_gather)
+    if kind == "rec":
+        shim.reduce_from = lambda y, tp: y
+    else:
+        shim.sum_over = lambda x, tp: x
+    real, mod.TP = mod.TP, shim
+    try:
+        yield
+    finally:
+        mod.TP = real
+
+
+@contextmanager
+def _norms_summed(partial_over_model_rule):
+    """``partition.partial_over_model`` replaced by
+    ``partial_over_model_rule(the real one)`` for the block."""
+    from repro_torch.sharding import partition as part
+    real = part.partial_over_model
+    part.partial_over_model = partial_over_model_rule(real)
+    try:
+        yield
+    finally:
+        part.partial_over_model = real
 
 
 def _tp_placements(lm, mesh):
@@ -3730,11 +3901,17 @@ def _tp_place(lm, mesh):
 
 def _dist_tp_paths():
     """dist-tp's paths (``_dist_tp_rank``): the dense ones, trained and
-    served in both dtypes at one depth, then the MoE ones."""
+    served in both dtypes at one depth, the scan ones, then the MoE ones;
+    ``control`` names a scan path's control (``_scan_unsummed``)."""
     dense = [dict(label=a, train=_train_cfg(a, n, "bfloat16"),
                   serve=_train_cfg(a, n, "bfloat16"), steps=DIST_TP_STEPS,
                   serve_dtypes=tuple(DIST_TP_STEPS), decode=DIST_TP_DECODE)
              for a, n in DIST_TP_PATHS]
+    dense += [dict(label=a, train=_train_cfg(a, n, "bfloat16"),
+                   serve=_train_cfg(a, n, "bfloat16"),
+                   steps={"float32": 2}, serve_dtypes=("bfloat16",),
+                   decode=DIST_TP_SCAN_DECODE, control=kind)
+              for a, n, kind in DIST_TP_SCAN_PATHS]
     import dataclasses
 
     def no_drops(cfg):
@@ -3952,8 +4129,9 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
             out.append(r if math.isfinite(r) else math.inf)
         return out
 
-    def serve_case(key, cfg, dtype, decode_steps):
-        """The serving half of a path in one dtype (``phase_dist_tp``)."""
+    def serve_case(key, cfg, dtype, decode_steps, control=None):
+        """The serving half of a path in one dtype (``phase_dist_tp``);
+        ``control`` a scan path's (``_scan_unsummed``)."""
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.launch import specs
         fp32 = dtype == "float32"
@@ -4063,6 +4241,7 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
         sync()
         res["dropped"] = dropped(drops)
         res.update(launches=kernel_counts(), flash=flash_counts(),
+                   ssd=ssd_counts(),
                    peak_gib=peak(), prefill_ms=got["prefill_ms"],
                    decode_ms=got["decode_ms"], cache_gib=got["cache_gib"],
                    collectives_per_decode_step={
@@ -4088,30 +4267,39 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
                                                      ref["tokens"])))
         del calls
         if not fp32:       # the control
-            combines = any(v.seq for v in layouts.values())
-            if combines:
+            combines = control is None and any(
+                v.seq for v in layouts.values())
+            if control is not None:
+                ctl_ctx, name = _scan_unsummed(control), {
+                    "rec": "the RG-LRU block's all-reduce dropped",
+                    "ssm": "the gated norm's sum over heads dropped"}[
+                        control]
+            elif combines:
                 def uncombined(o, m, l, groups):
                     return o / l[:, None, :, None]
                 real_c, TP.combine_partial = TP.combine_partial, uncombined
+                ctl_ctx, name = nullcontext(), "combine dropped"
             else:
                 shim = types.SimpleNamespace(
                     copy_to=TP.copy_to, reduce_from=lambda y, tp: y,
                     all_gather=TP.all_gather,
                     combine_partial=TP.combine_partial)
                 real_c, A.TP = A.TP, shim
+                ctl_ctx, name = nullcontext(), \
+                    "attention's all-reduce dropped"
             try:
-                with pins(rec[:(len(prompts) + DIST_TP_CONTROL_DECODE) *
-                              moe_layers]):
+                with ctl_ctx, pins(rec[:(len(prompts) +
+                                         DIST_TP_CONTROL_DECODE) *
+                                       moe_layers]):
                     ctl = serve_run(prefill, decode, axes, prompts, forced,
                                     DIST_TP_CONTROL_DECODE)
             finally:
                 if combines:
                     TP.combine_partial = real_c
-                else:
+                elif control is None:
                     A.TP = real_c
             if rank == 0:
-                res["control"] = ("combine dropped" if combines else
-                                  "attention's all-reduce dropped")
+                res["control"] = name
                 res["control_rel"] = calls_rel(ctl["logits"],
                                                want[0]["logits"])
             del ctl
@@ -4135,8 +4323,9 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
         free()
         return res
 
-    def train_case(res, key, cfg, dtype, n):
-        """The train half of a path in one dtype (``phase_dist_tp``)."""
+    def train_case(res, key, cfg, dtype, n, control=None):
+        """The train half of a path in one dtype (``phase_dist_tp``);
+        ``control`` a scan path's (``_scan_unsummed``)."""
         fp32 = dtype == "float32"
         want, rec = None, []
         if rank == 0:
@@ -4236,6 +4425,7 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
         res["dropped"] = dropped(drops)
         res.update(steps=rows, launches=kernel_counts(),
                    flash=flash_counts(), flash_bwd=bwd_counts(),
+                   ssd=ssd_counts(),
                    all_reduces_per_step=n_reduce[0] / n,
                    plan=adamw.tp_plan(lm, mesh)._asdict())
         if rec:         # step 1's calls
@@ -4245,15 +4435,13 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
         del calls, state, lm
         want = None
         free()
-        if fp32:      # the control: the norms' gradients summed again
-            real = part.partial_over_model
-            part.partial_over_model = _norms_summed_again(real)
-            try:
-                with pins(rec[:len(rec) // n]):
-                    lm, state, rows, _ = tp_run(
-                        f"dist-tp: {key} control", cfg, dtype, 1)
-            finally:
-                part.partial_over_model = real
+        if fp32:      # the control: the norms' gradients summed again,
+            # or a scan path's own
+            with (_scan_unsummed(control) if control else
+                  _norms_summed(_norms_summed_again)), \
+                    pins(rec[:len(rec) // n]):
+                lm, state, rows, _ = tp_run(
+                    f"dist-tp: {key} control", cfg, dtype, 1)
             res["control_steps"] = rows
             res["m_rel_control"] = m_rels(state)
         else:         # the control: attention not summed
@@ -4281,11 +4469,11 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
             t0 = time.perf_counter()
             if dtype in path["steps"]:
                 train_case(res, key, path["train"], dtype,
-                           path["steps"][dtype])
+                           path["steps"][dtype], path.get("control"))
             t1 = time.perf_counter()
             if dtype in path["serve_dtypes"]:
                 res["serve"] = serve_case(key, path["serve"], dtype,
-                                          path["decode"])
+                                          path["decode"], path.get("control"))
             out["seconds"][key] = {"train": t1 - t0,
                                    "serve": time.perf_counter() - t1}
 
@@ -4313,9 +4501,24 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
     return out
 
 
-def _serve_report(arch, layers, key, route, res, bad, decode):
+def _path_launches(cfg, n, train):
+    """Each kernel's launches on a rank in ``n`` train steps of ``cfg``'s
+    layers (each layer's forward and remat's recompute, a flash backward
+    per attention layer; the scans' gradients recompute their plain
+    versions) or in ``n`` prefills (one per layer; a decode step is plain
+    for every mixer)."""
+    want = dict.fromkeys(kernel_counts(), 0)
+    for mixer in cfg.layer_kinds:
+        kname = KERNEL_OF_MIXER[mixer]
+        want[kname] += (2 if train else 1) * n
+        if train and kname == "flash_attention_fwd":
+            want["flash_attention_bwd"] += n
+    return want
+
+
+def _serve_report(arch, cfg, key, route, res, bad, decode):
     """The serving half of ``phase_dist_tp`` for one path and dtype
-    (``layers`` deep, ``decode`` steps): its gates (appended to ``bad``)
+    (``cfg``'s layers, ``decode`` steps): its gates (appended to ``bad``)
     and its record."""
     dtype = key.rsplit(" ", 1)[1]
     r0 = res[0]["cases"][key]["serve"]
@@ -4369,19 +4572,23 @@ def _serve_report(arch, layers, key, route, res, bad, decode):
                    f"{sv['witness_rel_max']}, limit {lim}")
     if not sv["ranks_agree"]:
         bad.append(f"{key} serving: the ranks' logits differ")
+    want = _path_launches(cfg, n_pre, train=False)
     for r in ranks:
-        if r["launches"]["flash_attention_fwd"] != layers * n_pre or \
-                r["flash"][route] != layers * n_pre or \
-                r["launches"]["flash_attention_bwd"]:
+        if r["launches"] != want or \
+                r["flash"][route] != want["flash_attention_fwd"] or \
+                r["ssd"][route] != want["ssd_scan"]:
             bad.append(f"{key} serving: launches {r['launches']} "
-                       f"{r['flash']}")
+                       f"{r['flash']} {r['ssd']}, want {want}")
     return sv
 
 
-def _train_report(arch, layers, key, n, res, bad, out):
+def _train_report(arch, cfg, key, n, res, bad, out, scan_control=None):
     """The train half of ``phase_dist_tp`` for one path and dtype
-    (``layers`` deep, ``n`` steps): its gates (appended to ``bad``), its
-    launches added to ``out``'s, and its record."""
+    (``cfg``'s layers, ``n`` steps; ``scan_control`` a scan path's
+    control): its gates
+    (appended to ``bad``), its launches added to ``out``'s, and its
+    record."""
+    layers = cfg.num_layers
     dtype = key.rsplit(" ", 1)[1]
     label = key.rsplit(" ", 1)[0]
     r0 = res[0]["cases"][key]
@@ -4433,6 +4640,10 @@ def _train_report(arch, layers, key, n, res, bad, out):
     if max(worst.values()) > lim or control <= lim:
         bad.append(f"{key}: {worst}, control {control}")
     if dtype == "float32":
+        c["control"] = {None: "the norms ahead of split blocks summed "
+                        "again", "rec": "the RG-LRU block's all-reduce "
+                        "dropped", "ssm": "the gated norm's sum over heads "
+                        "dropped"}[scan_control]
         c["loss_rel_step1"] = c["rel_to_fp32"]["tp"]["loss"][0]
         c.update({k: r0[k] for k in (
             "m_rel", "m_rel_witness", "m_rel_control",
@@ -4453,15 +4664,15 @@ def _train_report(arch, layers, key, n, res, bad, out):
                        f"{c['m_over_limit_control']}")
         if c["params_max_beyond_limit"] > 0:
             bad.append(f"{key}: params beyond 2 x lr")
-    want = {"flash_attention_fwd": 2 * layers * n,
-            "flash_attention_bwd": layers * n}
+    want = _path_launches(cfg, n, train=True)
     for r in ranks:
-        for kname, v in want.items():
-            if r["launches"][kname] != v:
-                bad.append(f"{key}: {kname} {r['launches']}")
+        if r["launches"] != want:
+            bad.append(f"{key}: launches {r['launches']}, want {want}")
         if r["flash"][route] != want["flash_attention_fwd"] or \
-                r["flash_bwd"][route] != want["flash_attention_bwd"]:
-            bad.append(f"{key}: route {r['flash']} {r['flash_bwd']}")
+                r["flash_bwd"][route] != want["flash_attention_bwd"] or \
+                r["ssd"][route] != want["ssd_scan"]:
+            bad.append(f"{key}: route {r['flash']} {r['flash_bwd']} "
+                       f"{r['ssd']}")
         _add_launches(out, r)
     return c
 
@@ -4473,6 +4684,7 @@ def _add_launches(out, r):
         out["launches"][kname] = out["launches"].get(kname, 0) + v
     for k in ("tc", "fma"):
         out["flash_launches_by_kernel"][k] += r["flash"][k]
+        out["ssd_launches_by_kernel"][k] += r["ssd"][k]
         if "flash_bwd" in r:
             out["flash_bwd_launches_by_route"][k] += r["flash_bwd"][k]
 
@@ -4563,6 +4775,7 @@ def phase_dist_tp():
            "all_reduce_ms": res[0]["all_reduce_ms"], "launches": {},
            "flash_launches_by_kernel": {"tc": 0, "fma": 0},
            "flash_bwd_launches_by_route": {"tc": 0, "fma": 0},
+           "ssd_launches_by_kernel": {"tc": 0, "fma": 0},
            "seconds_by_case_rank0": res[0]["seconds"]}
     bad = []
     for path in paths:
@@ -4572,13 +4785,14 @@ def phase_dist_tp():
             key = f"{arch} {dtype}"
             c = {}
             if dtype in path["steps"]:
-                c = _train_report(arch, path["train"].num_layers, key,
-                                  path["steps"][dtype], res, bad, out)
+                c = _train_report(arch, path["train"], key,
+                                  path["steps"][dtype], res, bad, out,
+                                  path.get("control"))
                 log(f"dist-tp: {key}: {json.dumps(c)}")
             if dtype in path["serve_dtypes"]:
                 route = "tc" if dtype == "bfloat16" else "fma"
                 c["serve"] = sv = _serve_report(
-                    arch, path["serve"].num_layers, key, route, res, bad,
+                    arch, path["serve"], key, route, res, bad,
                     path["decode"])
                 for r in res:
                     _add_launches(out, r["cases"][key]["serve"])
@@ -4912,7 +5126,9 @@ def phase_ckpt():
 
 
 EXAMPLES = ("quickstart", "train_e2e", "serve_batch")
-E2E_ARGS = ["--steps", "60"]           # fails at 30, restarts from step 25
+# fails at 28, restarts from step 25 (60 steps, a failure at 30, until
+# dist-tp's scan paths took their time)
+E2E_ARGS = ["--steps", "30", "--fail-at", "28"]
 
 
 @contextmanager
@@ -5059,9 +5275,10 @@ def phase_examples():
     its own checks, with the counts set to 0 before each run and read
     after: quickstart (deepseek-7b smoke, 2 layers, fp32: 22 steps of
     2 x 2 FMA flash forwards and 2 FMA backwards), train_e2e (lm-100m,
-    12 x 768, fp32, ``--steps 60``: fails at 30, restarts from the
-    checkpoint of step 25, 65 steps; then the same command uninterrupted,
-    60 steps; the losses by state["step"] held by ``_restart_gate``, the
+    12 x 768, fp32, ``--steps 30 --fail-at 28``: fails at 28, restarts
+    from the checkpoint of step 25, 33 steps; then the same command
+    uninterrupted, 30 steps; the losses by state["step"] held by
+    ``_restart_gate``, the
     witness (the uninterrupted command again) and the control (a restart
     that replays batch 0) run only where the restart is not bit-equal),
     serve_batch (gemma3-1b smoke, 6 requests over 4 slots, a migration at
@@ -5106,13 +5323,13 @@ def phase_examples():
     clean = counted("train_e2e_uninterrupted", lambda: train_e2e.main(
         E2E_ARGS + ["--fail-at", "1000"], device=DEVICE))
     layers = train_e2e.CFG.num_layers
-    for label, n_steps in (("train_e2e", 65), ("train_e2e_uninterrupted",
-                                                60)):
+    for label, n_steps in (("train_e2e", 33), ("train_e2e_uninterrupted",
+                                                30)):
         assert out[label]["flash"] == {"tc": 0,
                                        "fma": 2 * layers * n_steps}, out
         assert out[label]["bwd"] == {"tc": 0, "fma": layers * n_steps}, out
     assert failed["restarted"] == train_e2e.CKPT_EVERY, failed
-    assert failed["final_step"] == 61 and clean["final_step"] == 60
+    assert failed["final_step"] == 31 and clean["final_step"] == 30
     dist = _losses_distance(failed["losses"], clean["losses"])
     witness = control = None
     if not dist["bit_equal"]:
@@ -5128,8 +5345,8 @@ def phase_examples():
     out["train_e2e_gate"] = _restart_gate("examples: train_e2e", dist,
                                           witness, control)
     out["train_e2e_s"] = time.perf_counter() - t0
-    out["train_e2e_losses"] = {s: clean["losses"][s] for s in (1, 26, 30,
-                                                                60)}
+    out["train_e2e_losses"] = {s: clean["losses"][s] for s in (1, 26, 28,
+                                                                30)}
 
     t0 = time.perf_counter()
     streams = counted("serve_batch", lambda: serve_batch.main(
@@ -5142,7 +5359,7 @@ def phase_examples():
     assert out["serve_batch"]["bwd"] == {"tc": 0, "fma": 0}, out
     log(f"examples: quickstart {out['quickstart_s']:.1f} s, restored step "
         f"bit-equal {q['equal']}; train_e2e {out['train_e2e_s']:.1f} s, "
-        f"losses at state steps 1, 26, 30, 60 "
+        f"losses at state steps 1, 26, 28, 30 "
         f"{json.dumps(out['train_e2e_losses'])}; serve_batch "
         f"{out['serve_batch_s']:.1f} s, {len(streams)} requests served")
     return out
@@ -5441,7 +5658,9 @@ def _phases(run, failed, name, smi, traces):
                 k: sum(p[2]["ssd_launches_by_kernel"][k]
                        for p in paths.values())
                 + sum(t["ssd_launches_by_kernel"][k]
-                      for t in trains.values()) for k in ("tc", "fma")}
+                      for t in trains.values())
+                + dist_tp["ssd_launches_by_kernel"][k]
+                for k in ("tc", "fma")}
         if kname == "rglru_scan":
             entry["design"] = (
                 "time split across CTAs in one pass: chunks of 32 steps "

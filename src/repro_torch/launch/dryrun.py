@@ -14,8 +14,9 @@ rank 0's (``roofline.counter``). The step runs the plain path
 tensors cannot trace; the reference likewise lowers its XLA "blocked" path
 on host devices. A train cell traces the tensor-parallel step (attention
 and MLA by heads, dense MLPs and the MoE layers' shared experts by ffn,
-the vocabulary over "model", with their all-reduces, the routed experts
-on EP beside them; ``partition.tp_plan``), and so does a serving cell,
+the RG-LRU blocks by RNN width, the Mamba-2 blocks by SSD heads, the
+vocabulary over "model", with their all-reduces, the routed experts on
+EP beside them; ``partition.tp_plan``), and so does a serving cell,
 whose decode cache stays at its storage shard (``launch.specs.build_fn``).
 ``--qkv-constraint batch`` pins q, k and v to heads over "model", which is
 how the port computes them in every cell: it traces the same step.

@@ -14,8 +14,8 @@ returns the port's function of the cell: the step of
 mesh the serving calls compute as the train step does
 (``adamw.point_params``): in the tensor-parallel region of
 ``adamw.tp_plan`` (``sharding.tp``), on this rank's slice of the batch,
-each split leaf at this rank's heads, ffn columns or vocabulary rows and
-the other leaves gathered. A decode cache leaf of a split block goes in
+each split leaf at this rank's heads, ffn columns, RNN channels, SSD
+heads' sections or vocabulary rows and the other leaves gathered. A decode cache leaf of a split block goes in
 and out as this rank's storage shard, read and written in place; one of a
 gathered block (the other mixers, and every block of a model whose plan
 splits nothing) is all-gathered over its non-batch axes by c10d

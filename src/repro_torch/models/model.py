@@ -45,13 +45,15 @@ model computes on this rank's local tensors: the train step
 (``optim.adamw``) hands it its batch slice and its compute weights, and
 an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``).
 Inside the train step's tensor-parallel region (``sharding.tp``) the
-``attn``/``local``/``mla`` mixers run on this rank's heads, the dense MLPs
-and an MoE layer's shared experts on its ffn columns (the routed experts
-on EP beside them), and the embedding, logits and cross-entropy on its
-vocabulary rows, by ``partition.compute_axis`` (``_split`` decides per
-block); the other blocks compute gathered. The region is read once per
-forward and carried in the layers' context, so a remat recompute issues
-the same collectives in the same order on every rank; so is the expert
+``attn``/``local``/``mla`` mixers run on this rank's heads, the ``rec``
+mixers on its RNN channels, the ``ssm`` mixers on its SSD heads, the dense
+MLPs and an MoE layer's shared experts on its ffn columns (the routed
+experts on EP beside them), and the embedding, logits and cross-entropy
+on its vocabulary rows, by ``partition.compute_axis`` (``_split`` decides
+per block); the other blocks (``enc``, ``xdec``) compute gathered. The
+region is read once per forward and carried in the layers' context, so a
+remat recompute issues the same collectives in the same order on every
+rank; so is the expert
 axis (``moe.ep_context``), which a recompute on the autograd engine's
 device thread could not read from the active mesh. ``prefill`` and
 ``decode_step`` read both the same way: in a region (``launch.specs.
@@ -158,14 +160,16 @@ def layer_def(cfg: ModelConfig, kind: Tuple[str, str]):
     return d
 
 
-def _split_plan(plan, block, leaf="wo"):
+def _split_plan(plan, block, leaf=None):
+    leaf = leaf or ("out_proj" if block == "ssm" else "wo")
     return part.compute_axis(plan, block, leaf) is not None
 
 
-def _split(tp, block, leaf="wo"):
+def _split(tp, block, leaf=None):
     """``tp`` where its plan computes ``block`` split over the model axis
-    (``partition.compute_axis``; a mixer or an MLP by its ``wo``, the
-    vocabulary by ``embed``), else None: the block computes gathered."""
+    (``partition.compute_axis``; a mixer or an MLP by its ``wo``, Mamba-2
+    by its ``out_proj``, the vocabulary by ``embed``), else None: the
+    block computes gathered."""
     if tp is None or not _split_plan(tp.plan, block, leaf):
         return None
     return tp
@@ -210,11 +214,11 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
     cache = None
-    if mixer in ("ssm", "rec"):
+    if mixer in part.SCAN_MIXERS:
         prefill = SSM.ssm_prefill if mixer == "ssm" else REC.rec_prefill
-        mx, c = prefill(cfg, p["mixer"], h, impl=ctx.get("impl"))
-        if capacity is not None:
-            cache = c
+        mx, cache = prefill(cfg, p["mixer"], h, impl=ctx.get("impl"),
+                            tp=_split(tp, mixer),
+                            with_cache=capacity is not None)
     elif mixer == "mla":
         mx, cache = A.mla_prefill(cfg, p["mixer"], h, ctx["positions"],
                                   capacity=capacity, impl=ctx.get("impl"),
@@ -295,9 +299,11 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
     tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
     if mixer == "ssm":
-        mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache)
+        mx, cache = SSM.ssm_decode(cfg, p["mixer"], h, cache,
+                                   _split(tp, mixer))
     elif mixer == "rec":
-        mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache)
+        mx, cache = REC.rec_decode(cfg, p["mixer"], h, cache,
+                                   _split(tp, mixer))
     elif mixer == "mla":
         mx, cache = A.mla_decode(cfg, p["mixer"], h, cache, ctx["positions"],
                                  _split(tp, mixer))
@@ -596,6 +602,17 @@ class LM(nn.Module):
                         for k, b in stack.leaf_blocks().items()})
         return out
 
+    def sections(self, plan, rank):
+        """Each parameter path ``plan`` computes by ``partition.SECTIONS``
+        (Mamba-2's ``in_proj`` and ``conv_w``) -> the indices along its
+        last dim of rank ``rank``'s columns (``ssm.section_index``)."""
+        out = {}
+        for n, block in self.leaf_blocks().items():
+            leaf = n.rsplit(".", 1)[-1]
+            if part.compute_axis(plan, block, leaf) == part.SECTIONS:
+                out[n] = SSM.section_index(self.cfg, leaf, rank, plan.size)
+        return out
+
     @torch.no_grad()
     def cast_weights(self):
         """Hold every weight matrix in the compute dtype instead of the param
@@ -716,20 +733,26 @@ class LM(nn.Module):
         return {"lengths": ("batch",), "layers": self.decoder.cache_axes()}
 
     def cache_layouts(self, mesh, batch, capacity, rules=None):
-        """Each split-able mixer kind's (``partition.TP_MIXERS``) cache
-        layout on ``mesh`` (``partition.cache_layout`` of its ``k``, or
-        MLA's ``ckv``) for a global ``batch`` at ``capacity``: what
-        ``sharding.tp.region`` takes for a serving call."""
+        """Each split-able mixer kind's (``partition.TP_MIXERS`` and
+        ``SCAN_MIXERS``) cache layout on ``mesh`` (``partition.
+        cache_layout`` of its ``k``, MLA's ``ckv``, the RG-LRU's ``h``,
+        Mamba-2's ``h`` and, as "ssm.conv", its flat ``conv`` window) for a
+        global ``batch`` at ``capacity``: what ``sharding.tp.region`` takes
+        for a serving call."""
+        leaves = {"mla": {"mla": "ckv"}, "rec": {"rec": "h"},
+                  "ssm": {"ssm": "h", "ssm.conv": "conv"}}
         out = {}
         for kind in self.decoder.kinds:
             mixer = kind[0]
-            if mixer in part.TP_MIXERS and mixer not in out:
-                leaf = "ckv" if mixer == "mla" else "k"
-                t = layer_cache_def(self.cfg, kind, batch, capacity,
-                                    self.compute_dtype)[leaf]
-                out[mixer] = part.cache_layout(
-                    layer_cache_axes(self.cfg, kind)[leaf], t.shape, mesh,
-                    rules)
+            if mixer not in part.TP_MIXERS + part.SCAN_MIXERS or \
+                    mixer in out:
+                continue
+            defs = layer_cache_def(self.cfg, kind, batch, capacity,
+                                   self.compute_dtype)
+            axes = layer_cache_axes(self.cfg, kind)
+            for key, leaf in leaves.get(mixer, {mixer: "k"}).items():
+                out[key] = part.cache_layout(axes[leaf], defs[leaf].shape,
+                                             mesh, rules)
         return out
 
     def cache_split(self, plan):

@@ -10,6 +10,18 @@ output. Decode keeps the reference's plain step and writes the cache IN
 PLACE, as the SSM and attention layers do. Each step keeps the reference's
 dtypes: the products, the conv and the block gates in the compute dtype,
 the scan in fp32, y back in the compute dtype before ``(y * g) @ wo``.
+
+Under tensor parallelism (``tp``, a ``sharding.tp.Region`` whose plan
+splits ``rec``) the block runs on this rank's RNN channels, as the
+reference's GSPMD splits it by "ffn" (``repro/models/rglru.py:51-61``,
+``:76-90``): the input enters by ``copy_to``, ``wx``/``wg`` are column
+shards, the conv, the gates (the block-diagonal ``w_ga``/``w_gx`` by RNN
+heads, ``a_log`` and the biases cut to the channels) and the scan act on
+the local channels alone (the scan is elementwise over the width, so the
+kernel runs unchanged on ``[B,S,R/tp]``), ``wo`` is a row shard followed
+by ``reduce_from``. The decode cache is then this rank's channels of the
+window and the state, which is the storage shard of ``rec_cache_axes``
+over "model".
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, conv_history
+from repro_torch.sharding import tp as TP
 
 
 def _dims(cfg: ModelConfig):
@@ -59,9 +72,22 @@ def _block_gate(u, w, b, nh, bh):
     return g.reshape(shp) + b.to(u.dtype)
 
 
-def rec_prefill(cfg: ModelConfig, p, x, *, impl=None):
-    """x: [B,S,D] -> (y [B,S,D], decode cache {"conv", "h"})."""
-    R, nh, bh = _dims(cfg)
+def _own_channels(tp):
+    """Check that a split block's cache shard is this rank's channels."""
+    shard = tp.shard("rec")
+    assert (shard.heads_index, shard.heads_count) == (tp.rank, tp.size), \
+        (shard, tp.rank, tp.size)
+
+
+def rec_prefill(cfg: ModelConfig, p, x, *, impl=None, tp=None,
+                with_cache=True):
+    """x: [B,S,D] -> (y [B,S,D], decode cache {"conv", "h"}, or None
+    without ``with_cache``); under ``tp`` on this rank's channels (the
+    module's docstring)."""
+    _, _, bh = _dims(cfg)
+    nh = p["w_ga"].shape[0]                 # this rank's heads under tp
+    if tp is not None:
+        x = TP.copy_to(x, tp)
     dt = x.dtype
     u = x @ p["wx"].to(dt)
     g = F.gelu(x @ p["wg"].to(dt), approximate="tanh")
@@ -69,9 +95,15 @@ def rec_prefill(cfg: ModelConfig, p, x, *, impl=None):
     ga = _block_gate(uc, p["w_ga"], p["b_ga"], nh, bh)
     gx = _block_gate(uc, p["w_gx"], p["b_gx"], nh, bh)
     y, hT = ops.rglru(uc, p["a_log"], ga, gx, c=cfg.rglru_c, impl=impl)
+    out = (y * g) @ p["wo"].to(dt)
+    if tp is not None:
+        out = TP.reduce_from(out, tp)
+    if not with_cache:
+        return out, None
+    if tp is not None:
+        _own_channels(tp)
     # the cache keeps the PRE-conv window, as the reference's prefill does
-    cache = {"conv": conv_history(u, cfg.rnn_conv), "h": hT}
-    return (y * g) @ p["wo"].to(dt), cache
+    return out, {"conv": conv_history(u, cfg.rnn_conv), "h": hT}
 
 
 def rec_forward(cfg: ModelConfig, p, x, *, impl=None):
@@ -93,9 +125,13 @@ def rec_cache_axes(cfg: ModelConfig):
     return {"conv": ("batch", None, "ffn"), "h": ("batch", "ffn")}
 
 
-def rec_decode(cfg: ModelConfig, p, x, cache):
-    """x: [B,1,D] -> (y [B,1,D], cache); the cache is updated in place."""
-    R, nh, bh = _dims(cfg)
+def rec_decode(cfg: ModelConfig, p, x, cache, tp=None):
+    """x: [B,1,D] -> (y [B,1,D], cache); the cache is updated in place.
+    Under ``tp`` the cache leaves are this rank's channels."""
+    _, _, bh = _dims(cfg)
+    nh = p["w_ga"].shape[0]
+    if tp is not None:
+        _own_channels(tp)
     dt = x.dtype
     u = x[:, 0] @ p["wx"].to(dt)
     g = F.gelu(x[:, 0] @ p["wg"].to(dt), approximate="tanh")
@@ -108,4 +144,5 @@ def rec_decode(cfg: ModelConfig, p, x, cache):
                             c=cfg.rglru_c)
     cache["conv"].copy_(hist[:, 1:])
     cache["h"].copy_(h)
-    return ((y * g) @ p["wo"].to(dt))[:, None], cache
+    out = ((y * g) @ p["wo"].to(dt))[:, None]
+    return (out if tp is None else TP.reduce_from(out, tp)), cache

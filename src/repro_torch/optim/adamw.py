@@ -18,10 +18,15 @@ remesh_state`` places them), and ``make_train_step``'s step:
   the mesh's axes, but under EP an expert weight keeps this rank's
   experts and under tensor parallelism (``LM.tp_plan`` of the ``"model"``
   axis, ``partition.compute_axis``) a split leaf keeps this rank's heads,
-  ffn columns or rows, or vocabulary rows on that axis. Where the compute
-  placement is the storage's (world size 1; a split leaf on a mesh whose
-  other axes are 1) the copy is the state's own storage, else a copy that
-  holds, after the step, the weights the step used;
+  ffn columns or rows, RNN channels, or vocabulary rows on that axis (a
+  leaf stored whole, such as the RG-LRU's ``a_log`` or Mamba-2's
+  ``norm``, is cut on its last dim: ``partition.compute_dim``), and a
+  leaf taken by sections (Mamba-2's ``in_proj`` and ``conv_w``,
+  ``LM.sections``) is gathered over the axis and indexed to this rank's
+  columns. Where the compute placement is the storage's (world size 1; a
+  split leaf on a mesh whose other axes are 1) the copy is the state's own
+  storage, else a copy that holds, after the step, the weights the step
+  used;
 * runs the loss on this rank's slice of the batch over the ``batch`` axes,
   inside the tensor-parallel region (``sharding.tp``);
 * brings each gradient back to its leaf's placement: summed over the
@@ -30,8 +35,13 @@ remesh_state`` places them), and ``make_train_step``'s step:
   experts where they compute gathered) and over the model axis for
   those ``partition.partial_over_model`` names (``q_norm``/``k_norm``, and
   gathered ``wk``/``wv``, used by this rank's heads only), then this
-  rank's shard. A split leaf's gradient is its shard's already; the norms
-  ahead of a split block get whole gradients and are not summed;
+  rank's shard. A split leaf's gradient is its shard's already (a cut of
+  a leaf stored whole goes back by the all-gather, exact: the ranks own
+  disjoint channels); a leaf taken by sections scatters its gradient into
+  zeros of the whole width and sums it over the model axis, exact too
+  (each z, x and dt column is one rank's; B's and C's add the ranks'
+  partial gradients); the norms ahead of a split block get whole
+  gradients and are not summed;
 * runs AdamW on the local shards. The clip norm counts each element once
   (a leaf replicated over a mesh dim counts on that dim's rank 0) and sums
   the leaves in ``apply_updates``' order, so a world-1 step is bit-equal
@@ -268,7 +278,8 @@ def tp_plan(lm, mesh, rules=None):
 def _compute_placements(lm, mesh, plan=None):
     """``fn(name, dtensor)`` -> the placements a rank computes on:
     Replicate, but an expert weight's shard over the expert axis and,
-    with ``plan``, a split leaf's shard over the model axis."""
+    with ``plan``, a split leaf's shard over the model axis (a leaf taken
+    by sections is gathered there, then indexed: ``_sections``)."""
     from torch.distributed.tensor import Replicate, Shard
     logical = state_logical(lm)["params"]
     blocks = lm.leaf_blocks()
@@ -283,8 +294,8 @@ def _compute_placements(lm, mesh, plan=None):
         for d, pl in enumerate(dt.placements):
             if keep and d == ep_dim:
                 out.append(pl)
-            elif ax is not None and d == tp_dim:
-                out.append(Shard(logical[n].index(ax)))
+            elif ax not in (None, part.SECTIONS) and d == tp_dim:
+                out.append(Shard(part.compute_dim(logical[n], ax)))
             else:
                 out.append(Replicate())
         return out
@@ -376,12 +387,39 @@ def _relayout_multi(t, mesh, src, dst, multi):
     return t
 
 
-def _point_at(lm, params, mesh, compute_placements):
+def _sections(lm, mesh, plan):
+    """The leaves ``plan`` takes by sections -> the indices of this rank's
+    columns along their last dim (``LM.sections``); {} without a plan."""
+    if plan is None:
+        return {}
+    return lm.sections(plan, mesh.get_local_rank(part.TP_AXIS))
+
+
+def _by_layer(fn, t):
+    """``fn(t)``, for a stacked leaf ([layers, ...]: more than 2 dims)
+    taken one layer at a time, each slice keeping dim 0 (so placements
+    still name its dims): a whole-width temporary of a leaf taken by
+    sections then holds one layer."""
+    if t.dim() <= 2:
+        return fn(t)
+    return torch.cat([fn(t.narrow(0, i, 1)) for i in range(t.shape[0])])
+
+
+def _point_at(lm, params, mesh, compute_placements, sections):
     with torch.no_grad():
         for n, p in lm.named_parameters():
             dt = params[n]
-            p.data = _relayout(dt.to_local(), mesh, dt.placements,
-                               compute_placements(n, dt))
+            pl = compute_placements(n, dt)
+
+            def compute(t):
+                return _relayout(t, mesh, dt.placements, pl)
+            if n in sections:
+                idx = sections[n].to(dt.device)
+                p.data = _by_layer(
+                    lambda t: compute(t).index_select(-1, idx),
+                    dt.to_local())
+            else:
+                p.data = compute(dt.to_local())
             p.grad = None
 
 
@@ -389,11 +427,12 @@ def point_params(lm, params, mesh, plan=None):
     """Point each of the LM's parameters at its compute copy, as the train
     step does: the DTensor ``params[name]`` gathered, but an expert
     weight's shard over the expert axis under EP and, with ``plan``
-    (``tp_plan``), a split leaf's shard over the model axis; clears the
-    gradients. What a serving call on a mesh does before it runs
-    (``launch.specs.build_fn``); without ``plan`` every other leaf is
-    gathered whole."""
-    _point_at(lm, params, mesh, _compute_placements(lm, mesh, plan))
+    (``tp_plan``), a split leaf's shard over the model axis or its
+    sections; clears the gradients. What a serving call on a mesh does
+    before it runs (``launch.specs.build_fn``); without ``plan`` every
+    other leaf is gathered whole."""
+    _point_at(lm, params, mesh, _compute_placements(lm, mesh, plan),
+              _sections(lm, mesh, plan))
 
 
 def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
@@ -406,7 +445,8 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
     blocks = lm.leaf_blocks()
     params = dict(lm.named_parameters())
     compute_placements = _compute_placements(lm, mesh, plan)
-    _point_at(lm, state["params"], mesh, compute_placements)
+    sections = _sections(lm, mesh, plan)
+    _point_at(lm, state["params"], mesh, compute_placements, sections)
     dims, n_batch, local = batch_dims(batch, mesh, rules)
     with TP.region(mesh, plan):
         loss, metrics = lm.loss(local, impl=impl, schedule=schedule_kind)
@@ -422,12 +462,21 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
             pl = compute_placements(n, dt)
             partial = list(dims) + ([ep_dim] if ep_dim is not None and
                                     MOE.ep_partial(n, plan) else [])
-            if part.partial_over_model(plan, blocks.get(n),
-                                       n.rsplit(".", 1)[-1]):
+            if n in sections or part.partial_over_model(
+                    plan, blocks.get(n), n.rsplit(".", 1)[-1]):
                 partial.append(tp_dim)
             for d in partial:
                 pl[d] = Partial()
-            grads[n] = _relayout(g, mesh, pl, dt.placements) / n_batch
+
+            def storage(g):
+                return _relayout(g, mesh, pl, dt.placements)
+            if n in sections:    # scattered into the gathered width
+                idx, width = sections[n].to(g.device), dt.shape[-1]
+                grads[n] = _by_layer(lambda g: storage(g.new_zeros(
+                    g.shape[:-1] + (width,)).index_copy_(-1, idx, g)),
+                    g) / n_batch
+            else:
+                grads[n] = storage(g) / n_batch
         vec = torch.stack([loss.detach(), metrics["ce"].detach(),
                            metrics["aux"].detach()])
         for d in dims:

@@ -16,11 +16,17 @@ inside its head on a model axis of 4. How the train step *computes* a
 leaf over ``TP_AXIS`` is decided by whole units instead (``tp_plan`` and
 ``compute_axis``), where the active rules put the unit's logical axis on
 ``TP_AXIS``: attention and MLA by heads, the dense MLP and an MoE layer's
-shared experts by ffn columns, the embedding, head and cross-entropy by
-vocabulary rows; the routed experts keep their EP shard and every other
-leaf is gathered whole. A split block's decode cache is the other way round: it
+shared experts by ffn columns, the RG-LRU block by RNN channels (its
+block-diagonal gates by RNN heads), the Mamba-2 block by SSD heads, the
+embedding, head and cross-entropy by vocabulary rows; the routed experts
+keep their EP shard and every other leaf is gathered whole. A leaf stored
+whole (the RG-LRU's ``a_log`` and gate biases, Mamba-2's ``dt_bias``,
+``A_log``, ``D`` and ``norm``) is cut on its last dim
+(``compute_dim``), and Mamba-2's ``in_proj`` and ``conv_w`` by sections
+(``SECTIONS``): this rank's z, x and dt columns and every B and C column.
+A split block's decode cache is the other way round: it
 stays at its storage spec, and ``cache_layout`` says which mesh axes that
-puts on its sequence and its kv heads.
+puts on its sequence and its kv heads (or a scan cache's channels).
 
 A mesh is anything with named axes and sizes: a ``DeviceMesh`` built with
 ``mesh_dim_names`` (``launch.mesh``), or an ``AbstractMesh`` for resolving
@@ -91,11 +97,15 @@ class NamedSharding(NamedTuple):
         return placements(self.spec, self.mesh)
 
 
-# the mesh axis tensor-parallel compute splits over, and the mixers it
-# splits by heads (the other mixers, ssm, rec, enc and xdec, compute
-# gathered)
+# the mesh axis tensor-parallel compute splits over, the mixers it splits
+# by heads, and the scan mixers it splits by RNN channels (rec) or SSD
+# heads (ssm); enc and xdec compute gathered
 TP_AXIS = "model"
 TP_MIXERS = ("attn", "local", "mla")
+SCAN_MIXERS = ("rec", "ssm")
+# compute_axis of a leaf taken by sections of its last dim (Mamba-2's
+# in_proj and conv_w: this rank's z, x and dt columns and every B and C one)
+SECTIONS = "sections"
 
 
 class TPPlan(NamedTuple):
@@ -107,6 +117,8 @@ class TPPlan(NamedTuple):
     ffn: bool       # dense MLPs by ffn columns (wi*) and rows (wo)
     vocab: bool     # embed and head by vocabulary rows
     shared: bool    # MoE shared experts by ffn columns (wi*) and rows (wo)
+    rec: bool       # RG-LRU blocks by RNN channels and heads
+    ssm: bool       # Mamba-2 blocks by SSD heads
 
 
 def _on_model(rules, logical: str) -> bool:
@@ -127,10 +139,11 @@ def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int,
     when ``num_kv_heads % tp == 0``, else each rank projects the kv heads
     its q heads read from the whole wk/wv), the MLP when ``dense_width %
     tp == 0``, an MoE layer's shared experts when ``num_shared *
-    d_ff_expert % tp == 0`` (the routed experts stay on EP), the
-    vocabulary when ``padded_vocab % tp == 0`` and some layer block splits
-    (a model none of whose layers split, mamba2-2.7b's, computes wholly
-    gathered)."""
+    d_ff_expert % tp == 0`` (the routed experts stay on EP), the RG-LRU
+    block ("ffn") when ``rnn_width`` and ``rnn_heads`` divide by ``tp``,
+    the Mamba-2 block ("ffn") when its SSD heads do, the vocabulary when
+    ``padded_vocab % tp == 0`` and some layer block splits (a model none
+    of whose layers split computes wholly gathered)."""
     rules = _active()[1] if rules is None else dict(DEFAULT_RULES, **rules)
     tp = int(tp)
     heads = tp > 1 and _on_model(rules, "heads") and \
@@ -141,12 +154,24 @@ def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int,
     moe = cfg.moe
     shared = ffn_on and moe is not None and moe.num_shared > 0 and \
         (moe.num_shared * moe.d_ff_expert) % tp == 0
-    vocab = (heads or ffn or shared) and _on_model(rules, "vocab") and \
-        cfg.padded_vocab % tp == 0
-    return TPPlan(tp, heads, kv, ffn, vocab, shared)
+    rec = ffn_on and "rec" in mixers and \
+        (cfg.rnn_width or cfg.d_model) % tp == 0 and cfg.rnn_heads % tp == 0
+    ssm = ffn_on and "ssm" in mixers and cfg.ssm is not None and \
+        (cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim) % tp == 0
+    vocab = (heads or ffn or shared or rec or ssm) and \
+        _on_model(rules, "vocab") and cfg.padded_vocab % tp == 0
+    return TPPlan(tp, heads, kv, ffn, vocab, shared, rec, ssm)
 
 
 _MLA_SPLIT = ("wq", "wq_b", "wkv_b", "wo")
+# the scan blocks' leaves -> the logical axis each is split on; a leaf
+# stored whole (logical axes None or "norm") is cut on its last dim
+_REC_SPLIT = {"wx": "ffn", "wg": "ffn", "conv_w": "ffn", "wo": "ffn",
+              "a_log": "ffn", "b_ga": "ffn", "b_gx": "ffn",
+              "w_ga": "heads", "w_gx": "heads"}
+_SSM_SPLIT = {"in_proj": SECTIONS, "conv_w": SECTIONS, "out_proj": "ffn",
+              "norm": "ffn", "dt_bias": "heads", "A_log": "heads",
+              "D": "heads"}
 
 
 def compute_axis(plan: Optional[TPPlan], block: Optional[str],
@@ -158,9 +183,16 @@ def compute_axis(plan: Optional[TPPlan], block: Optional[str],
     MoE layer's shared experts, "vocab" for ``embed``/``head``, None for
     the rest (norms, cross-attention). MLA splits ``wq_b`` (or ``wq``),
     ``wkv_b`` and ``wo`` by heads; its ``wq_a``, ``wkv_a`` and norms act
-    ahead of the split and are gathered."""
+    ahead of the split and are gathered. A split ``rec`` block takes
+    every leaf at this rank's RNN channels ("ffn") or heads, a split
+    ``ssm`` block at its SSD heads ("heads", or "ffn" for the channels of
+    those heads), ``in_proj`` and ``conv_w`` by ``SECTIONS``."""
     if plan is None:
         return None
+    if block == "rec":
+        return _REC_SPLIT.get(leaf) if plan.rec else None
+    if block == "ssm":
+        return _SSM_SPLIT.get(leaf) if plan.ssm else None
     if block == "mla" and plan.heads:
         if leaf in _MLA_SPLIT:
             return "heads"
@@ -174,6 +206,13 @@ def compute_axis(plan: Optional[TPPlan], block: Optional[str],
     elif block == "vocab" and plan.vocab:
         return "vocab"
     return None
+
+
+def compute_dim(axes: Sequence[Optional[str]], ax: str) -> int:
+    """The tensor dim a leaf of logical ``axes`` is split on for
+    ``compute_axis`` ``ax``: the dim that names ``ax``, else (a leaf stored
+    whole) its last."""
+    return axes.index(ax) if ax in axes else len(axes) - 1
 
 
 def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
@@ -193,7 +232,9 @@ def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
 class CacheLayout(NamedTuple):
     """The mesh axes a decode-cache leaf's resolved spec puts on its batch,
     sequence (or ring-slot) and kv-heads dims, major to minor (() where a
-    dim is whole)."""
+    dim is whole). A scan cache has no sequence; its ``heads`` are its
+    channel dim ("ffn": the RG-LRU's window and state, Mamba-2's flat conv
+    window) or its SSD heads (Mamba-2's state)."""
     batch: Tuple[str, ...]
     seq: Tuple[str, ...]
     heads: Tuple[str, ...]
@@ -207,9 +248,11 @@ def cache_layout(logical: Sequence[Optional[str]], shape: Sequence[int],
     reference's ``attn_cache_axes`` resolve to heads over "model" with the
     sequence on "data" where the batch leaves it (a kv-head-rich cache), or
     the sequence over ("data", "model") less the axes the batch takes (any
-    other), or over no axis where the dim does not divide. A split block's
-    decode reads and writes this shard in place (``sharding.tp``), so no
-    relayout meets two mesh axes on one tensor dim."""
+    other), or over no axis where the dim does not divide; a scan cache's
+    ``rec_cache_axes``/``ssm_cache_axes`` resolve its channels or heads
+    over "model". A split block's decode reads and writes this shard in
+    place (``sharding.tp``), so no relayout meets two mesh axes on one
+    tensor dim."""
     spec = resolve(logical, shape, mesh, rules)
 
     def axes(names):
@@ -219,7 +262,7 @@ def cache_layout(logical: Sequence[Optional[str]], shape: Sequence[int],
                 return (e,) if isinstance(e, str) else tuple(e)
         return ()
     return CacheLayout(axes(("batch",)), axes(("seq_kv", "seq_data")),
-                       axes(("heads",)))
+                       axes(("heads", "ffn")))
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

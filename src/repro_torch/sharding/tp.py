@@ -14,6 +14,10 @@ engine's device thread, computes in the same region. Each primitive is an
                     rank and whole after the sum);
 * ``reduce_from`` — all-reduce forward, identity backward: the output of a
                     row-parallel block;
+* ``sum_over``    — all-reduce forward, all-reduce backward: a sum that
+                    every rank's outputs read (Mamba-2's gated norm's sum
+                    of squares over the SSD heads), whose gradient on each
+                    rank is partial;
 * ``vocab_embed`` — a lookup in this rank's vocabulary rows, the ids it
                     does not own masked to zero, then ``reduce_from`` (a sum
                     of one row and zeros: the whole table's lookup, exactly);
@@ -60,7 +64,8 @@ class CacheShard(NamedTuple):
     ``seq_index`` of ``seq_count`` along the sequence (or ring-slot) dim,
     whose partial softmax is combined over ``seq_groups`` (the groups of
     the sequence's mesh axes, major to minor), and slice ``heads_index`` of
-    ``heads_count`` along the kv heads (1: every kv head)."""
+    ``heads_count`` along the kv heads (1: every kv head), or along a scan
+    cache's channels or SSD heads."""
     seq_groups: Tuple[object, ...]
     seq_index: int
     seq_count: int
@@ -166,12 +171,29 @@ class _ReduceFromRegion(torch.autograd.Function):
         return g, None
 
 
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
 def copy_to(x, tp: Region):
     return _CopyToRegion.apply(x, tp.group)
 
 
 def reduce_from(x, tp: Region):
     return _ReduceFromRegion.apply(x, tp.group)
+
+
+def sum_over(x, tp: Region):
+    """``x`` summed over the region's ranks, whose gradient is summed too:
+    each rank's outputs depend on every rank's ``x``."""
+    return _SumOver.apply(x, tp.group)
 
 
 def vocab_embed(tokens, rows, tp: Region, dtype):

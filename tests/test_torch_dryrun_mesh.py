@@ -3,8 +3,8 @@ reference's JSONL record on both production meshes, the port's
 tensor-parallel compute of train and serving cells (on (2, 4) each rank
 does (2, 1)'s FLOPs less 3/4 of the split blocks'; the MoE families' do
 their gathered (2, 4) step's less 3/4 of theirs, the routed experts on EP
-in both; a model none of whose layers split still computes gathered,
-ROADMAP Queue 1 item 4c),
+in both; mamba2-2.7b's ``ssm`` blocks split by SSD heads, all but the B
+and C sections every rank computes whole),
 and a train cell traced with the ``OptConfig`` it is given."""
 import json
 
@@ -102,6 +102,22 @@ def _moe_split_flops(cfg, B, S, kind):
     return cfg.num_layers * (proj + core) + mlp + 2 * B * D * V
 
 
+def _ssm_whole_flops(cfg, B, kind):
+    """The matmul FLOPs of mamba2-2.7b's split step that every rank of the
+    model axis computes whole, B sequences of 128 tokens: ``in_proj``'s B
+    and C columns (four times in a train step: forward, remat's recompute,
+    the backward's two products) and, in a decode step, the conv window's
+    B and C channels (``einsum("bkc,kc->bc")``; a full sequence's conv is
+    elementwise)."""
+    s = cfg.ssm
+    gn2 = 2 * s.ngroups * s.d_state
+    T = B * 128 if kind != "decode" else B
+    flops = 2 * T * cfg.d_model * gn2 * (4 if kind == "train" else 1)
+    if kind == "decode":
+        flops += 2 * B * s.d_conv * gn2
+    return cfg.num_layers * flops
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b",
                                   "deepseek-moe-16b", "deepseek-v2-236b"])
@@ -110,9 +126,10 @@ def test_model_axis_splits_the_train_compute(arch, kind):
     its attention's, MLPs' and head's, which are all of them: in the train
     step (``_split_flops``) and in the serving calls (``_serve_flops``; a
     decode step attends every head over its quarter of the cache, whose
-    sequence is split over "model"). Every step of mamba2-2.7b (no layer
-    block splits, so neither does its vocabulary) computes gathered: (2,
-    4) does (2, 1)'s FLOPs. The MoE families on (2, 4) do the FLOPs of the
+    sequence is split over "model"). mamba2-2.7b's ``ssm`` blocks split by
+    SSD heads and its vocabulary by rows: (2, 4) does (2, 1)'s FLOPs less
+    3/4 of all but those every rank computes whole (``_ssm_whole_flops``).
+    The MoE families on (2, 4) do the FLOPs of the
     same step with "heads", "ffn" and "vocab" kept off "model" (EP beside
     gathered compute: the routed experts as in the split step) less 3/4
     of their split blocks' (``_moe_split_flops``)."""
@@ -135,7 +152,9 @@ def test_model_axis_splits_the_train_compute(arch, kind):
         assert split == f[(2, 1)]
         assert f[(2, 4)] == f[(2, 1)] - 3 * split / 4
     else:
-        assert f[(2, 4)] == f[(2, 1)]
+        split = f[(2, 1)] - _ssm_whole_flops(cfg, 8 // 2, kind)
+        assert 0 < split < f[(2, 1)]
+        assert f[(2, 4)] == f[(2, 1)] - 3 * split / 4
 
 
 def test_train_cell_traces_the_given_opt_config():

@@ -9,9 +9,10 @@ scaled embeddings), stablelm-1.6b (LayerNorm, partial RoPE) and gemma3-1b
 (MQA, ``qk_norm``, window, tied: its one kv head is gathered), and a GQA
 variant of deepseek-7b (8 q heads, 2 kv heads: on a model axis of 4 two
 ranks read each kv head, sliced from the gathered wk/wv), on meshes
-(1, 4) and (2, 2); recurrentgemma-9b and seamless-m4t on (1, 4), whose
-RG-LRU, encoder and cross-attention mixers compute gathered beside split
-dense MLPs and vocabulary, against the unsharded port alone. Each case's
+(1, 4) and (2, 2); seamless-m4t on (1, 4), whose encoder and
+cross-attention mixers compute gathered beside split dense MLPs and
+vocabulary, against the unsharded port alone (the scan mixers' split is
+``tests/test_torch_tp_scan.py``'s). Each case's
 logits, loss, every gradient and one AdamW step at the rtol 1e-4 of
 ``tests/test_torch_train.py`` (elements near 0 at 1e-4 of the leaf's
 largest; params within 2 lr), and each rank's compute copy of every leaf
@@ -59,14 +60,13 @@ MODELS = {"deepseek-7b": ("deepseek-7b", {}),
           "stablelm-1.6b": ("stablelm-1.6b", {}),
           "gemma3-1b": ("gemma3-1b", {}),
           "gqa": ("deepseek-7b", {"num_heads": 8, "num_kv_heads": 2}),
-          "recurrentgemma-9b": ("recurrentgemma-9b", {}),
           "seamless-m4t-large-v2": ("seamless-m4t-large-v2", {})}
 MESHES = ((1, 4), (2, 2))
 CASES = [(m, s) for m in list(MODELS)[:4] for s in MESHES] + \
     [("gqa", (1, 4))]
 # mixers that compute gathered beside split dense MLPs and vocabulary
-# (rec; enc and xdec over 32 seeded frames): against the unsharded port
-MIXED = [("recurrentgemma-9b", (1, 4)), ("seamless-m4t-large-v2", (1, 4))]
+# (enc and xdec over 32 seeded frames): against the unsharded port
+MIXED = [("seamless-m4t-large-v2", (1, 4))]
 
 
 def _cfg(model):
@@ -211,11 +211,11 @@ def runs(tmp_path_factory):
     return z, port, unsharded, jx
 
 
-def _close(got, want, what, scale=1):
-    """rtol 1e-4, elements near 0 at ``scale`` x 1e-4 of the largest."""
+def _close(got, want, what):
+    """rtol 1e-4, elements near 0 at 1e-4 of the largest."""
     got, want = np.asarray(got), np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=RTOL,
-                               atol=scale * RTOL * float(np.abs(want).max()),
+                               atol=RTOL * float(np.abs(want).max()),
                                err_msg=what)
 
 
@@ -332,29 +332,21 @@ def test_compute_copies_are_the_ranks_slices(runs, case):
 
 @pytest.mark.parametrize("case", MIXED, ids=_case_id)
 def test_split_mlps_beside_gathered_mixers(runs, case):
-    """recurrentgemma-9b (RG-LRU layers and windowed MQA) and seamless-m4t
-    (encoder and decoder-with-cross-attention layers): the dense MLPs and
-    the vocabulary split, these mixers gathered; loss, grad_norm, every
-    gradient and the step's params against the unsharded port, as
-    ``tests/test_torch_archs.py`` holds these archs: recurrentgemma-9b's
-    gradient leaves within a relative L2 error of 1e-4, each element within
-    1e-4 of itself plus 2e-4 of the leaf's largest; seamless-m4t's
+    """seamless-m4t (encoder and decoder-with-cross-attention layers): the
+    dense MLPs and the vocabulary split, these mixers gathered; loss,
+    grad_norm and the step's params against the unsharded port. Its
     random-init encoder runs its residual stream into the hundreds and
-    carries another summation order's last bits past that (its encoder
-    wv at 1.1e-4), so its step is held by loss, grad_norm and params."""
+    carries another summation order's last bits past a gradient limit of
+    1e-4 (its encoder wv at 1.1e-4), so its step is held by loss,
+    grad_norm and params, as ``tests/test_torch_archs.py`` holds it."""
     z, port, unsharded, _ = runs
     model = case[0]
     plan = port[0][case]["plan"]
-    assert plan.ffn and plan.vocab
-    assert plan.heads == (model == "recurrentgemma-9b")
+    assert plan.ffn and plan.vocab and not plan.heads
     mets, want = port[0][case]["metrics"], unsharded[model]
     assert all(r[case]["metrics"] == mets for r in port)
     for k in ("loss", "grad_norm", "lr"):
         np.testing.assert_allclose(mets[k], want[0][k], rtol=RTOL, err_msg=k)
-    for n, g in port[0][case]["grads"].items():
-        if model == "recurrentgemma-9b":
-            _close(g.numpy(), want[3][n].numpy(), n, scale=2)
-            assert _rel_l2(g.numpy(), want[3][n].numpy()) <= RTOL, n
     for n, t in port[0][case]["params"].items():
         np.testing.assert_allclose(t.numpy(), want[4]["params"][n].detach()
                                    .numpy(), atol=2 * want[0]["lr"], rtol=0,
@@ -367,13 +359,15 @@ def test_split_mlps_beside_gathered_mixers(runs, case):
     ("gemma3-1b", 4, (True, False, True, True)),      # one kv head
     ("gqa", 4, (True, False, True, True)),            # 2 kv heads
     ("gqa", 2, (True, True, True, True)),
-    ("mamba2-2.7b", 4, (False, False, False, False)),   # no split layer
+    ("mamba2-2.7b", 4, (False, False, False, True)),    # ssm by heads
     ("deepseek-moe-16b", 4, (True, True, True, True)),   # beside EP
     ("seamless-m4t-large-v2", 4, (False, False, True, True)),
 ])
 def test_the_plan_splits_whole_units(model, tp, want):
     """``LM.tp_plan``: heads, kv heads, ffn and vocabulary split only where
-    their unit divides the axis, and only in the slice's blocks."""
+    their unit divides the axis, and only in the slice's blocks (mamba2-2.7b
+    splits its vocabulary beside its ``ssm`` blocks, which split by SSD
+    heads)."""
     cfg = _cfg(model) if model in MODELS else get_smoke_config(model)
     plan = LM(cfg, device="meta").tp_plan(tp)
     assert (plan.heads, plan.kv, plan.ffn, plan.vocab) == want
