@@ -1760,20 +1760,20 @@ SCAN_OF_PATH = {"mamba2-2.7b": "ssd", "recurrentgemma-9b": "rglru"}
 
 def _kernel_witness_control(run, as_witness, as_control, **more):
     """``run(impl)`` -> a tensor, through the kernels (``impl=None``) and
-    the plain code, then the plain code inside the ``as_witness`` and the
-    ``as_control`` context (a second correct code, a fault) and inside
-    each further witness context of ``more``. Returns their relative L2
-    errors against the plain code's output (``witness_<name>_vs_plain``
-    for those of ``more``), and the kernels' and the plain code's
-    outputs."""
+    the plain code, then the plain code inside the ``as_witness`` (None:
+    none) and the ``as_control`` context (a second correct code, a fault)
+    and inside each further witness context of ``more``. Returns their
+    relative L2 errors against the plain code's output
+    (``witness_<name>_vs_plain`` for those of ``more``), and the kernels'
+    and the plain code's outputs."""
     k, p = run(None), run("plain")
     assert k.isfinite().all() and k.shape == p.shape
-    with as_witness:
-        w = run("plain")
+    errs = dict(kernel_vs_plain=_rel(k, p))
+    if as_witness is not None:
+        with as_witness:
+            errs["witness_vs_plain"] = _rel(run("plain"), p)
     with as_control:
-        c = run("plain")
-    errs = dict(kernel_vs_plain=_rel(k, p), witness_vs_plain=_rel(w, p),
-                control_vs_plain=_rel(c, p))
+        errs["control_vs_plain"] = _rel(run("plain"), p)
     for name, ctx in more.items():
         with ctx:
             errs[f"witness_{name}_vs_plain"] = _rel(run("plain"), p)
@@ -1996,11 +1996,11 @@ def phase_logits_attn(lm):
 
     gates = []
 
-    def gate(name, run, n_launches, limit, sdpa):
+    def gate(name, run, n_launches, limit, sdpa, chunks=True):
         more = {"sdpa": plain_attention_as(_sdpa_witness)} if sdpa else {}
         before = flash_counts()
         errs, k, p = _kernel_witness_control(
-            run, plain_attention_as(_plain_small_chunks),
+            run, plain_attention_as(_plain_small_chunks) if chunks else None,
             plain_attention_as(_plain_mask_fault), **more)
         ran = {r: flash_counts()[r] - before[r] for r in before}
         route = "tc" if sdpa else "fma"
@@ -2032,7 +2032,12 @@ def phase_logits_attn(lm):
         n = HIDDEN_GATE_LAYERS.get(cfg.name, GATE_LAYERS)
         gate(f"bf16_hidden{n}", lambda impl: _hidden_after(lm, p0, n, impl),
              n, LOGITS_REL_L2, True)
-    lk, lp = gate("bf16_logits", last_logits(lm), None, None, True)
+    # the whole model's bf16 logits, not gated (random init keeps no
+    # digit there); seamless-m4t's without the 64-row witness, which took
+    # 33 of the phase's 62 s over its 24 encoder layers at 4096 frames
+    # (PERF.md §4), beside SDPA's
+    lk, lp = gate("bf16_logits", last_logits(lm), None, None, True,
+                  chunks=not encdec)
     assert lk.shape == (1, cfg.padded_vocab)
     if cfg.moe is not None:
         out.update(_routing_shares(lm, p0))
@@ -2354,7 +2359,7 @@ TRAIN_PATHS = {
                       bf16_norm=(VLM_NORM_REL_BF16, "drops_delta"),
                       fp32_norm=False,
                       bf16_loss=(VLM_LOSS_REL_BF16, "drops_diagonal")),
-    # seamless-m4t-large-v2 at 12 of its 24 encoder and 12 of its 24
+    # seamless-m4t-large-v2 at 6 of its 24 encoder and 6 of its 24
     # decoder layers (24 + 24 until dist-tp's MoE paths took their time,
     # 12 + 12 until its scan paths did);
     # 2048 seeded frames (the reference's train batch
@@ -3424,7 +3429,10 @@ DIST_TP_LOSS_REL = 1e-4  # fp32 step 1's loss: the forward keeps its digits
 # replayed) keeps fewer: 8.4% in fp32 under the witness, 7.0% split;
 # recurrentgemma-9b's (one period) keeps its digits (the witness moves the
 # loss 1.3e-7, grad_norm not at all), mamba2-2.7b's (4 layers) most (its
-# grad_norm 1.6e-5 under the witness, 7.3e-6 split).
+# grad_norm 1.6e-5 under the witness, 7.3e-6 split); seamless-m4t-large-v2's
+# at 1 + 1 layers, without clipping (no grad_norm), all of its loss: 0
+# under the witness and split, and its ``m`` 0.062 of its limit where the
+# control's is 17761 times over (an H100).
 # Each limit sits between
 # the witnesses and the control as read on an H100 (PERF.md §6), and each
 # run reads them again
@@ -3435,7 +3443,8 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
                ("deepseek-moe-16b", "float32"): 0.1,
                ("deepseek-v2-236b", "float32"): 1e-3,
                ("recurrentgemma-9b", "float32"): 1e-3,
-               ("mamba2-2.7b", "float32"): 1e-3}
+               ("mamba2-2.7b", "float32"): 1e-3,
+               ("seamless-m4t-large-v2", "float32"): 1e-3}
 # the fp32 gradient, leaf by leaf: ``m`` after step 1 is (1 - b1) x the
 # gradient, and each rank's shard of each leaf is held against the same cut
 # of the unsharded step's ``m`` by relative L2 (the worst shard). Each
@@ -3449,7 +3458,8 @@ DIST_TP_REL = {("deepseek-7b", "float32"): 0.1,
 DIST_TP_M_MULT = 1.25
 DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4,
                    "deepseek-moe-16b": 1e-2, "deepseek-v2-236b": 1e-4,
-                   "recurrentgemma-9b": 1e-4, "mamba2-2.7b": 1e-4}
+                   "recurrentgemma-9b": 1e-4, "mamba2-2.7b": 1e-4,
+                   "seamless-m4t-large-v2": 1e-4}
 
 
 # dist-tp serving, after each path's train steps in each dtype, on the same
@@ -3474,7 +3484,12 @@ DIST_TP_M_FLOOR = {"deepseek-7b": 1e-2, "gemma3-1b": 1e-4,
 # The scan paths' bf16 logits: recurrentgemma-9b's move 8.0e-3 under the
 # witness, 0.46 under its control (the RG-LRU block's all-reduce dropped);
 # mamba2-2.7b's 5.0e-2 and 0.71 (the gated norm's sum over heads dropped),
-# so its limit is 0.2
+# so its limit is 0.2. Random-init seamless-m4t-large-v2's bf16 logits
+# keep no digit (``logits-seamless`` reads its whole model's at 0.69 under
+# the witness): at 2 + 2 layers the witness moves them 0.5635, the split
+# run as much (it matches the witness's sums), and the control (the
+# cross-attention's all-reduce dropped) 0.7846 (an H100), so its limit is
+# 0.7
 DIST_TP_PROMPTS = (2048, 1024, 512, 256)
 DIST_TP_CAPACITY = 2304
 DIST_TP_DECODE = 4       # 8 until dist-tp's scan paths took their time
@@ -3487,7 +3502,8 @@ DIST_TP_SERVE_REL = {("deepseek-7b", "float32"): 2e-3,
                      ("deepseek-moe-16b", "bfloat16"): 1.0,
                      ("deepseek-v2-236b", "bfloat16"): 0.1,
                      ("recurrentgemma-9b", "bfloat16"): 0.1,
-                     ("mamba2-2.7b", "bfloat16"): 0.2}
+                     ("mamba2-2.7b", "bfloat16"): 0.2,
+                     ("seamless-m4t-large-v2", "bfloat16"): 0.7}
 # dist-tp's MoE paths, a second spawn of the four ranks on the same (1, 4)
 # mesh, EP and TP both over "model", at full width. deepseek-moe-16b at 4 of
 # its 28 layers (1 dense + 3 MoE), trained and served: a rank holds 4 of 16
@@ -3538,6 +3554,18 @@ DIST_TP_JOIN_S = 2 * DIST_TIMEOUT_S
 DIST_TP_SCAN_PATHS = (("recurrentgemma-9b", 3, "rec"),
                       ("mamba2-2.7b", 4, "ssm"))
 DIST_TP_SCAN_DECODE = 4
+# dist-tp's encoder-decoder path, in the same spawn after the scan ones, at
+# full width: seamless-m4t-large-v2 trained at 1 + 1 layers (encoder,
+# decoder) in fp32 without clipping, as train-encdec steps, on
+# TRAIN_S frames and tokens, and served in bf16 at 2 + 2 layers over
+# frontend_tokens (4096) seeded frames a prompt. A rank holds 4 of the 16
+# heads and kv heads of the encoder's self-attention, the decoder's
+# self-attention and its cross-attention (the flash kernels at
+# [1,S,4,64], the cross-attention over the frames), 2048 of 8192 ffn
+# columns and a quarter of the tied vocabulary; its self and cross caches
+# keep their kv heads over "model". The control, trained and served: the
+# cross-attention's all-reduce dropped (``_cross_unsummed``)
+DIST_TP_ENCDEC_PATHS = (("seamless-m4t-large-v2", 1, 2, "cross"),)
 
 
 def _stack_caches(caches, axes):
@@ -3614,10 +3642,12 @@ def _sums_in_parts(n):
     """The unsharded step with the split step's order of sums, in one
     process: each column-parallel product (q, k and v where the kv heads
     split, MLA's wq_b and wkv_b, the MLPs' and the shared experts' wi*,
-    the logits, the RG-LRU block's wx and wg, Mamba-2's in_proj) taken as
+    the logits, the RG-LRU block's wx and wg, Mamba-2's in_proj, the
+    cross-attention's wq, and its wk and wv of the encoder output) taken as
     ``n`` column groups, so that the backward sums ``n`` partial input
     gradients, and each row-parallel one (attention's, MLA's, the MLPs',
-    the shared experts' and the RG-LRU block's wo, Mamba-2's out_proj) as
+    the shared experts', the RG-LRU block's and the cross-attention's wo,
+    Mamba-2's out_proj) as
     ``n`` partial products summed in fp32, each rounded to the compute
     dtype first; Mamba-2's gated norm sums its squares in ``n`` parts. A
     correct code that differs from the unsharded one in order alone: the
@@ -3667,6 +3697,9 @@ def _sums_in_parts(n):
         return rows(o.reshape(B, S, H * hd), p["wo"])
 
     def apply_mlp(cfg, p, x, tp=None):
+        if "wi" in p:       # the plain gelu MLP (seamless-m4t's)
+            return rows(F.gelu(cols(x, p["wi"]), approximate="tanh"),
+                        p["wo"])
         g = cols(x, p["wi_gate"])
         g = F.silu(g) if cfg.mlp_kind == "swiglu" else \
             F.gelu(g, approximate="tanh")
@@ -3711,6 +3744,28 @@ def _sums_in_parts(n):
         y = rows(o.reshape(B, S, H * v), p["wo"])
         return y, (A.mla_prefill_cache(c, kpe, capacity)
                    if capacity is not None else None)
+
+    def xattn_kv(cfg, p, enc_out, tp=None):
+        B, Se, _ = enc_out.shape
+        kv = cfg.num_kv_heads % n == 0
+        shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
+        return (cols(enc_out, p["wk"], kv).reshape(shape),
+                cols(enc_out, p["wv"], kv).reshape(shape))
+
+    def xattn_forward(cfg, p, x, k, v, *, impl=None, tp=None):
+        B, S, _ = x.shape
+        q = cols(x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        o = ops.attention(q, k, v, causal=False, impl=impl)
+        return rows(o.reshape(B, S, cfg.q_dim), p["wo"])
+
+    def xattn_decode(cfg, p, x, cache, tp=None):
+        B = x.shape[0]
+        q = cols(x, p["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+        Se = cache["xk"].shape[1]
+        lengths = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+        o = ops.attention_decode(q, cache["xk"], cache["xv"], lengths)
+        return rows(o.reshape(B, 1, cfg.q_dim), p["wo"])
+
     def gated_norm(y, z, scale, eps, tp=None, width=None):
         yf = (y * F.silu(z)).float()
         k = yf.shape[-1] // n
@@ -3790,7 +3845,9 @@ def _sums_in_parts(n):
            (REC, "rec_prefill", rec_prefill),
            (REC, "rec_decode", rec_decode),
            (SSM, "ssm_prefill", ssm_prefill),
-           (SSM, "ssm_decode", ssm_decode))
+           (SSM, "ssm_decode", ssm_decode), (A, "xattn_kv", xattn_kv),
+           (A, "xattn_forward", xattn_forward),
+           (A, "xattn_decode", xattn_decode))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in fns]
     for mod, name, fn in fns:
         setattr(mod, name, fn)
@@ -3824,6 +3881,44 @@ def _scan_unsummed(kind):
         yield
     finally:
         mod.TP = real
+
+
+@contextmanager
+def _cross_unsummed():
+    """The encoder-decoder path's control (``DIST_TP_ENCDEC_PATHS``): the
+    cross-attention's output left unsummed over "model", each rank's share
+    of its ``wo`` taken as the whole, in the prefill and the decode (the
+    backward of that all-reduce is the identity either way)."""
+    from repro_torch.models import attention as A
+    from repro_torch.sharding import tp as TP
+    shim = types.SimpleNamespace(copy_to=TP.copy_to,
+                                 reduce_from=lambda y, tp: y)
+    real = {k: getattr(A, k) for k in ("xattn_forward", "xattn_decode")}
+
+    def unsummed(fn):
+        def run(*a, **kw):
+            A.TP = shim
+            try:
+                return fn(*a, **kw)
+            finally:
+                A.TP = TP
+        return run
+    for k, fn in real.items():
+        setattr(A, k, unsummed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(A, k, fn)
+
+
+# a path's own control (``control`` in ``_dist_tp_paths``) and its name
+PATH_CONTROLS = {"rec": ("the RG-LRU block's all-reduce dropped",
+                         lambda: _scan_unsummed("rec")),
+                 "ssm": ("the gated norm's sum over heads dropped",
+                         lambda: _scan_unsummed("ssm")),
+                 "cross": ("the cross-attention's all-reduce dropped",
+                           _cross_unsummed)}
 
 
 @contextmanager
@@ -3901,8 +3996,10 @@ def _tp_place(lm, mesh):
 
 def _dist_tp_paths():
     """dist-tp's paths (``_dist_tp_rank``): the dense ones, trained and
-    served in both dtypes at one depth, the scan ones, then the MoE ones;
-    ``control`` names a scan path's control (``_scan_unsummed``)."""
+    served in both dtypes at one depth, the scan ones and the
+    encoder-decoder, then the MoE ones; ``control`` names a path's own
+    control (``PATH_CONTROLS``), ``opt`` its ``OptConfig`` fields beside
+    the default."""
     dense = [dict(label=a, train=_train_cfg(a, n, "bfloat16"),
                   serve=_train_cfg(a, n, "bfloat16"), steps=DIST_TP_STEPS,
                   serve_dtypes=tuple(DIST_TP_STEPS), decode=DIST_TP_DECODE)
@@ -3912,6 +4009,12 @@ def _dist_tp_paths():
                    steps={"float32": 2}, serve_dtypes=("bfloat16",),
                    decode=DIST_TP_SCAN_DECODE, control=kind)
               for a, n, kind in DIST_TP_SCAN_PATHS]
+    dense += [dict(label=a, train=_train_cfg(a, nt, "bfloat16"),
+                   serve=_train_cfg(a, ns, "bfloat16"),
+                   steps={"float32": 2}, serve_dtypes=("bfloat16",),
+                   decode=DIST_TP_DECODE, control=kind,
+                   opt={"clip_norm": 0.0})
+              for a, nt, ns, kind in DIST_TP_ENCDEC_PATHS]
     import dataclasses
 
     def no_drops(cfg):
@@ -3967,7 +4070,7 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device(device).type == "cuda"
     mesh = make_mesh((1, world), ("data", "model"), device=device)
-    opt = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    opt = None       # each path's (its ``opt`` fields beside these)
 
     def sync():
         if cuda:
@@ -4131,13 +4234,22 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
 
     def serve_case(key, cfg, dtype, decode_steps, control=None):
         """The serving half of a path in one dtype (``phase_dist_tp``);
-        ``control`` a scan path's (``_scan_unsummed``)."""
+        ``control`` a path's own (``PATH_CONTROLS``). A prompt is a batch
+        of B=1: its tokens, and an encoder-decoder's seeded frames
+        (``cfg.frontend_tokens`` of them, normal, std 0.02)."""
         from repro_torch.configs.base import ShapeConfig
         from repro_torch.launch import specs
         fp32 = dtype == "float32"
         g = torch.Generator(device=DEVICE).manual_seed(2)
-        prompts = [torch.randint(0, cfg.vocab_size, (1, s), generator=g,
-                                 device=DEVICE) for s in DIST_TP_PROMPTS]
+        prompts = []
+        for s_ in DIST_TP_PROMPTS:
+            b = {"tokens": torch.randint(0, cfg.vocab_size, (1, s_),
+                                         generator=g, device=DEVICE)}
+            if cfg.encoder_layers:
+                b["frames"] = torch.randn(
+                    (1, cfg.frontend_tokens, cfg.d_model), generator=g,
+                    device=DEVICE) * 0.02
+            prompts.append(b)
         res, want, t0 = {"s": {}}, [None], time.perf_counter()
         rec = []          # the unsharded run's routing, replayed by each code
         moe_layers = cfg.num_layers - cfg.moe.first_k_dense if cfg.moe \
@@ -4153,14 +4265,14 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             with pinned_routing(rec), MOE.drop_counts() as drops:
-                ref = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
+                ref = serve_run(lambda b: lm.prefill(b, cap),
                                 lm.decode_step, axes, prompts,
                                 steps=decode_steps)
             res["unsharded_peak_gib"] = peak()
             res["unsharded_dropped"] = dropped(drops, False)
             with _sums_in_parts(world), _decode_in_parts(world), \
                     (pinned_routing(list(rec)) if rec else nullcontext()):
-                wit = serve_run(lambda t: lm.prefill({"tokens": t}, cap),
+                wit = serve_run(lambda b: lm.prefill(b, cap),
                                 lm.decode_step, axes, prompts,
                                 forced=ref["tokens"][:, :-1],
                                 steps=decode_steps)
@@ -4189,9 +4301,9 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
                 pre = specs.build_fn(dict(sp, lm=lm))
                 dec = specs.build_fn(dict(sd, lm=lm))
 
-            def prefill(t):
+            def prefill(b):
                 with part.activate(mesh):
-                    c, lg = pre(params, {"tokens": t})
+                    c, lg = pre(params, b)
                 return c, lg.to_local()
 
             def decode(c, t):
@@ -4270,10 +4382,8 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
             combines = control is None and any(
                 v.seq for v in layouts.values())
             if control is not None:
-                ctl_ctx, name = _scan_unsummed(control), {
-                    "rec": "the RG-LRU block's all-reduce dropped",
-                    "ssm": "the gated norm's sum over heads dropped"}[
-                        control]
+                name, ctl = PATH_CONTROLS[control]
+                ctl_ctx = ctl()
             elif combines:
                 def uncombined(o, m, l, groups):
                     return o / l[:, None, :, None]
@@ -4325,7 +4435,7 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
 
     def train_case(res, key, cfg, dtype, n, control=None):
         """The train half of a path in one dtype (``phase_dist_tp``);
-        ``control`` a scan path's (``_scan_unsummed``)."""
+        ``control`` a path's own (``PATH_CONTROLS``)."""
         fp32 = dtype == "float32"
         want, rec = None, []
         if rank == 0:
@@ -4437,7 +4547,7 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
         free()
         if fp32:      # the control: the norms' gradients summed again,
             # or a scan path's own
-            with (_scan_unsummed(control) if control else
+            with (PATH_CONTROLS[control][1]() if control else
                   _norms_summed(_norms_summed_again)), \
                     pins(rec[:len(rec) // n]):
                 lm, state, rows, _ = tp_run(
@@ -4462,6 +4572,8 @@ def _dist_tp_rank(rank, world, device, paths, seq, ep=None):
     cap = DIST_TP_CAPACITY
     out = {"rank": rank, "cases": {}, "seconds": {}}
     for path in paths:
+        opt = adamw.OptConfig(lr=3e-4, warmup_steps=0, total_steps=100,
+                              **path.get("opt", {}))
         for dtype in dict.fromkeys(tuple(path["steps"]) +
                                    tuple(path["serve_dtypes"])):
             key = f"{path['label']} {dtype}"
@@ -4506,9 +4618,12 @@ def _path_launches(cfg, n, train):
     layers (each layer's forward and remat's recompute, a flash backward
     per attention layer; the scans' gradients recompute their plain
     versions) or in ``n`` prefills (one per layer; a decode step is plain
-    for every mixer)."""
+    for every mixer); an encoder-decoder's encoder layers and decoder
+    cross-attentions launch the flash kernels too."""
     want = dict.fromkeys(kernel_counts(), 0)
-    for mixer in cfg.layer_kinds:
+    kinds = list(cfg.layer_kinds) + ["attn"] * (
+        cfg.encoder_layers + (cfg.num_layers if cfg.encoder_layers else 0))
+    for mixer in kinds:
         kname = KERNEL_OF_MIXER[mixer]
         want[kname] += (2 if train else 1) * n
         if train and kname == "flash_attention_fwd":
@@ -4582,9 +4697,9 @@ def _serve_report(arch, cfg, key, route, res, bad, decode):
     return sv
 
 
-def _train_report(arch, cfg, key, n, res, bad, out, scan_control=None):
+def _train_report(arch, cfg, key, n, res, bad, out, path_control=None):
     """The train half of ``phase_dist_tp`` for one path and dtype
-    (``cfg``'s layers, ``n`` steps; ``scan_control`` a scan path's
+    (``cfg``'s layers, ``n`` steps; ``path_control`` a path's own
     control): its gates
     (appended to ``bad``), its launches added to ``out``'s, and its
     record."""
@@ -4628,22 +4743,22 @@ def _train_report(arch, cfg, key, n, res, bad, out, scan_control=None):
     if dtype == "bfloat16":
         codes.update(control_attention_not_summed=r0["control_steps"],
                      witness_unsharded_bf16=r0["unsharded_steps"])
+    # (a step without clipping reports no grad_norm: its loss alone)
     c["rel_to_fp32"] = {
-        k: {"loss": [rel(a["loss"], b["loss"]) for a, b in zip(
-            v if dtype == "float32" else v[:1], f32)],
-            "grad_norm": rel(v[0]["grad_norm"], f32[0]["grad_norm"])}
+        k: dict({"loss": [rel(a["loss"], b["loss"]) for a, b in zip(
+            v if dtype == "float32" else v[:1], f32)]}, **(
+            {"grad_norm": rel(v[0]["grad_norm"], f32[0]["grad_norm"])}
+            if f32[0]["grad_norm"] else {}))
         for k, v in codes.items()}
     c["limit"] = lim = DIST_TP_REL[arch, dtype]
-    worst = {k: max(v["loss"] + [v["grad_norm"]])
+    worst = {k: max(v["loss"] + [v.get("grad_norm", 0.0)])
              for k, v in c["rel_to_fp32"].items()}
     control = worst.pop("control_attention_not_summed", math.inf)
     if max(worst.values()) > lim or control <= lim:
         bad.append(f"{key}: {worst}, control {control}")
     if dtype == "float32":
-        c["control"] = {None: "the norms ahead of split blocks summed "
-                        "again", "rec": "the RG-LRU block's all-reduce "
-                        "dropped", "ssm": "the gated norm's sum over heads "
-                        "dropped"}[scan_control]
+        c["control"] = (PATH_CONTROLS[path_control][0] if path_control
+                        else "the norms ahead of split blocks summed again")
         c["loss_rel_step1"] = c["rel_to_fp32"]["tp"]["loss"][0]
         c.update({k: r0[k] for k in (
             "m_rel", "m_rel_witness", "m_rel_control",
@@ -4730,9 +4845,11 @@ def phase_dist_tp():
     """Tensor-parallel compute on the card: DIST_TP_WORLD spawned processes
     share it through gloo (NCCL refuses two ranks on one card) on a (1, 4)
     ("data", "model") mesh, at full width, B=1, S=TRAIN_S
-    (``_dist_tp_rank``), in two spawns: DIST_TP_PATHS, then the MoE
-    families' DIST_TP_MOE_PATHS with EP beside TP and dist-ep's checks of
-    one MoE layer (``_ep_report``). Gates, against the unsharded step on
+    (``_dist_tp_rank``), in one spawn: DIST_TP_PATHS, the scan paths
+    (DIST_TP_SCAN_PATHS) and the encoder-decoder (DIST_TP_ENCDEC_PATHS),
+    each with its own control (``PATH_CONTROLS``), then the MoE families'
+    DIST_TP_MOE_PATHS with EP beside TP and dist-ep's checks of one MoE
+    layer (``_ep_report``). Gates, against the unsharded step on
     the same weights and batch (the MoE paths replaying its routing): in
     fp32 (the FMA flash kernels)
     step 1's loss within

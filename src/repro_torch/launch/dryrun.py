@@ -12,11 +12,12 @@ and never touches CUDA. The world is torch's ``"fake"`` process group
 rank 0's (``roofline.counter``). The step runs the plain path
 (``impl="plain"``): the kernels are ``ctypes`` launches that meta and fake
 tensors cannot trace; the reference likewise lowers its XLA "blocked" path
-on host devices. A train cell traces the tensor-parallel step (attention
-and MLA by heads, dense MLPs and the MoE layers' shared experts by ffn,
-the RG-LRU blocks by RNN width, the Mamba-2 blocks by SSD heads, the
-vocabulary over "model", with their all-reduces, the routed experts on
-EP beside them; ``partition.tp_plan``), and so does a serving cell,
+on host devices. A train cell traces the tensor-parallel step (attention,
+the encoder-decoder's self- and cross-attention among it, and MLA by
+heads, dense MLPs and the MoE layers' shared experts by ffn, the RG-LRU
+blocks by RNN width, the Mamba-2 blocks by SSD heads, the vocabulary
+over "model", with their all-reduces, the routed experts on EP beside
+them; ``partition.tp_plan``), and so does a serving cell,
 whose decode cache stays at its storage shard (``launch.specs.build_fn``).
 ``--qkv-constraint batch`` pins q, k and v to heads over "model", which is
 how the port computes them in every cell: it traces the same step.

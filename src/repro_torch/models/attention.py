@@ -22,7 +22,8 @@ kernel on CUDA tensors, and its decode reads the cached k/v without a
 write.
 The reference's sharding ``constrain`` calls and ``qkv_constraint`` have
 no counterpart: on a mesh the train step computes ``attn``/``local``
-attention on this rank's heads (``tp``, a ``sharding.tp.Region``): ``x``
+attention (and the encoder-decoder's ``enc`` and ``xdec`` self-attention
+the same way) on this rank's heads (``tp``, a ``sharding.tp.Region``): ``x``
 enters by ``copy_to``, ``wq`` (and ``wk``/``wv`` where the kv heads split)
 are column shards, ``wo`` a row shard followed by ``reduce_from``. Where
 the kv heads do not split, wk/wv are gathered and each rank projects only
@@ -48,7 +49,14 @@ capacity's positions kept at the prefill, the new row written by the rank
 that owns its slot, and the decode, 4b's MQA case, scores every head
 against the local rows (``q_eff``/``q_pe`` all-gathered), combines the
 partial softmax over the sequence's axes and keeps this rank's heads for
-``w_v`` and ``wo``. The other mixers compute on gathered weights.
+``w_v`` and ``wo``. The cross-attention splits by heads as attention
+does: q from ``copy_to`` of the decoder's normed x, the k/v of the kv
+heads its q heads read from the encoder output (which the model takes into
+the region once, ahead of the decoder), the flash kernel non-causal on the
+local heads, this rank's rows of ``wo`` and ``reduce_from``. Its cache
+``xk``/``xv`` is kept at its storage spec (``tp.shard("cross")``): the kv
+heads over the model axis and, where the batch leaves "data" free, the
+frames over it, whose partial softmax the decode combines.
 """
 from __future__ import annotations
 
@@ -89,18 +97,25 @@ def _local_heads(cfg: ModelConfig, p, tp):
     are projected from the columns of the kv heads this rank reads, and
     where those do not pair with the local q heads in equal groups, taken
     once per q head (index)."""
-    H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    Hl = H // tp.size
+    hd, Hl = cfg.head_dim, cfg.num_heads // tp.size
     if tp.plan.kv:
-        return Hl, Kh // tp.size, p["wk"], p["wv"], None
+        return Hl, cfg.num_kv_heads // tp.size, p["wk"], p["wv"], None
+    lo, n, index = _kv_heads(cfg, tp)
+    cols = slice(lo * hd, (lo + n) * hd)
+    return Hl, n, p["wk"][:, cols], p["wv"][:, cols], index
+
+
+def _kv_heads(cfg: ModelConfig, tp):
+    """The kv heads this rank's q heads read: (first, count, per-q-head
+    index into them or None where they pair in equal groups)."""
+    H, Kh = cfg.num_heads, cfg.num_kv_heads
+    Hl = H // tp.size
     first, G = tp.rank * Hl, H // Kh
     kv = [(first + i) // G for i in range(Hl)]
     lo, n = kv[0], kv[-1] + 1 - kv[0]
-    cols = slice(lo * hd, (lo + n) * hd)
-    wk, wv = p["wk"][:, cols], p["wv"][:, cols]
     if Hl % n == 0 and kv == [lo + i // (Hl // n) for i in range(Hl)]:
-        return Hl, n, wk, wv, None
-    return Hl, n, wk, wv, [h - lo for h in kv]
+        return lo, n, None
+    return lo, n, [h - lo for h in kv]
 
 
 def _qkv(cfg: ModelConfig, p, x, positions, rope=True, tp=None):
@@ -139,19 +154,20 @@ def _kv_whole(cfg: ModelConfig, p, x, positions):
     return k, v
 
 
-def cache_kv(cfg: ModelConfig, p, x, positions, k, v, tp, shard):
+def cache_kv(k, v, tp, shard, whole):
     """The k, v of the kv heads this rank's cache shard holds, from its
-    compute's (``_qkv`` under ``tp``): these where the cache splits the kv
-    heads as the compute does, every kv head all-gathered over the model
-    axis where the compute splits them and the cache does not, else
-    projected from the whole ``wk``/``wv`` this rank holds (its compute's
-    are a subset, or copies per q head)."""
+    compute's (``_qkv`` or ``xattn_kv`` under ``tp``): these where the
+    cache splits the kv heads as the compute does, every kv head
+    all-gathered over the model axis where the compute splits them and the
+    cache does not, else ``whole()``, projected from the whole
+    ``wk``/``wv`` this rank holds (its compute's are a subset, or copies
+    per q head)."""
     if shard.heads_count > 1:
         assert tp.plan.kv and shard.heads_count == tp.size, (shard, tp.plan)
         return k, v
     if tp.plan.kv:
         return TP.all_gather(k, tp.group, 2), TP.all_gather(v, tp.group, 2)
-    return _kv_whole(cfg, p, x, positions)
+    return whole()
 
 
 def _window(cfg: ModelConfig, kind):
@@ -267,7 +283,8 @@ def _decode_split(cfg: ModelConfig, p, x, q, k, v, cache, positions, kind,
     """``attn_decode`` on this rank's heads over its cache shard."""
     B = x.shape[0]
     shard = tp.shard(kind)
-    k, v = cache_kv(cfg, p, x, positions[:, None], k, v, tp, shard)
+    k, v = cache_kv(k, v, tp, shard,
+                    lambda: _kv_whole(cfg, p, x, positions[:, None]))
     n = cache["k"].shape[1]
     lo = shard.seq_index * n
     if kind == "local":
@@ -554,32 +571,84 @@ def xattn_def(cfg: ModelConfig):
     }
 
 
-def xattn_kv(cfg: ModelConfig, p, enc_out):
-    """The encoder output [B,Se,D] as cross k, v [B,Se,Kh,hd] (no RoPE)."""
+def xattn_kv(cfg: ModelConfig, p, enc_out, tp=None):
+    """The encoder output [B,Se,D] as cross k, v [B,Se,Kh,hd] (no RoPE);
+    under ``tp`` (``enc_out`` already in the region) the kv heads this
+    rank's q heads read (``_local_heads``)."""
     B, Se, _ = enc_out.shape
     dt = enc_out.dtype
-    k = (enc_out @ p["wk"].to(dt)).reshape(B, Se, cfg.num_kv_heads,
-                                           cfg.head_dim)
-    v = (enc_out @ p["wv"].to(dt)).reshape(B, Se, cfg.num_kv_heads,
-                                           cfg.head_dim)
+    Kh, wk, wv, index = cfg.num_kv_heads, p["wk"], p["wv"], None
+    if tp is not None:
+        _, Kh, wk, wv, index = _local_heads(cfg, p, tp)
+    k = (enc_out @ wk.to(dt)).reshape(B, Se, Kh, cfg.head_dim)
+    v = (enc_out @ wv.to(dt)).reshape(B, Se, Kh, cfg.head_dim)
+    if index is not None:
+        k, v = k[:, :, index], v[:, :, index]
     return k, v
 
 
-def xattn_forward(cfg: ModelConfig, p, x, k, v, *, impl=None):
-    """x: [B,S,D] over the encoder's k, v: every query sees every frame."""
+def xattn_cache(cfg: ModelConfig, p, enc_out, k, v, tp, shard):
+    """The cross cache ``xk``/``xv`` at this rank's storage shard (a
+    ``tp.CacheShard``) from its compute's k, v (``xattn_kv`` under
+    ``tp``): the kv heads the shard holds (``cache_kv``) and its slice of
+    the frames."""
+    k, v = cache_kv(k, v, tp, shard, lambda: xattn_kv(cfg, p, enc_out))
+    n = k.shape[1] // shard.seq_count
+    lo = shard.seq_index * n
+    return {"xk": k[:, lo:lo + n].contiguous(),
+            "xv": v[:, lo:lo + n].contiguous()}
+
+
+def xattn_forward(cfg: ModelConfig, p, x, k, v, *, impl=None, tp=None):
+    """x: [B,S,D] over the encoder's k, v: every query sees every frame.
+    Under ``tp`` x enters by ``copy_to``, q is this rank's heads over the
+    kv heads they read (``xattn_kv`` under the same ``tp``), and ``wo``'s
+    rows are summed by ``reduce_from``."""
     B, S, _ = x.shape
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    H = cfg.num_heads
+    if tp is not None:
+        x, H = TP.copy_to(x, tp), H // tp.size
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, cfg.head_dim)
     o = ops.attention(q, k, v, causal=False, impl=impl)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"].to(dt)
+    y = o.reshape(B, S, H * cfg.head_dim) @ p["wo"].to(dt)
+    return y if tp is None else TP.reduce_from(y, tp)
 
 
-def xattn_decode(cfg: ModelConfig, p, x, cache):
-    """Cross-attention decode over the cached encoder k/v (no cache write)."""
+def xattn_decode(cfg: ModelConfig, p, x, cache, tp=None):
+    """Cross-attention decode over the cached encoder k/v (no cache write).
+    Under ``tp`` the cache is this rank's shard (``tp.shard("cross")``):
+    its q heads read the kv heads it holds (where the cache holds every kv
+    head, the ones they need), and where the frames are split over the
+    batch's free mesh axes the partial softmax over its frames is combined
+    over them (``tp.combine_partial``), then ``wo``'s rows are summed."""
     B = x.shape[0]
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-    Se = cache["xk"].shape[1]
-    lengths = torch.full((B,), Se, dtype=torch.int32, device=x.device)
-    o = ops.attention_decode(q, cache["xk"], cache["xv"], lengths)
-    return o.reshape(B, 1, cfg.q_dim) @ p["wo"].to(dt)
+    H, hd = cfg.num_heads, cfg.head_dim
+    xk, xv = cache["xk"], cache["xv"]
+    shard = None
+    if tp is not None:
+        x, H, shard = TP.copy_to(x, tp), H // tp.size, tp.shard("cross")
+        if shard.heads_count == 1:
+            # the frames' split must not take the model axis: the combine
+            # would mix other heads
+            assert tp.group not in shard.seq_groups, shard
+            lo, n, index = _kv_heads(cfg, tp)
+            xk, xv = xk[:, :, lo:lo + n], xv[:, :, lo:lo + n]
+            if index is not None:
+                xk, xv = xk[:, :, index], xv[:, :, index]
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, H, hd)
+    Se = xk.shape[1]
+    if shard is None or shard.seq_count == 1:
+        lengths = torch.full((B,), Se, dtype=torch.int32, device=x.device)
+        o = ops.attention_decode(q, xk, xv, lengths)
+    else:
+        lengths = torch.full((B,), Se * shard.seq_count, dtype=torch.int32,
+                             device=x.device)
+        kpos = (shard.seq_index * Se +
+                torch.arange(Se, device=x.device))[None].expand(B, Se)
+        o, m, l = ops.attention_decode_partial(q, xk, xv, lengths,
+                                               slot_positions=kpos)
+        o = TP.combine_partial(o, m, l, shard.seq_groups).to(dt)
+    y = o.reshape(B, 1, H * hd) @ p["wo"].to(dt)
+    return y if tp is None else TP.reduce_from(y, tp)

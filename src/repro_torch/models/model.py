@@ -45,13 +45,16 @@ model computes on this rank's local tensors: the train step
 (``optim.adamw``) hands it its batch slice and its compute weights, and
 an MoE layer exchanges its tokens over the expert axis (``moe._moe_ep``).
 Inside the train step's tensor-parallel region (``sharding.tp``) the
-``attn``/``local``/``mla`` mixers run on this rank's heads, the ``rec``
-mixers on its RNN channels, the ``ssm`` mixers on its SSD heads, the dense
-MLPs and an MoE layer's shared experts on its ffn columns (the routed
-experts on EP beside them), and the embedding, logits and cross-entropy
-on its vocabulary rows, by ``partition.compute_axis`` (``_split`` decides
-per block); the other blocks (``enc``, ``xdec``) compute gathered. The
-region is read once per forward and carried in the layers' context, so a
+``attn``/``local``/``mla`` mixers, the encoder's ``enc`` and the
+decoder's ``xdec`` self-attention and an ``xdec`` layer's cross-attention
+run on this rank's heads, the ``rec`` mixers on its RNN channels, the
+``ssm`` mixers on its SSD heads, the dense MLPs and an MoE layer's shared
+experts on its ffn columns (the routed experts on EP beside them), and the
+embedding, logits and cross-entropy on its vocabulary rows, by
+``partition.compute_axis`` (``_split`` decides per block). The encoder
+output enters the cross-attention's region once, ahead of the decoder, so
+that its gradient from every ``xdec`` layer is summed by one all-reduce.
+The region is read once per forward and carried in the layers' context, so a
 remat recompute issues the same collectives in the same order on every
 rank; so is the expert
 axis (``moe.ep_context``), which a recompute on the autograd engine's
@@ -175,12 +178,6 @@ def _split(tp, block, leaf=None):
     return tp
 
 
-def _self_kind(mixer):
-    """The kind of a layer's self-attention: an ``xdec`` layer's is a
-    causal ``"attn"`` one."""
-    return "attn" if mixer == "xdec" else mixer
-
-
 def _mlp_residual(cfg, mlpk, p, x, tp=None, ep=MOE.ACTIVE):
     """x plus the layer's MLP (dense or MoE) -> (x, aux). The dense MLP
     takes its width from its weights, and splits where ``tp``'s plan
@@ -209,7 +206,10 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
     load-balance loss, else 0. ``ctx["tp"]`` is the tensor-parallel
     region or None, ``ctx["ep"]`` the expert axis (``moe.ep_context``);
     in a region a split block's cache is this rank's shard of it
-    (``tp.CacheShard``)."""
+    (``tp.CacheShard``), an ``xdec`` layer's self cache keyed "xdec" and
+    its cross cache "cross", in the prefill and the decode alike. The
+    attention kinds other than "local" take no window, so an ``enc`` or
+    ``xdec`` layer's kind is its mixer's name."""
     mixer, mlpk = kind
     tp = ctx.get("tp")
     h = apply_norm(cfg, p["ln1"], x)
@@ -230,24 +230,27 @@ def layer_prefill(cfg, kind, p, x, ctx, capacity=None):
         q, k, v = A._qkv(cfg, p["mixer"], h, ctx["positions"], tp=mtp)
         if capacity is not None and mtp is not None:
             shard = mtp.shard(mixer)
-            kc, vc = A.cache_kv(cfg, p["mixer"], h, ctx["positions"], k, v,
-                                mtp, shard)
+            kc, vc = A.cache_kv(k, v, mtp, shard, lambda: A._kv_whole(
+                cfg, p["mixer"], h, ctx["positions"]))
             cache = A.attn_prefill_cache(cfg, kc, vc, capacity, kind=mixer,
                                          shard=shard)
         elif capacity is not None:
-            cache = A.attn_prefill_cache(cfg, k, v, capacity,
-                                         kind=_self_kind(mixer))
-        mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=_self_kind(mixer),
+            cache = A.attn_prefill_cache(cfg, k, v, capacity, kind=mixer)
+        mx = A.attn_core(cfg, p["mixer"], q, k, v, kind=mixer,
                          causal=mixer != "enc", impl=ctx.get("impl"),
                          tp=mtp)
     x = x + mx
     if mixer == "xdec":
-        xk, xv = A.xattn_kv(cfg, p["cross"], ctx["enc_out"])
+        ctp, enc = _split(tp, "cross"), ctx["enc_out"]
+        xk, xv = A.xattn_kv(cfg, p["cross"], enc, ctp)
         if cache is not None:
-            cache = dict(cache, xk=xk, xv=xv)
+            cache = dict(cache, **(
+                {"xk": xk, "xv": xv} if ctp is None else
+                A.xattn_cache(cfg, p["cross"], enc, xk, xv, ctp,
+                              ctp.shard("cross"))))
         x = x + A.xattn_forward(cfg, p["cross"],
                                 apply_norm(cfg, p["ln_x"], x), xk, xv,
-                                impl=ctx.get("impl"))
+                                impl=ctx.get("impl"), tp=ctp)
     x, aux = _mlp_residual(cfg, mlpk, p, x, tp, ctx.get("ep", MOE.ACTIVE))
     return x, cache, aux
 
@@ -309,12 +312,12 @@ def layer_decode(cfg, kind, p, x, cache, ctx):
                                  _split(tp, mixer))
     else:
         mx, cache = A.attn_decode(cfg, p["mixer"], h, cache,
-                                  ctx["positions"], kind=_self_kind(mixer),
+                                  ctx["positions"], kind=mixer,
                                   tp=_split(tp, mixer))
     x = x + mx
     if mixer == "xdec":
         x = x + A.xattn_decode(cfg, p["cross"], apply_norm(cfg, p["ln_x"], x),
-                               cache)
+                               cache, _split(tp, "cross"))
     x, _ = _mlp_residual(cfg, mlpk, p, x, tp, ctx.get("ep", MOE.ACTIVE))
     return x, cache
 
@@ -405,14 +408,16 @@ class Stack(nn.Module):
         """Each layer parameter's block, keyed by its path under the stack:
         the mixer kind for ``mixer.*``, the MLP kind for ``mlp.*`` but
         "shared" for an MoE layer's shared experts (``mlp.shared.*``,
-        whose leaf names are the routed experts'), None for the rest
-        (norms, cross-attention)."""
+        whose leaf names are the routed experts'), "cross" for an ``xdec``
+        layer's cross-attention (``cross.*``), None for the rest (norms,
+        ``ln_x`` among them: it acts ahead of the cross-attention's
+        region)."""
         out = {}
         for sec, kinds in (("head", self.head_kinds),
                            ("core", self.period_kinds),
                            ("tail", self.tail_kinds)):
             for i, (mixer, mlpk) in enumerate(kinds):
-                block = {"mixer": mixer, "mlp": mlpk}
+                block = {"mixer": mixer, "mlp": mlpk, "cross": "cross"}
                 for path, _ in flatten_paths(layer_def(self.cfg,
                                                        (mixer, mlpk))):
                     out[f"{sec}.{i}.{path}"] = (
@@ -679,6 +684,10 @@ class LM(nn.Module):
             enc, _ = self.encoder(enc, {"positions": self._positions(B, Se),
                                         "impl": impl, "tp": tp})
             enc = apply_norm(cfg, params_tree(self.enc_norm), enc)
+            if _split(tp, "cross") is not None:
+                # into the cross-attention's region once: the gradient of
+                # every xdec layer's k/v summed by one all-reduce
+                enc = TP.copy_to(enc, tp)
             return self._embed(batch["tokens"], tp), enc, 0
         if cfg.frontend == "vision":
             ve = batch["vision_embeds"].to(self.compute_dtype)
@@ -736,11 +745,13 @@ class LM(nn.Module):
         """Each split-able mixer kind's (``partition.TP_MIXERS`` and
         ``SCAN_MIXERS``) cache layout on ``mesh`` (``partition.
         cache_layout`` of its ``k``, MLA's ``ckv``, the RG-LRU's ``h``,
-        Mamba-2's ``h`` and, as "ssm.conv", its flat ``conv`` window) for a
+        Mamba-2's ``h`` and, as "ssm.conv", its flat ``conv`` window, an
+        ``xdec`` layer's self ``k`` and, as "cross", its cross ``xk``) for a
         global ``batch`` at ``capacity``: what ``sharding.tp.region`` takes
         for a serving call."""
         leaves = {"mla": {"mla": "ckv"}, "rec": {"rec": "h"},
-                  "ssm": {"ssm": "h", "ssm.conv": "conv"}}
+                  "ssm": {"ssm": "h", "ssm.conv": "conv"},
+                  "xdec": {"xdec": "k", "cross": "xk"}}
         out = {}
         for kind in self.decoder.kinds:
             mixer = kind[0]
@@ -760,8 +771,8 @@ class LM(nn.Module):
         block ``plan`` computes split (its serving call keeps the leaf at
         this rank's shard), else False."""
         def layer(kind, axes):
-            split = _split_plan(plan, kind[0])
-            return {n: split for n in axes}
+            return {n: _split_plan(plan, "cross" if n in ("xk", "xv")
+                                   else kind[0]) for n in axes}
         d = self.decoder
         axes = d.cache_axes()
         return {"lengths": False, "layers": {

@@ -15,13 +15,14 @@ dimension, so gemma3-1b's ``wk`` (one kv head of 256) is stored split
 inside its head on a model axis of 4. How the train step *computes* a
 leaf over ``TP_AXIS`` is decided by whole units instead (``tp_plan`` and
 ``compute_axis``), where the active rules put the unit's logical axis on
-``TP_AXIS``: attention and MLA by heads, the dense MLP and an MoE layer's
-shared experts by ffn columns, the RG-LRU block by RNN channels (its
-block-diagonal gates by RNN heads), the Mamba-2 block by SSD heads, the
-embedding, head and cross-entropy by vocabulary rows; the routed experts
-keep their EP shard and every other leaf is gathered whole. A leaf stored
-whole (the RG-LRU's ``a_log`` and gate biases, Mamba-2's ``dt_bias``,
-``A_log``, ``D`` and ``norm``) is cut on its last dim
+``TP_AXIS``: attention (the encoder-decoder's ``enc`` and ``xdec``
+self-attention and its cross-attention too) and MLA by heads, the dense
+MLP and an MoE layer's shared experts by ffn columns, the RG-LRU block by
+RNN channels (its block-diagonal gates by RNN heads), the Mamba-2 block by
+SSD heads, the embedding, head and cross-entropy by vocabulary rows; the
+routed experts keep their EP shard and every other leaf is gathered
+whole. A leaf stored whole (the RG-LRU's ``a_log`` and gate biases,
+Mamba-2's ``dt_bias``, ``A_log``, ``D`` and ``norm``) is cut on its last dim
 (``compute_dim``), and Mamba-2's ``in_proj`` and ``conv_w`` by sections
 (``SECTIONS``): this rank's z, x and dt columns and every B and C column.
 A split block's decode cache is the other way round: it
@@ -98,11 +99,15 @@ class NamedSharding(NamedTuple):
 
 
 # the mesh axis tensor-parallel compute splits over, the mixers it splits
-# by heads, and the scan mixers it splits by RNN channels (rec) or SSD
-# heads (ssm); enc and xdec compute gathered
+# by heads (the encoder's "enc" and the decoder's "xdec" self-attention
+# among them; an xdec layer's cross-attention is the block "cross", split
+# with them), and the scan mixers it splits by RNN channels (rec) or SSD
+# heads (ssm)
 TP_AXIS = "model"
-TP_MIXERS = ("attn", "local", "mla")
+TP_MIXERS = ("attn", "local", "mla", "enc", "xdec")
 SCAN_MIXERS = ("rec", "ssm")
+# the blocks that split wq/wo (and wk/wv) by heads as attention does
+ATTN_BLOCKS = ("attn", "local", "enc", "xdec", "cross")
 # compute_axis of a leaf taken by sections of its last dim (Mamba-2's
 # in_proj and conv_w: this rank's z, x and dt columns and every B and C one)
 SECTIONS = "sections"
@@ -112,7 +117,8 @@ class TPPlan(NamedTuple):
     """Which blocks of a model compute split over ``TP_AXIS`` of ``size``
     ranks (``tp_plan``)."""
     size: int
-    heads: bool     # attn/local: wq and wo by heads; mla: wq_b/wq, wkv_b, wo
+    heads: bool     # attn/local/enc/xdec/cross: wq and wo by heads;
+    #                 mla: wq_b/wq, wkv_b, wo
     kv: bool        # wk/wv by kv heads too (else gathered)
     ffn: bool       # dense MLPs by ffn columns (wi*) and rows (wo)
     vocab: bool     # embed and head by vocabulary rows
@@ -135,8 +141,10 @@ def tp_plan(cfg, mixers: Sequence[str], dense_width: int, tp: int,
     rules put its logical axis on ``TP_AXIS`` ("heads" for the mixers,
     "ffn" for the MLPs, "vocab" for the embedding and head), as the
     reference's GSPMD splits a leaf only there, and only where its unit
-    divides the axis: attention when ``num_heads % tp == 0`` (wk/wv only
-    when ``num_kv_heads % tp == 0``, else each rank projects the kv heads
+    divides the axis: attention (an encoder-decoder's ``enc`` and
+    ``xdec`` self-attention and its cross-attention with them) when
+    ``num_heads % tp == 0`` (wk/wv only when ``num_kv_heads % tp == 0``,
+    else each rank projects the kv heads
     its q heads read from the whole wk/wv), the MLP when ``dense_width %
     tp == 0``, an MoE layer's shared experts when ``num_shared *
     d_ff_expert % tp == 0`` (the routed experts stay on EP), the RG-LRU
@@ -180,8 +188,10 @@ def compute_axis(plan: Optional[TPPlan], block: Optional[str],
     over ``TP_AXIS`` ("heads", "ffn" or "vocab"), or None for gathered.
     ``block`` is the leaf's block: a mixer kind, "dense" or "moe" (the
     routed experts and router, never split) for an MLP, "shared" for an
-    MoE layer's shared experts, "vocab" for ``embed``/``head``, None for
-    the rest (norms, cross-attention). MLA splits ``wq_b`` (or ``wq``),
+    MoE layer's shared experts, "vocab" for ``embed``/``head``, "cross"
+    for an ``xdec`` layer's cross-attention (split as attention is: its
+    ``wq``, ``wo``, and ``wk``/``wv`` where the kv heads divide the axis),
+    None for the rest (norms). MLA splits ``wq_b`` (or ``wq``),
     ``wkv_b`` and ``wo`` by heads; its ``wq_a``, ``wkv_a`` and norms act
     ahead of the split and are gathered. A split ``rec`` block takes
     every leaf at this rank's RNN channels ("ffn") or heads, a split
@@ -196,7 +206,7 @@ def compute_axis(plan: Optional[TPPlan], block: Optional[str],
     if block == "mla" and plan.heads:
         if leaf in _MLA_SPLIT:
             return "heads"
-    elif block in TP_MIXERS and plan.heads:
+    elif block in ATTN_BLOCKS and plan.heads:
         if leaf in ("wq", "wo") or (leaf in ("wk", "wv") and plan.kv):
             return "heads"
     elif (block == "dense" and plan.ffn) or (block == "shared" and
@@ -219,12 +229,15 @@ def partial_over_model(plan: Optional[TPPlan], block: Optional[str],
                        leaf: str) -> bool:
     """Whether a gathered leaf's gradient is partial over ``TP_AXIS``: it
     is used by this rank's heads only (``q_norm``/``k_norm`` of an
-    ``attn``/``local`` mixer, and ``wk``/``wv`` when gathered), so the
-    train step sums it over the axis. The norms ahead of a split block get
-    whole gradients (the copy-to-region's all-reduce) and are not summed;
-    so do MLA's ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm``, which act
-    ahead of its copy-to-region."""
-    return (plan is not None and block in ("attn", "local") and plan.heads
+    attention block, and ``wk``/``wv`` when gathered: an ``attn``,
+    ``local``, ``enc`` or ``xdec`` mixer's or the ``cross`` block's, whose
+    ranks each project the kv heads their q heads read), so the train step
+    sums it over the axis. The norms ahead of a split block get whole
+    gradients (the copy-to-region's all-reduce) and are not summed; so do
+    MLA's ``wq_a``, ``q_norm``, ``wkv_a`` and ``kv_norm``, which act ahead
+    of its copy-to-region, and an ``xdec`` layer's ``ln_x`` and the
+    encoder's ``enc_norm``, ahead of the cross-attention's."""
+    return (plan is not None and block in ATTN_BLOCKS and plan.heads
             and (leaf in ("q_norm", "k_norm") or
                  (leaf in ("wk", "wv") and not plan.kv)))
 

@@ -17,12 +17,14 @@ by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run) and
 ``tp`` (GSPMD on the cases of ``cases.json``, [model, arch, config
 overrides (a ``moe`` entry a dict of ``MoEConfig`` fields), mesh
 shape, key]: the weights ``<model>.<path>`` placed at their
-specs, the batch at its spec; the logits and one AdamW step, whose ``m``
+specs, the batch at its spec (an encoder-decoder's ``frames`` beside the
+tokens); the logits and one AdamW step, whose ``m``
 is (1 - b1) times each leaf's clipped gradient, in one jitted call per
 case, written under the case's key) and ``serve`` (GSPMD serving cells
 of the cases of ``cases.json``, [key, arch, config overrides, mesh
 shape, global batch, capacity]: ``launch.specs``' prefill of the tokens
-``<key>.tokens`` and three decode steps of ``<key>.dec``, each at the
+``<key>.tokens`` (and an encoder-decoder's ``<key>.frames``, as many as
+the capacity) and three decode steps of ``<key>.dec``, each at the
 cell's in and out shardings; the logits of each call, the cache after
 the prefill and after the last step, and each cache leaf's
 ``devices_indices_map`` in the mesh's device order, in ``indices.json``).
@@ -246,6 +248,10 @@ def job_tp(d):
             batch = {"tokens": jax.device_put(
                 jnp.asarray(z["tokens"]),
                 NamedSharding(mesh, part.batch_spec(mesh, 2)))}
+            if lm.cfg.encoder_layers:
+                batch["frames"] = jax.device_put(
+                    jnp.asarray(z["frames"]),
+                    NamedSharding(mesh, part.batch_spec(mesh, 3)))
 
             def case(params, batch):
                 logits = lm.forward(params, batch)[0]
@@ -302,9 +308,14 @@ def job_serve(d):
             decode = jax.jit(specs.build_fn(sd),
                              in_shardings=sd["in_shardings"],
                              out_shardings=sd["out_shardings"])
-            tokens = jax.device_put(jnp.asarray(z[f"{key}.tokens"]),
-                                    sp["in_shardings"][1]["tokens"])
-            cache, logits = prefill(params, {"tokens": tokens})
+            batch = {"tokens": jax.device_put(
+                jnp.asarray(z[f"{key}.tokens"]),
+                sp["in_shardings"][1]["tokens"])}
+            if cfg.encoder_layers:
+                batch["frames"] = jax.device_put(
+                    jnp.asarray(z[f"{key}.frames"]),
+                    sp["in_shardings"][1]["frames"])
+            cache, logits = prefill(params, batch)
             out[f"{key}.logits.0"] = np.asarray(logits)
             cache = jax.device_put(cache, sd["in_shardings"][1])
             for k, v in _flat(cache).items():

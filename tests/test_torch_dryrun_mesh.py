@@ -4,7 +4,9 @@ tensor-parallel compute of train and serving cells (on (2, 4) each rank
 does (2, 1)'s FLOPs less 3/4 of the split blocks'; the MoE families' do
 their gathered (2, 4) step's less 3/4 of theirs, the routed experts on EP
 in both; mamba2-2.7b's ``ssm`` blocks split by SSD heads, all but the B
-and C sections every rank computes whole),
+and C sections every rank computes whole; seamless-m4t-large-v2 does its
+step with "heads" kept off "model" less 3/4 of its ``enc``, ``xdec`` and
+``cross`` blocks' FLOPs),
 and a train cell traced with the ``OptConfig`` it is given."""
 import json
 
@@ -102,6 +104,31 @@ def _moe_split_flops(cfg, B, S, kind):
     return cfg.num_layers * (proj + core) + mlp + 2 * B * D * V
 
 
+def _encdec_mixer_flops(cfg, B, S, kind):
+    """The matmul FLOPs of the encoder-decoder's ``enc``, ``xdec`` and
+    ``cross`` blocks on one rank computing them whole, B sequences of S
+    tokens over S frames: per encoder and decoder layer the self
+    attention's q/k/v/o projections and two products (one 512-row block
+    covers S = 128 whole, causal or not), per decoder layer the
+    cross-attention's q and o projections of the tokens, its k and v of
+    the frames and its two products, counted four times in a train step
+    (forward, remat's recompute, the backward's two products a matmul)
+    and once in a prefill; a decode step projects one token, attends over
+    the S slots of its self cache and the S frames of its cross cache,
+    and projects no frame."""
+    D, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    core = 2 * 2 * B * cfg.num_heads * S * S * cfg.head_dim
+    if kind == "decode":
+        qo = 2 * B * D * q * 2
+        self_ = qo + 2 * B * D * 2 * kv + core // S
+        return cfg.num_layers * (self_ + qo + core // S)
+    T = B * S
+    self_ = 2 * T * D * (q + 2 * kv) + 2 * T * q * D + core
+    cross = 2 * T * D * q * 2 + 2 * T * D * 2 * kv + core
+    mix = cfg.encoder_layers * self_ + cfg.num_layers * (self_ + cross)
+    return (4 if kind == "train" else 1) * mix
+
+
 def _ssm_whole_flops(cfg, B, kind):
     """The matmul FLOPs of mamba2-2.7b's split step that every rank of the
     model axis computes whole, B sequences of 128 tokens: ``in_proj``'s B
@@ -120,7 +147,8 @@ def _ssm_whole_flops(cfg, B, kind):
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-2.7b",
-                                  "deepseek-moe-16b", "deepseek-v2-236b"])
+                                  "deepseek-moe-16b", "deepseek-v2-236b",
+                                  "seamless-m4t-large-v2"])
 def test_model_axis_splits_the_train_compute(arch, kind):
     """deepseek-7b on (2, 4): each rank does (2, 1)'s FLOPs less 3/4 of
     its attention's, MLPs' and head's, which are all of them: in the train
@@ -132,9 +160,19 @@ def test_model_axis_splits_the_train_compute(arch, kind):
     The MoE families on (2, 4) do the FLOPs of the
     same step with "heads", "ffn" and "vocab" kept off "model" (EP beside
     gathered compute: the routed experts as in the split step) less 3/4
-    of their split blocks' (``_moe_split_flops``)."""
+    of their split blocks' (``_moe_split_flops``). seamless-m4t-large-v2
+    on (2, 4) does the FLOPs of the same step with "heads" kept off
+    "model" (its MLPs and vocabulary split in both) less 3/4 of its
+    ``enc``, ``xdec`` and ``cross`` blocks' (``_encdec_mixer_flops``)."""
     cfg = TB.get_smoke_config(arch)
     shape = TB.ShapeConfig("cell", 128, 8, kind)
+    if cfg.encoder_layers:
+        split, gathered = (dryrun.run_cell(
+            cfg, shape, mesh_shape=(2, 4), verbose=False, rules=rules)
+            ["cost"]["flops_per_dev"] for rules in (None, {"heads": None}))
+        assert split == gathered - 3 * _encdec_mixer_flops(cfg, 4, 128,
+                                                           kind) / 4
+        return
     if cfg.moe is not None:
         split, gathered = (dryrun.run_cell(
             cfg, shape, mesh_shape=(2, 4), verbose=False, rules=rules)

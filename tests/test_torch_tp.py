@@ -9,10 +9,11 @@ scaled embeddings), stablelm-1.6b (LayerNorm, partial RoPE) and gemma3-1b
 (MQA, ``qk_norm``, window, tied: its one kv head is gathered), and a GQA
 variant of deepseek-7b (8 q heads, 2 kv heads: on a model axis of 4 two
 ranks read each kv head, sliced from the gathered wk/wv), on meshes
-(1, 4) and (2, 2); seamless-m4t on (1, 4), whose encoder and
-cross-attention mixers compute gathered beside split dense MLPs and
-vocabulary, against the unsharded port alone (the scan mixers' split is
-``tests/test_torch_tp_scan.py``'s). Each case's
+(1, 4) and (2, 2); seamless-m4t on (1, 4), whose encoder, decoder and
+cross-attention mixers split by heads beside split dense MLPs and
+vocabulary, against the unsharded port alone (the encoder-decoder's
+split against GSPMD is ``tests/test_torch_tp_encdec.py``'s, the scan
+mixers' ``tests/test_torch_tp_scan.py``'s). Each case's
 logits, loss, every gradient and one AdamW step at the rtol 1e-4 of
 ``tests/test_torch_train.py`` (elements near 0 at 1e-4 of the leaf's
 largest; params within 2 lr), and each rank's compute copy of every leaf
@@ -64,8 +65,9 @@ MODELS = {"deepseek-7b": ("deepseek-7b", {}),
 MESHES = ((1, 4), (2, 2))
 CASES = [(m, s) for m in list(MODELS)[:4] for s in MESHES] + \
     [("gqa", (1, 4))]
-# mixers that compute gathered beside split dense MLPs and vocabulary
-# (enc and xdec over 32 seeded frames): against the unsharded port
+# the encoder-decoder's mixers split by heads beside split dense MLPs and
+# vocabulary (enc, xdec and cross over 32 seeded frames): against the
+# unsharded port
 MIXED = [("seamless-m4t-large-v2", (1, 4))]
 
 
@@ -331,18 +333,20 @@ def test_compute_copies_are_the_ranks_slices(runs, case):
 
 
 @pytest.mark.parametrize("case", MIXED, ids=_case_id)
-def test_split_mlps_beside_gathered_mixers(runs, case):
+def test_split_mixers_beside_split_mlps(runs, case):
     """seamless-m4t (encoder and decoder-with-cross-attention layers): the
-    dense MLPs and the vocabulary split, these mixers gathered; loss,
-    grad_norm and the step's params against the unsharded port. Its
-    random-init encoder runs its residual stream into the hundreds and
-    carries another summation order's last bits past a gradient limit of
-    1e-4 (its encoder wv at 1.1e-4), so its step is held by loss,
-    grad_norm and params, as ``tests/test_torch_archs.py`` holds it."""
+    ``enc``, ``xdec`` and ``cross`` blocks split by heads (and kv heads)
+    beside the split dense MLPs and vocabulary; loss, grad_norm and the
+    step's params against the unsharded port. Its random-init encoder
+    runs its residual stream into the hundreds and carries another
+    summation order's last bits past a gradient limit of 1e-4 (its
+    encoder wv at 1.1e-4), so its step is held by loss, grad_norm and
+    params, as ``tests/test_torch_archs.py`` holds it (and leaf by leaf
+    against a float64 step by ``tests/test_torch_tp_encdec.py``)."""
     z, port, unsharded, _ = runs
     model = case[0]
     plan = port[0][case]["plan"]
-    assert plan.ffn and plan.vocab and not plan.heads
+    assert plan.heads and plan.kv and plan.ffn and plan.vocab, plan
     mets, want = port[0][case]["metrics"], unsharded[model]
     assert all(r[case]["metrics"] == mets for r in port)
     for k in ("loss", "grad_norm", "lr"):
@@ -361,7 +365,7 @@ def test_split_mlps_beside_gathered_mixers(runs, case):
     ("gqa", 2, (True, True, True, True)),
     ("mamba2-2.7b", 4, (False, False, False, True)),    # ssm by heads
     ("deepseek-moe-16b", 4, (True, True, True, True)),   # beside EP
-    ("seamless-m4t-large-v2", 4, (False, False, True, True)),
+    ("seamless-m4t-large-v2", 4, (True, True, True, True)),
 ])
 def test_the_plan_splits_whole_units(model, tp, want):
     """``LM.tp_plan``: heads, kv heads, ffn and vocabulary split only where
@@ -371,6 +375,14 @@ def test_the_plan_splits_whole_units(model, tp, want):
     cfg = _cfg(model) if model in MODELS else get_smoke_config(model)
     plan = LM(cfg, device="meta").tp_plan(tp)
     assert (plan.heads, plan.kv, plan.ffn, plan.vocab) == want
+
+
+def test_seamless_splits_its_mixers_on_sixteen_ranks():
+    """seamless-m4t-large-v2 at full width on a model axis of 16: its 16
+    heads and 16 kv heads (the ``enc``, ``xdec`` and ``cross`` blocks),
+    8192 ffn columns and tied vocabulary split."""
+    plan = LM(get_config("seamless-m4t-large-v2"), device="meta").tp_plan(16)
+    assert (plan.heads, plan.kv, plan.ffn, plan.vocab) == (True,) * 4, plan
 
 
 @pytest.mark.parametrize("H,Kh,tp", [(8, 2, 4), (12, 3, 2), (12, 3, 4),
