@@ -53,12 +53,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
              and the host's time to issue a call beside the device's time
              for it; ``timing`` also gives the flash kernel's TFLOP/s and
              ratio to SDPA, also at seamless-m4t's non-causal encoder and
-             cross shapes and deepseek-v2's MLA prefill [1,2048,128,192],
-             and times the fp32 FMA flash kernel at
-             deepseek-7b's shape; ``timing-bwd`` the flash backward at the
-             two served shapes and deepseek-v2's trained MLA shape
-             [1,2048,128,192] with its route, beside SDPA's backward
-             (fwd+bwd less fwd).
+             cross shapes, deepseek-v2's MLA prefill [1,2048,128,192] and
+             internvl2-76b's smoke attention at head dim 8 (the FMA
+             kernel, [1,2048,8,8] over 2 kv heads), and times the fp32 FMA
+             flash kernel at deepseek-7b's shape; ``timing-bwd`` the flash
+             backward at the two served shapes, deepseek-v2's trained MLA
+             shape [1,2048,128,192] and the head-dim-8 shape with its
+             route, beside SDPA's backward (fwd+bwd less fwd).
  5. serve  — a ServingEngine at full width serves six requests (seven for
              recurrentgemma-9b) over four slots; kernel launch counts are
              set to 0 just before and read just after, and must equal one
@@ -425,7 +426,9 @@ def phase_build():
 
 # the flash sweeps' small shapes (B, Sq, Sk, H, Kh, hd): every head dim the
 # kernels take, then
-FLASH_SHAPES = [(1, 128, 128, 4, 4, hd) for hd in (16, 32, 64, 128, 256)] + [
+FLASH_SHAPES = [(1, 128, 128, 4, 4, hd)
+                for hd in (8, 16, 32, 64, 128, 256)] + [
+    (2, 100, 100, 8, 2, 8),         # internvl2-76b's smoke GQA, ragged
     (2, 256, 256, 8, 2, 64),        # GQA
     (1, 192, 192, 6, 1, 16),        # MQA
     (1, 100, 333, 8, 2, 128),       # right-aligned Sq < Sk, ragged
@@ -562,14 +565,16 @@ def attention_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None, window=0,
 # windowed MQA one (at S = window the window does not bind, so causal SDPA
 # is a fair yardstick), the last two seamless-m4t's encoder and its
 # decoder's cross-attention over 4096 frames, both non-causal, the last
-# deepseek-v2's MLA prefill at head dim 192 (v zero-padded from 128)
+# deepseek-v2's MLA prefill at head dim 192 (v zero-padded from 128), then
+# internvl2-76b's smoke attention (head dim 8, the FMA kernel) at S = 2048
 FLASH_TIMING = (("deepseek", 128, 128, 32, 32, 128, 0, True),
                 ("deepseek", 512, 512, 32, 32, 128, 0, True),
                 ("deepseek", 2048, 2048, 32, 32, 128, 0, True),
                 ("recurrentgemma", 2048, 2048, 16, 1, 256, RG_WINDOW, True),
                 ("seamless encoder", 4096, 4096, 16, 16, 64, 0, False),
                 ("seamless cross", 512, 4096, 16, 16, 64, 0, False),
-                ("deepseek-v2 MLA", 2048, 2048, 128, 128, 192, 0, True))
+                ("deepseek-v2 MLA", 2048, 2048, 128, 128, 192, 0, True),
+                ("internvl2 smoke", 2048, 2048, 8, 2, 8, 0, True))
 
 
 def phase_timing():
@@ -1064,14 +1069,15 @@ def attention_bwd_bound(B, Sq, Sk, H, hd, elem_bytes, causal, Kh=None,
 # deepseek-v2's MLA with v and do zero-padded from MLA_V_HEAD
 BWD_TIMING = (("deepseek", 2048, 32, 32, 128, 0),
               ("recurrentgemma", 2048, 16, 1, 256, RG_WINDOW),
-              ("deepseek-v2", 2048, 128, 128, 192, 0))
+              ("deepseek-v2", 2048, 128, 128, 192, 0),
+              ("internvl2 smoke", 2048, 8, 2, 8, 0))
 
 
 def phase_timing_bwd():
-    """The flash backward's device time at the two served prefill shapes
-    and deepseek-v2's trained MLA shape [1,2048,128,192] (v and do
-    zero-padded from 128; the route that ran them, ``tc`` or ``fma``),
-    beside the plain
+    """The flash backward's device time at the two served prefill shapes,
+    deepseek-v2's trained MLA shape [1,2048,128,192] (v and do
+    zero-padded from 128) and internvl2-76b's smoke attention at head dim
+    8 (the route that ran each, ``tc`` or ``fma``), beside the plain
     backward's, a library yardstick (SDPA's backward: SDPA forward plus
     backward by autograd, less SDPA's forward) and the bound; the host's
     time to issue a call beside it."""
@@ -5710,7 +5716,7 @@ def _phases(run, failed, name, smi, traces):
                 "(128-key tiles, 64 at head dims 192 and 256; 192 is "
                 "deepseek-v2's MLA with v zero-padded from 128), online "
                 "softmax in registers; fp32 at every head dim and bf16 at "
-                "16/32: flash_fwd_kernel, fp32 FMA")
+                "8/16/32: flash_fwd_kernel, fp32 FMA")
             entry["launches_by_kernel"] = {
                 k: sum(p[2]["flash_launches_by_kernel"][k]
                        for p in paths.values())
@@ -5743,7 +5749,7 @@ def _phases(run, failed, name, smi, traces):
                 "flash_bwd_reduce_kernel sums the fp32 partials in order; "
                 "flash_bwd_dq_tc_kernel, one CTA per (b, head, 128 queries), "
                 "k/v through the ring, dQ += dS.K by wgmma. fp32 and bf16 at "
-                "16/32 (route fma): flash_bwd_{delta,dkdv,dq}_kernel, fp32 "
+                "8/16/32 (route fma): flash_bwd_{delta,dkdv,dq}_kernel, fp32 "
                 "FMA. No atomics; masked tiles skipped")
             entry["launches_by_kernel"] = {
                 k: sum(t["flash_bwd_launches_by_route"][k]

@@ -41,7 +41,7 @@
 //     (head, 128-query tile, b), q and do loaded once, k/v through the
 //     ring, dQ += dS.K by wgmma. Both put the tiles with the most work
 //     first over every head.
-//   * FMA (entry flash_attention_bwd; fp32, and bf16 at head dims 16/32),
+//   * FMA (entry flash_attention_bwd; fp32, and bf16 at head dims 8/16/32),
 //     the first, simple design: the delta kernel, flash_bwd_dkdv_kernel
 //     (one CTA per (b, kv head, key tile): dk and dv summed in registers
 //     over the G query heads of the group and the query tiles the mask lets
@@ -94,7 +94,7 @@
 // Inputs come in through TMA tensor maps over the [B,S,H,hd] view, so the
 // base must be 16-byte aligned and every stride a multiple of 16 bytes.
 //
-// flash_fwd_kernel (fp32 at every head dim, bf16 at head dims 16/32;
+// flash_fwd_kernel (fp32 at every head dim, bf16 at head dims 8/16/32;
 // entry flash_attention_fwd) is the first, simple design: fp32 FMA loops
 // out of shared memory, one CTA of 256 threads per (b, h, 64-query tile),
 // k and v converted to fp32 on load. On the tensor cores fp32 would run as
@@ -113,6 +113,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -143,9 +145,12 @@ struct Cfg {
   // score phase: 16 x 16 threads, rows sy + 16*i, columns sx + 16*j
   static constexpr int S_ROWS = BQ / 16;
   static constexpr int S_COLS = BK / 16;
-  // output phase: TXD threads across dims (4 each per float4 chunk), TYR across rows
+  // output phase: TXD threads across dims (4 each per float4 chunk), TYR across
+  // rows; at head dim 8 two threads span a row, so the tile's rows run out
+  // before the threads do and the threads past them sit the phase out
   static constexpr int TXD = HD / 4 < 16 ? HD / 4 : 16;
-  static constexpr int TYR = NT / TXD;
+  static constexpr int TYR = NT / TXD < BQ ? NT / TXD : BQ;
+  static constexpr bool ALL_OUT = NT / TXD <= BQ;  // every thread has rows
   static constexpr int RM = BQ / TYR;          // rows per thread
   static constexpr int JD = HD / (4 * TXD);    // float4 chunks per thread
   static constexpr int SMEM_FLOATS = BQ * QS + BK * QS + BK * VS + BQ * SS + 2 * BQ;
@@ -205,6 +210,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sx = tid & 15, sy = tid >> 4;
   // output phase
   const int tx = tid % C::TXD, ty = tid / C::TXD;
+  const bool out_lane = C::ALL_OUT || ty < C::TYR;
   float acc[C::RM][C::JD][4];
 #pragma unroll
   for (int i = 0; i < C::RM; ++i)
@@ -298,6 +304,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // acc = acc * alpha + p . v
+    if (!out_lane) continue;
 #pragma unroll
     for (int i = 0; i < C::RM; ++i) {
       const float a = sAlpha[ty + C::TYR * i];
@@ -339,7 +346,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < C::RM; ++i) {
     const int r = ty + C::TYR * i;
     const int qi = q0 + r;
-    if (qi >= Sq) continue;
+    if (!out_lane || qi >= Sq) continue;
     const float denom = fmaxf(sL[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < C::JD; ++j)
@@ -375,14 +382,21 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
                         int causal, int window, float softcap, float scale,
                         cudaStream_t stream) {
   switch (hd) {
+    case 8: return launch<T, 8>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 192: return launch<T, 192>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
-    default: return cudaErrorInvalidValue;
   }
+  // bf16 at head dims 64 to 256 runs on the tensor cores (the wrapper's
+  // kernel_for), so only fp32 builds this kernel there
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+      case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+      case 192: return launch<T, 192>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+      case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Sk, H, G, st, causal, window, softcap, scale, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 
@@ -764,9 +778,12 @@ struct Cfg {
   // score phase: 16 x 16 threads, query rows sy + 16*i, key columns sx + 16*j
   static constexpr int S_ROWS = BQ / 16;
   static constexpr int S_COLS = BK / 16;
-  // accumulation phase: TXD threads across dims (a float4 each), TYR across rows
+  // accumulation phase: TXD threads across dims (a float4 each), TYR across
+  // rows; at head dim 8 the tiles' rows run out before the threads do, and
+  // the threads past them sit the phase out (the forward's rule)
   static constexpr int TXD = HD / 4 < 16 ? HD / 4 : 16;
-  static constexpr int TYR = NT / TXD;
+  static constexpr int TYR = NT / TXD < (BQ < BK ? BQ : BK) ? NT / TXD : (BQ < BK ? BQ : BK);
+  static constexpr bool ALL_ACC = NT / TXD <= (BQ < BK ? BQ : BK);
   static constexpr int JD = HD / (4 * TXD);        // float4 chunks per thread
   static constexpr int RM_K = BK / TYR;            // key rows per thread (dk, dv)
   static constexpr int RM_Q = BQ / TYR;            // query rows per thread (dq)
@@ -901,6 +918,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_hi = a.window > 0 ? min(a.Sq, k_last - q_off + a.window) : a.Sq;
 
   const int tx = tid % C::TXD, ty = tid / C::TXD;
+  const bool acc_lane = C::ALL_ACC || ty < C::TYR;
   float acc_k[C::RM_K][C::JD][4], acc_v[C::RM_K][C::JD][4];
 #pragma unroll
   for (int i = 0; i < C::RM_K; ++i)
@@ -927,6 +945,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       scores_and_ds<HD>(sQ, sDO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, a);
       __syncthreads();
       // dv += p^T . do, dk += ds^T . q
+      if (!acc_lane) continue;
 #pragma unroll 2
       for (int r = 0; r < C::BQ; ++r) {
         float p[C::RM_K], ds[C::RM_K];
@@ -960,7 +979,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < C::RM_K; ++i) {
     const int kj = k0 + ty + C::TYR * i;
-    if (kj >= a.Sk) continue;
+    if (!acc_lane || kj >= a.Sk) continue;
 #pragma unroll
     for (int j = 0; j < C::JD; ++j)
 #pragma unroll
@@ -1020,6 +1039,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * a.k[0] + kvh * a.k[2];
   const T* vb = v + b * a.v[0] + kvh * a.v[2];
   const int tx = tid % C::TXD, ty = tid / C::TXD;
+  const bool acc_lane = C::ALL_ACC || ty < C::TYR;
   float acc[C::RM_Q][C::JD][4];
 #pragma unroll
   for (int i = 0; i < C::RM_Q; ++i)
@@ -1036,6 +1056,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     scores_and_ds<HD>(sQ, sDO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, a);
     __syncthreads();
     // dq += ds . k
+    if (!acc_lane) continue;
 #pragma unroll 2
     for (int c = 0; c < C::BK; ++c) {
       float ds[C::RM_Q];
@@ -1059,7 +1080,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < C::RM_Q; ++i) {
     const int qi = q0 + ty + C::TYR * i;
-    if (qi >= a.Sq) continue;
+    if (!acc_lane || qi >= a.Sq) continue;
 #pragma unroll
     for (int j = 0; j < C::JD; ++j)
 #pragma unroll
@@ -1107,14 +1128,21 @@ cudaError_t run(int hd, const void* q, const void* k, const void* v, const void*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   switch (hd) {
+    case 8: return launch<T, 8>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
     case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
-    case 192: return launch<T, 192>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
-    case 256: return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
-    default: return cudaErrorInvalidValue;
   }
+  // bf16 at head dims 64 to 256 takes the tensor-core route (the forward's
+  // rule), so only fp32 builds these kernels there
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+      case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+      case 192: return launch<T, 192>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+      case 256: return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Kh, a, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace bwd

@@ -15,8 +15,9 @@ function, chosen by dtype and head dim alone (``kernel_for``):
   strides that are multiples of 16 bytes (``check_tma``); the wrapper
   raises otherwise and never copies.
 * ``"fma"`` — fp32 at every head dim of ``HEAD_DIMS`` (the tensor cores
-  would round it to TF32) and bf16 at head dims 16 and 32 (only the smoke configs): the
-  first design, fp32 FMA loops out of shared memory.
+  would round it to TF32) and bf16 at head dims 8, 16 and 32 (only the
+  smoke configs; internvl2-76b's has 8): the first design, fp32 FMA loops
+  out of shared memory.
 
 What bounds it on an H100: at long prefill, compute — ``4*B*H*Sq*Sk*hd``
 FLOP, about halved under the causal mask — against the bytes of q, k, v
@@ -58,8 +59,8 @@ forward's rule) and counted once per call in ``launches_bwd_tc`` or
   head, 128-query tile), q and do loaded once and k/v through the ring,
   ``dQ += dS.K`` on the tensor cores. TMA reads q, k, v and do in place
   (``check_tma``); the wrapper raises on a layout it cannot read.
-* ``"fma"`` — fp32 at every head dim and bf16 at head dims 16 and 32: the
-  first design, fp32 FMA from shared memory; one CTA per (b, kv head, key
+* ``"fma"`` — fp32 at every head dim and bf16 at head dims 8, 16 and 32:
+  the first design, fp32 FMA from shared memory; one CTA per (b, kv head, key
   tile) sums dk and dv over the group's heads, one per (b, head, query
   tile) sums dq.
 
@@ -84,7 +85,7 @@ import ctypes
 import torch
 
 NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 192, 256)
 TC_HEAD_DIMS = (64, 128, 192, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

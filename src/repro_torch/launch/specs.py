@@ -19,7 +19,7 @@ heads' sections or vocabulary rows and the other leaves gathered. A decode cache
 and out as this rank's storage shard, read and written in place; one of a
 gathered block (the other mixers, and every block of a model whose plan
 splits nothing) is all-gathered over its non-batch axes by c10d
-(``adamw._relayout``), written by the step and cut back to its shard.
+(``sharding.relayout``), written by the step and cut back to its shard.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch.models.layers import tree_map
 from repro_torch.models.model import LM
 from repro_torch.optim import adamw
 from repro_torch.sharding import partition as part
+from repro_torch.sharding import relayout as RL
 from repro_torch.sharding import tp as TP
 
 
@@ -173,13 +174,12 @@ def cache_in(cache, cache_axes, split, mesh):
     """Each decode-cache leaf (a DTensor at its storage spec) as a serving
     call computes on it: a split block's (``split``, ``LM.cache_split``)
     its local shard itself, written in place; a gathered block's its batch
-    rows gathered whole by c10d (``adamw._relayout``)."""
-    from repro_torch.optim.adamw import _relayout
+    rows gathered whole by c10d (``sharding.relayout``)."""
 
     def local(axes, t, s):
         if s:
             return t.to_local()
-        return _relayout(t.to_local(), mesh, t.placements,
+        return RL.relayout(t.to_local(), mesh, t.placements,
                          _batch_only(axes, t.placements))
     return part.map_specs(local, cache_axes, cache, split)
 
@@ -190,12 +190,11 @@ def cache_out(cache, cache_axes, split, shardings, mesh):
     input's storage after a decode), a gathered block's batch rows cut to
     this rank's shard."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.optim.adamw import _relayout
 
     def out(axes, t, s, sh):
         pl = sh.placements
         if not s:
-            t = _relayout(t, mesh, _batch_only(axes, pl), pl).contiguous()
+            t = RL.relayout(t, mesh, _batch_only(axes, pl), pl).contiguous()
         return DTensor.from_local(t, mesh, pl, run_check=False)
     return part.map_specs(out, cache_axes, cache, split, shardings)
 

@@ -63,6 +63,7 @@ import torch
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import flatten_paths
 from repro_torch.sharding import partition as part
+from repro_torch.sharding import relayout as RL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,91 +303,6 @@ def _compute_placements(lm, mesh, plan=None):
     return compute_placements
 
 
-def _relayout(t, mesh, src, dst):
-    """The local tensor ``t`` of a layout at placements ``src`` (Shard,
-    Replicate or Partial on each mesh dim) -> its local tensor at ``dst``
-    (Shard or Replicate). The one path both ways of the mesh step take: the
-    compute copies from storage, the gradients back to it. Over each mesh
-    dim of more than one rank, a Partial is summed (reduce-scatter into a
-    Shard, else all-reduce), a Shard it leaves is all-gathered and a Shard
-    it enters is cut; over one rank only the cut (a no-op) is taken. These
-    are c10d calls on the mesh's groups, which gloo takes for CUDA tensors
-    (staged through the host), where DTensor's functional all-gather of a
-    CUDA tensor crashed gloo. Shards are even (``partition.resolve`` drops
-    an axis that does not divide; the tensor-parallel plan splits whole
-    units). A tensor dim over two mesh dims (a decode cache's sequence
-    over ("data", "model"), split major to minor) is gathered minor dim
-    first and cut major dim first, whole, and takes no Partial."""
-    import torch.distributed as dist
-    owner = {}
-    for d in range(mesh.ndim):
-        for pl in (src[d], dst[d]):
-            if pl.is_shard():
-                owner.setdefault(pl.dim, set()).add(d)
-    multi = {i for i, ds in owner.items() if len(ds) > 1}
-    if multi:
-        if any(pl.is_partial() for pl in src):
-            raise NotImplementedError(f"a Partial beside two mesh dims on "
-                                      f"one tensor dim: {src} -> {dst}")
-        return _relayout_multi(t, mesh, src, dst, multi)
-    for d in range(mesh.ndim):
-        a, b, n = src[d], dst[d], mesh.size(d)
-        if a == b:
-            continue
-        group = mesh.get_group(d)
-        if a.is_partial():
-            if n > 1 and b.is_shard():
-                x = t.movedim(b.dim, 0).contiguous()
-                out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
-                dist.reduce_scatter_tensor(out, x, group=group)
-                t = out.movedim(0, b.dim)
-                continue
-            if n > 1:
-                t = t.contiguous()
-                dist.all_reduce(t, group=group)
-        elif a.is_shard() and n > 1:
-            parts = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(parts, t.contiguous(), group=group)
-            t = torch.cat(parts, a.dim)
-        if b.is_shard():
-            if t.shape[b.dim] % n:
-                raise ValueError(f"uneven shard: dim {b.dim} of "
-                                 f"{tuple(t.shape)} over {n} ranks")
-            k = t.shape[b.dim] // n
-            t = t.narrow(b.dim, mesh.get_local_rank(d) * k, k)
-    return t
-
-
-def _relayout_multi(t, mesh, src, dst, multi):
-    """``_relayout`` where the tensor dims ``multi`` lie on two mesh dims
-    or more: such a dim whose mesh dims change is gathered whole and cut
-    again; one whose mesh dims stay (a batch over ("pod", "data")) is
-    left as it is."""
-    import torch.distributed as dist
-
-    def dims(pls, i):
-        return [d for d, pl in enumerate(pls) if pl.is_shard() and
-                pl.dim == i]
-    redo = {i for i in multi if dims(src, i) != dims(dst, i)}
-
-    def moves(a, b):
-        return a != b or (a.is_shard() and a.dim in redo) or \
-            (b.is_shard() and b.dim in redo)
-    for d in reversed(range(mesh.ndim)):
-        a, n = src[d], mesh.size(d)
-        if a.is_shard() and n > 1 and moves(a, dst[d]):
-            x = t.movedim(a.dim, 0).contiguous()
-            out = x.new_empty((n * x.shape[0],) + x.shape[1:])
-            dist.all_gather_into_tensor(out, x, group=mesh.get_group(d))
-            t = out.movedim(0, a.dim)
-    for d in range(mesh.ndim):
-        b, n = dst[d], mesh.size(d)
-        if b.is_shard() and moves(src[d], b):
-            k = t.shape[b.dim] // n
-            t = t.narrow(b.dim, mesh.get_local_rank(d) * k, k)
-    return t
-
-
 def _sections(lm, mesh, plan):
     """The leaves ``plan`` takes by sections -> the indices of this rank's
     columns along their last dim (``LM.sections``); {} without a plan."""
@@ -412,7 +328,7 @@ def _point_at(lm, params, mesh, compute_placements, sections):
             pl = compute_placements(n, dt)
 
             def compute(t):
-                return _relayout(t, mesh, dt.placements, pl)
+                return RL.relayout(t, mesh, dt.placements, pl)
             if n in sections:
                 idx = sections[n].to(dt.device)
                 p.data = _by_layer(
@@ -469,7 +385,7 @@ def _mesh_step(lm, cfg, state, batch, impl, schedule_kind, generator,
                 pl[d] = Partial()
 
             def storage(g):
-                return _relayout(g, mesh, pl, dt.placements)
+                return RL.relayout(g, mesh, pl, dt.placements)
             if n in sections:    # scattered into the gathered width
                 idx, width = sections[n].to(g.device), dt.shape[-1]
                 grads[n] = _by_layer(lambda g: storage(g.new_zeros(

@@ -375,17 +375,23 @@ def placements(spec: Sequence[Axis], mesh):
 
 
 def constrain(x, logical: Sequence[Optional[str]]):
-    """Redistribute a DTensor to ``logical``'s spec on the active mesh;
-    a plain tensor, or any tensor without an active mesh, is returned as
-    it is."""
+    """A DTensor laid out at ``logical``'s spec on the active mesh, the
+    same global tensor; a plain tensor, or any tensor without an active
+    mesh, is returned as it is, and ``x`` is left as it was. The move goes
+    through the port's c10d relayout (``relayout.Relayout``), not DTensor's
+    ``redistribute``, whose functional all-gather of a CUDA tensor crashed
+    gloo; the gradient takes the way back (a Partial's as a Replicate)."""
     mesh, rules = _active()
     if mesh is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    spec = resolve(logical, x.shape, mesh, rules)
-    return x.redistribute(mesh, placements(spec, mesh))
+    from repro_torch.sharding.relayout import Relayout
+    dst = placements(resolve(logical, x.shape, mesh, rules), mesh)
+    local = Relayout.apply(x.to_local(), mesh, tuple(x.placements), dst)
+    return DTensor.from_local(local, mesh, dst, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def _is_axes(t) -> bool:

@@ -9,8 +9,8 @@ Jobs: ``indices`` (``NamedSharding.devices_indices_map`` of the cases in
 ``cases.json``), ``ep`` (``moe_apply`` on the local path and on meshes
 (1,2), (1,4) and (2,2), with gradients, at capacity factor 8 and, on the
 meshes, at each of the input's ``low_cfs``, where copies drop; two AdamW
-steps of the deepseek-moe-16b smoke LM on the (2,2) mesh, with ``m`` after
-the first), ``specs`` (``launch.specs.input_specs`` of the cells in
+steps of the deepseek-moe-16b smoke LM on the (2,2) mesh and unsharded,
+with ``m`` after the first), ``specs`` (``launch.specs.input_specs`` of the cells in
 ``cases.json``: each argument leaf's shape, dtype and resolved spec) and
 ``flops`` (per-device FLOPs of each cell in ``cases.json``, smoke configs,
 by ``roofline.hlo.analyze_text`` of the compiled step, as the dry-run) and
@@ -29,6 +29,7 @@ cell's in and out shardings; the logits of each call, the cache after
 the prefill and after the last step, and each cache leaf's
 ``devices_indices_map`` in the mesh's device order, in ``indices.json``).
 """
+import contextlib
 import json
 import os
 import sys
@@ -147,23 +148,27 @@ def job_ep(d):
                     _mesh(shape, ("data", "model")), x, with_cf(cf))
 
     # two AdamW steps of the smoke LM (capacity factor 8) on the (2,2) mesh
+    # ("train") and unsharded ("train_local", the port's witness)
     lm = LM(cfg)
     flat = {k[3:]: v for k, v in z.items() if k.startswith("lm.")}
     params = _tree_from(flat, lm.init(jax.random.PRNGKey(0)))
     opt = adamw.OptConfig(**json.loads(str(z["opt"])))
-    mesh = _mesh((2, 2), ("data", "model"))
-    with part.activate(mesh):
-        state = adamw.init_state(params)
-        step = jax.jit(adamw.make_train_step(lm, opt))
-        for i in range(2):
-            state, m = step(state, {"tokens": jnp.asarray(z[f"batch{i}"])})
-            for k, v in m.items():
-                out[f"train.{i}.{k}"] = np.asarray(v)
-            if i == 0:
-                for k, v in _flat(state["m"]).items():
-                    out[f"train.m1.{k}"] = v
-    for k, v in _flat(state["params"]).items():
-        out[f"train.params.{k}"] = v
+    for name, mesh in (("train", _mesh((2, 2), ("data", "model"))),
+                       ("train_local", None)):
+        with (part.activate(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            state = adamw.init_state(params)
+            step = jax.jit(adamw.make_train_step(lm, opt))
+            for i in range(2):
+                state, m = step(state, {"tokens": jnp.asarray(
+                    z[f"batch{i}"])})
+                for k, v in m.items():
+                    out[f"{name}.{i}.{k}"] = np.asarray(v)
+                if i == 0:
+                    for k, v in _flat(state["m"]).items():
+                        out[f"{name}.m1.{k}"] = v
+        for k, v in _flat(state["params"]).items():
+            out[f"{name}.params.{k}"] = v
     np.savez(os.path.join(d, "out.npz"), **out)
 
 

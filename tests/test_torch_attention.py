@@ -16,7 +16,9 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
-ATTN_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 16)]
+# the last: internvl2-76b's smoke attention (8 heads of 8 over 2 kv heads)
+ATTN_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 16),
+               (1, 128, 8, 2, 8)]
 VARIANTS = ["causal", "bidir", "window", "softcap"]
 DTYPES = {"f32": (torch.float32, "float32"),
           "bf16": (torch.bfloat16, "bfloat16")}

@@ -26,6 +26,8 @@ CASES = {
     "gqa": ((1, 64, 64, 8, 2, 16), dict(causal=True)),
     "mqa": ((1, 96, 96, 6, 1, 16), dict(causal=True)),
     "sq_lt_sk": ((1, 32, 96, 4, 2, 16), dict(causal=True)),
+    # internvl2-76b's smoke attention: head dim 8
+    "hd8": ((1, 64, 64, 8, 2, 8), dict(causal=True)),
 }
 
 

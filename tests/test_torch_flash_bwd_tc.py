@@ -33,10 +33,12 @@ CHUNK = 32            # the JAX side's chunk_q and chunk_k
     (torch.bfloat16, 192, "tc"), (torch.bfloat16, 256, "tc"),
     (torch.bfloat16, 16, "fma"), (torch.bfloat16, 32, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 192, "fma"), (torch.float32, 256, "fma")])
+    (torch.float32, 192, "fma"), (torch.float32, 256, "fma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 8, "fma")])
 def test_bwd_kernel_for_routes_by_dtype_and_head_dim(dtype, hd, want):
     """The forward's rule, head dim 192 (MLA) included: bf16 at 64 to 256
-    on the tensor cores, fp32 (the twins) and the smoke head dims on FMA."""
+    on the tensor cores, fp32 (the twins) and the smoke head dims (8 among
+    them, internvl2-76b's) on FMA."""
     assert fa.bwd_kernel_for(dtype, hd) == want == fa.kernel_for(dtype, hd)
 
 

@@ -38,7 +38,8 @@ def J():
     (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "fma"),
     (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
-    (torch.bfloat16, 192, "tc"), (torch.float32, 192, "fma")])
+    (torch.bfloat16, 192, "tc"), (torch.float32, 192, "fma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 8, "fma")])
 def test_kernel_for_routes_by_dtype_and_head_dim(dtype, hd, want):
     assert fa.kernel_for(dtype, hd) == want
 

@@ -12,8 +12,14 @@ EP aux at 1e-5. Capacity factor 8: no copy drops on either path. At the
 factors of ``LOW_CFS`` copies drop (at 0.5 at both of EP's capacities,
 ``C_send`` and ``C_loc``, on every mesh; 1.25 is the MoE configs' own),
 and EP is held against the reference's EP alone (the local path drops
-other copies).
+other copies). The two AdamW steps on (2,2) against JAX's hold ``m``
+after step 1 leaf by leaf within W_MULT times a same-run witness's
+distance: float32 keeps some four digits of this random-init gradient in
+any code, the reference's too (the port's unsharded step lies 6e-5 to
+1.1e-4 from JAX's unsharded step on every leaf). Left out of the combine,
+the shared experts' output is the control that must miss.
 """
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -40,6 +46,13 @@ ROOT = Path(__file__).resolve().parent.parent
 MESHES = ((1, 2), (1, 4), (2, 2))
 TOL = 1e-5
 RTOL = 1e-4            # the train steps, as tests/test_torch_train.py
+# ``m`` after step 1 against JAX's, leaf by leaf: relative L2 within W_MULT
+# times the same-run witness (the port's unsharded step against JAX's
+# unsharded step: two float32 codes of one function), plus FLOOR, float32's
+# eps: a witness that reads 0 (two codes that agree bit for bit on a leaf)
+# must not set a limit below one rounding of each element
+W_MULT = 1.25          # as tests/test_torch_tp_encdec.py's
+FLOOR = 2.0 ** -23
 LOW_CFS = (0.5, 1.25)  # capacity factors at which copies drop
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 MOE_KEYS = ("router", "wi_gate", "wi_up", "wo", "shared.wi_gate",
@@ -159,7 +172,20 @@ def _ep_rank(rank, world, d):
     mesh = meshes[(2, 2)]
     out["train"] = _train(_lm(z), z, mesh)
     out["train_no_aux"] = _train(_lm(z, aux_weight=0.0), z, mesh)
+    with _shared_left_out():
+        out["train_control"] = _train(_lm(z), z, mesh)
     return out
+
+
+@contextlib.contextmanager
+def _shared_left_out():
+    """The control: the shared experts' output left out of the combine."""
+    real = MOE._shared
+    MOE._shared = lambda p, xf, tp=None: torch.zeros_like(xf)
+    try:
+        yield
+    finally:
+        MOE._shared = real
 
 
 @pytest.fixture(scope="module")
@@ -283,6 +309,24 @@ def _m1_close(m1, want):
                                    err_msg=n)
 
 
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _m1_over_limit(runs, key):
+    """Each leaf's relative L2 distance of the (2,2) run ``key``'s ``m``
+    after step 1 from JAX's (2,2) step's, over its limit: W_MULT times the
+    witness's distance (the port's unsharded step from JAX's unsharded
+    step, both with the config's aux weight) plus FLOOR."""
+    z, port, jx = runs
+    m1 = port[0][key][2]
+    witness = _train(_lm(z), z)[2]
+    return {n: _rel_l2(t, jx[f"train.m1.{n}"]) / (
+        W_MULT * _rel_l2(witness[n], jx[f"train_local.m1.{n}"]) + FLOOR)
+        for n, t in m1.items()}
+
+
 def _lr_sum():
     opt = adamw.OptConfig(**OPT)
     return sum(float(adamw.schedule(opt, s)) for s in (1, 2))
@@ -292,12 +336,14 @@ def test_two_steps_on_a_2x2_mesh_match_jax(runs):
     """deepseek-moe-16b smoke on (2,2) with EP against the reference's two
     AdamW steps on the same mesh: loss, ce, aux (EP's, averaged over the
     slices) at rtol 1e-4 at both steps, grad_norm at step 1, params within
-    2 * sum(lr), ``m`` after step 1 leaf by leaf (``_m1_close``). Step 2's grad_norm is not held to JAX's: the unsharded
-    port's departs from it by 1.2e-3 on these weights too (step 1 moves a
-    weight with a gradient near 0 by up to 2 lr the other way), so the
-    aux-free test below holds it against the port's own unsharded step."""
+    2 * sum(lr), ``m`` after step 1 leaf by leaf within the same-run
+    witness's limit (``_m1_over_limit``). Step 2's grad_norm is not held
+    to JAX's: the unsharded port's departs from it by 1.2e-3 on these
+    weights too (step 1 moves a weight with a gradient near 0 by up to 2
+    lr the other way), so the aux-free test below holds it against the
+    port's own unsharded step."""
     z, port, jx = runs
-    mets, params, m1 = port[0]["train"]
+    mets, params, _ = port[0]["train"]
     for i, m in enumerate(mets):
         for k in ("loss", "ce", "aux", "lr") + (("grad_norm",) if i == 0
                                                 else ()):
@@ -306,8 +352,16 @@ def test_two_steps_on_a_2x2_mesh_match_jax(runs):
     for n, t in params.items():
         np.testing.assert_allclose(t.numpy(), jx[f"train.params.{n}"],
                                    atol=2 * _lr_sum(), rtol=0, err_msg=n)
-    _m1_close(m1, {n: jx[f"train.m1.{n}"] for n in m1})
+    over = _m1_over_limit(runs, "train")
+    assert max(over.values()) <= 1.0, over
     assert all(r["train"][0] == mets for r in port)
+
+
+def test_the_control_misses_the_witness_limit(runs):
+    """The shared experts' output left out of the combine: ``m`` after
+    step 1 misses the witness limit of the test above by far."""
+    over = _m1_over_limit(runs, "train_control")
+    assert max(over.values()) > 100.0, over
 
 
 def test_two_steps_on_a_2x2_mesh_match_the_unsharded_port(runs):

@@ -12,6 +12,9 @@ reference's, and the train step on a small mesh.
   AdamW step on meshes (1,8) and (2,4) in the same eight processes, its
   loss finite and equal to the unsharded port's and JAX's at rtol 1e-4,
   its grad_norm and params to the unsharded port's.
+* ``constrain`` lays a DTensor out as DTensor's ``redistribute`` does,
+  the same local tensor, placements and input gradient, through the
+  port's c10d relayout, calling no ``redistribute``.
 """
 import contextlib
 import json
@@ -141,6 +144,61 @@ def test_every_parameter_resolves_as_the_reference(arch, full):
     assert len(shardings) > len(MESHES)        # something is sharded
 
 
+# constrain's cases on the (2, 4) ("data", "model") mesh: an [8, 8] tensor's
+# placements (a Partial's local tensor half the whole) -> logical axes
+CONSTRAIN_CASES = {
+    "replicated->rows,cols": (("R", "R"), ("embed", "ffn")),
+    "rows,cols->whole": (("S0", "S1"), (None, None)),
+    "partial->rows,cols": (("P", "R"), ("embed", "ffn")),
+    "partial->whole": (("R", "P"), (None, None)),
+    "cols over both->rows,cols": (("S1", "S1"), ("embed", "ffn")),
+    "cols->rows": (("R", "S1"), ("ffn", None)),
+}
+
+
+def _constrain_case(mesh, src, logical):
+    """``constrain`` of the case against DTensor's ``redistribute`` to the
+    same placements -> for each, (the local tensor, its placements, the
+    local input's gradient of sum(local output * (rank + 1)), whether the
+    input's local tensor is as it was after the call); constrain with
+    ``DTensor.redistribute`` made to raise."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    pl = [{"R": Replicate(), "P": Partial(), "S0": Shard(0),
+           "S1": Shard(1)}[k] for k in src]
+    full = torch.arange(64.0).reshape(8, 8)
+    if any(p.is_partial() for p in pl):
+        local0 = full / 2
+    else:
+        local0 = distribute_tensor(full, mesh, pl).to_local()
+    weight = float(torch.distributed.get_rank() + 1)
+
+    def run(fn):
+        leaf = local0.clone().requires_grad_()
+        x = DTensor.from_local(leaf, mesh, pl, run_check=False,
+                               shape=full.shape, stride=full.stride())
+        y = fn(x)
+        kept = torch.equal(x.to_local(), local0)
+        (y.to_local() * weight).sum().backward()
+        return (y.to_local().detach().clone(), [
+            (p.dim if p.is_shard() else type(p).__name__)
+            for p in y.placements], leaf.grad.clone(), kept)
+
+    with part.activate(mesh):
+        dst = part.placements(part.resolve(logical, full.shape, mesh), mesh)
+        want = run(lambda x: x.redistribute(mesh, dst))
+
+        def refuse(*a, **kw):
+            raise AssertionError("constrain called DTensor.redistribute")
+        real = DTensor.redistribute
+        DTensor.redistribute = refuse
+        try:
+            got = run(lambda x: part.constrain(x, logical))
+        finally:
+            DTensor.redistribute = real
+    return got, want
+
+
 def _index_rank(rank, world, d):
     """One of eight ranks: each case's local shard of an arange tensor,
     then the train step on each mesh of STEP_CASES."""
@@ -178,6 +236,8 @@ def _index_rank(rank, world, d):
         same = part.constrain(plain, ("embed",)) is plain
     out["constrain"] = (c.to_local().clone(), [
         p.dim if p.is_shard() else None for p in c.placements], same)
+    out["constrain_cases"] = {k: _constrain_case(mesh, *v)
+                              for k, v in CONSTRAIN_CASES.items()}
     return out
 
 
@@ -308,6 +368,22 @@ def test_constrain_redistributes_a_dtensor(ranks):
         assert dims == [0, 1] and same
         d, m = divmod(rank, 4)
         assert torch.equal(local, full[4 * d:4 * d + 4, 2 * m:2 * m + 2])
+
+
+@pytest.mark.parametrize("case", list(CONSTRAIN_CASES))
+def test_constrain_lays_out_as_redistribute_without_it(ranks, case):
+    """On every rank ``constrain``'s local tensor, placements and input
+    gradient equal those of DTensor's ``redistribute`` to the same
+    placements, and ``constrain`` ran with ``redistribute`` refusing and
+    left its input's local tensor as it was (a Partial's sum is taken in a
+    copy, as ``redistribute`` takes it)."""
+    for r in ranks[0]:
+        (local, pls, grad, kept), (want, want_pls, want_grad, _) = \
+            r["constrain_cases"][case]
+        assert pls == want_pls
+        assert torch.equal(local, want)
+        assert torch.equal(grad, want_grad)
+        assert kept
 
 
 @pytest.mark.parametrize("compress", [False, True],

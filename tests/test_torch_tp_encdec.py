@@ -33,8 +33,9 @@ kv head its q heads read) on (1, 4):
   partial over "model"), and every other leaf its slice or the whole leaf;
 * two AdamW steps of a float64 copy of the port (``tests/
   encdec_grad_norm.py``'s ``float64_port``) equal to its unsharded steps
-  at 1e-10, and a control that must miss that: the cross-attention's
-  all-reduce dropped;
+  by ``tests/float64_steps.py``'s measure at 1e-10 (beside its witness,
+  the unsharded steps with their sums in parts), and a control that must
+  miss that: the cross-attention's all-reduce dropped;
 * with "heads" kept off "model" both mixers and the cross-attention
   compute gathered (their compute copies whole) and the float64 steps
   equal the unsharded ones;
@@ -66,6 +67,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from encdec_grad_norm import F64, float64_port  # noqa: E402
+from float64_steps import (F64_REL, distance, sums_in_parts,  # noqa: E402
+                           two_steps, worst)
 
 from repro_torch.bridge import load_jax_numpy  # noqa: E402
 from repro_torch.configs.base import (ShapeConfig,  # noqa: E402
@@ -81,7 +84,6 @@ from repro_torch.sharding import partition as part  # noqa: E402
 ROOT = Path(__file__).resolve().parent.parent
 ARCH = "seamless-m4t-large-v2"
 RTOL = 1e-4
-F64_REL = 1e-10
 W_MULT = 1.25          # the float32 distances' limit over the witnesses'
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 B, S, FRAMES = 4, 32, 32
@@ -172,11 +174,12 @@ def _cross_unsummed():
 
 
 def _steps64(model, weights, batches, mesh_shape=None, rules=None,
-             control=False):
+             control=False, witness=False):
     """Two AdamW steps of the float64 port's ``model`` from ``weights``, on
     ``mesh_shape`` under ``rules``, with the cross-attention's all-reduce
-    dropped under ``control``. -> (metrics per step, params, ``m`` after
-    step 1, step 1's logits: this rank's), whole tensors."""
+    dropped under ``control``, with the sums in parts under ``witness``.
+    -> ``float64_steps.Steps`` (step 1's logits: this rank's), whole
+    tensors."""
     mod = {k: importlib.import_module(f"{F64}.{k}") for k in (
         "configs.base", "models.model", "optim.adamw",
         "sharding.partition", "launch.mesh", "runtime.elastic")}
@@ -198,24 +201,18 @@ def _steps64(model, weights, batches, mesh_shape=None, rules=None,
                                         device="cpu") if mesh_shape else None
     state = opt_mod.init_state(lm)
     whole = (lambda t: t.full_tensor()) if mesh else (lambda t: t)
-    mets = []
     with (prt.activate(mesh, rules) if mesh else contextlib.nullcontext()), \
-            (_cross_unsummed() if control else contextlib.nullcontext()):
+            (_cross_unsummed() if control else contextlib.nullcontext()), \
+            (sums_in_parts() if witness else contextlib.nullcontext()):
         if mesh:
             state = mod["runtime.elastic"].remesh_state(
                 state, opt_mod.state_logical(lm), None, mesh)
         step = opt_mod.make_train_step(lm, opt_mod.OptConfig(**OPT))
-        for i, (tok, frames) in enumerate(batches):
-            state, m = step(state, {"tokens": torch.from_numpy(tok).long(),
-                                    "frames": torch.from_numpy(frames)
-                                    .double()})
-            mets.append({k: float(v) for k, v in m.items()})
-            if i == 0:
-                m1 = {n: whole(t).detach().clone()
-                      for n, t in state["m"].items()}
-        params = {n: whole(t).detach().clone()
-                  for n, t in state["params"].items()}
-    return mets, params, m1, logits[0]
+        out = two_steps(step, state, [
+            {"tokens": torch.from_numpy(tok).long(),
+             "frames": torch.from_numpy(frames).double()}
+            for tok, frames in batches], whole)
+    return out._replace(logits=logits[0])
 
 
 def _serve(lm, z, key, mesh=None):
@@ -360,6 +357,8 @@ def runs(tmp_path_factory):
         unsharded = {m: _step(_lm(z, m, m), z) for m in MODELS}
         unsharded64 = {m: _steps64(m, weights64[m], batches)
                        for m in MODELS}
+        witness64 = {m: _steps64(m, weights64[m], batches, witness=True)
+                     for m in MODELS}
         served = {key: _serve(_lm(z, f"{key}.p"), z, key) for key in SERVE}
         errs = [p.communicate(timeout=300)[1] for p in procs]
     finally:
@@ -372,7 +371,7 @@ def runs(tmp_path_factory):
     with open(d / "serve" / "indices.json") as f:
         indices = json.load(f)
     return dict(z=z, port=port, unsharded=unsharded, unsharded64=unsharded64,
-                served=served, jx=jx, js=js, indices=indices)
+                witness64=witness64, served=served, jx=jx, js=js, indices=indices)
 
 
 def _close(got, want, what):
@@ -418,7 +417,7 @@ def test_one_step_matches_gspmd(runs, case):
     want = runs["unsharded"][case[0]]
     _close(got, want[1].numpy(), "logits against the port")
     exact64 = runs["unsharded64"][case[0]]
-    lg64 = exact64[3].numpy()
+    lg64 = exact64.logits.numpy()
     witness = max(_rel_l2(want[1].numpy(), lg64),
                   _rel_l2(jx[f"{i}.logits"], lg64))
     assert _rel_l2(got, lg64) <= W_MULT * witness + RTOL, witness
@@ -427,7 +426,7 @@ def test_one_step_matches_gspmd(runs, case):
     for k in ("loss", "ce"):
         np.testing.assert_allclose(mets[k], float(jx[f"{i}.{k}"]),
                                    rtol=RTOL, err_msg=k)
-    gn64 = exact64[0][0]["grad_norm"]
+    gn64 = exact64.metrics[0]["grad_norm"]
 
     def gn_rel(v):
         return abs(v - gn64) / gn64
@@ -437,7 +436,7 @@ def test_one_step_matches_gspmd(runs, case):
         gn_witness
     m = port[0][case]["m"]
     unsharded_m = want[3]["m"]
-    exact = exact64[2]
+    exact = exact64.m1
     assert m.keys() == unsharded_m.keys() == exact.keys()
     for n, t in m.items():
         f64 = exact[n].numpy()
@@ -488,30 +487,18 @@ def test_compute_copies_are_the_ranks_slices(runs, case):
         split
 
 
-def _f64_distance(got, want):
-    """Largest relative distance of loss and grad_norm over the steps, the
-    worst leaf's relative L2 of ``m`` after step 1, the params' largest
-    absolute difference."""
-    (gm, gp, g1, _), (wm, wp, w1, _) = got, want
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-    return max(
-        max(rel(a[k], b[k]) for a, b in zip(gm, wm)
-            for k in ("loss", "grad_norm")),
-        max(_rel_l2(g1[n].numpy(), w1[n].numpy()) for n in w1),
-        max(float((gp[n] - wp[n]).abs().max()) for n in wp))
-
-
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_two_steps_are_exact_in_float64(runs, case):
     """In float64 the mesh's two steps equal the unsharded float64 steps to
-    F64_REL: loss and grad_norm at both steps, ``m`` after step 1 leaf by
-    leaf, every param; every rank alike."""
+    F64_REL by ``float64_steps.distance``, every rank alike; the witness
+    (the unsharded steps with their sums in parts) moves no params term
+    past it either."""
     port = runs["port"]
     got = port[0][case]["f64"]
-    assert all(r[case]["f64"][0] == got[0] for r in port)
-    assert _f64_distance(got, runs["unsharded64"][case[0]]) <= F64_REL
+    want = runs["unsharded64"][case[0]]
+    assert all(r[case]["f64"].metrics == got.metrics for r in port)
+    assert worst(got, want) <= F64_REL, distance(got, want)
+    assert distance(runs["witness64"][case[0]], want)["params"] <= F64_REL
 
 
 def test_the_control_misses_the_float64_limit(runs):
@@ -519,8 +506,7 @@ def test_the_control_misses_the_float64_limit(runs):
     rank's share of ``wo`` taken as the whole): the float64 steps on
     (1, 4) miss F64_REL by far."""
     got = runs["port"][0]["control"]
-    assert _f64_distance(got, runs["unsharded64"]["seamless"]) > \
-        1e3 * F64_REL
+    assert worst(got, runs["unsharded64"]["seamless"]) > 1e3 * F64_REL
 
 
 def test_with_heads_off_model_the_mixers_compute_gathered(runs):
@@ -543,7 +529,7 @@ def test_with_heads_off_model_the_mixers_compute_gathered(runs):
         assert n_mixer == sum(b in BLOCKS for b in blocks.values()) > 0
         np.testing.assert_allclose(got["metrics"]["loss"], want["loss"],
                                    rtol=RTOL)
-        assert _f64_distance(got["f64"], runs["unsharded64"]["seamless"]) \
+        assert worst(got["f64"], runs["unsharded64"]["seamless"]) \
             <= F64_REL
 
 

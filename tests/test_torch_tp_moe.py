@@ -27,8 +27,9 @@ either path, as ``tests/test_torch_moe_ep.py``'s unsharded comparison):
 * each rank's compute copy of every leaf exactly its slice (split), its EP
   shard (the routed experts) or the whole leaf;
 * two AdamW steps of a float64 copy of the port
-  (``tests/encdec_grad_norm.py``'s ``float64_port``) equal to its unsharded steps at 1e-10, and two
-  controls that must miss that: MLA's ``q_norm`` gradient summed over
+  (``tests/encdec_grad_norm.py``'s ``float64_port``) equal to its
+  unsharded steps by ``tests/float64_steps.py``'s measure at 1e-10, and
+  two controls that must miss that: MLA's ``q_norm`` gradient summed over
   "model" (it acts ahead of the split and is whole), and the shared
   experts' ``reduce_from`` dropped;
 * serving cells on (2, 2) against JAX's (``tests/jax_mesh_ref.py serve``)
@@ -61,6 +62,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from encdec_grad_norm import F64, float64_port  # noqa: E402
+from float64_steps import (F64_REL, distance, sums_in_parts,  # noqa: E402
+                           two_steps, worst)
 
 from repro_torch.bridge import load_jax_numpy  # noqa: E402
 from repro_torch.configs.base import (ShapeConfig,  # noqa: E402
@@ -75,7 +78,6 @@ from repro_torch.sharding import partition as part  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 RTOL = 1e-4
-F64_REL = 1e-10
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 B, S = 4, 32
 MOE = {"router_aux_weight": 0.0, "capacity_factor": 8.0}
@@ -175,11 +177,12 @@ class _Control:
         self.part.partial_over_model, self.moe.TP = self.saved
 
 
-def _steps64(arch, weights, batches, mesh_shape=None, control=None):
+def _steps64(arch, weights, batches, mesh_shape=None, control=None,
+             witness=False):
     """Two AdamW steps of the float64 port's smoke ``arch`` from
     ``weights``, on ``mesh_shape`` with EP and the default split, under
-    ``control`` (a CONTROLS name) if given. -> (metrics per step, params,
-    ``m`` after step 1), whole tensors."""
+    ``control`` (a CONTROLS name) if given, with the sums in parts under
+    ``witness``. -> ``float64_steps.Steps``, whole tensors."""
     import contextlib
     mod = {k: importlib.import_module(f"{F64}.{k}") for k in (
         "configs.base", "models.model", "optim.adamw",
@@ -195,22 +198,15 @@ def _steps64(arch, weights, batches, mesh_shape=None, control=None):
                                         device="cpu") if mesh_shape else None
     state = opt_mod.init_state(lm)
     whole = (lambda t: t.full_tensor()) if mesh else (lambda t: t)
-    mets = []
     with (prt.activate(mesh) if mesh else contextlib.nullcontext()), \
-            (_Control(control) if control else contextlib.nullcontext()):
+            (_Control(control) if control else contextlib.nullcontext()), \
+            (sums_in_parts() if witness else contextlib.nullcontext()):
         if mesh:
             state = mod["runtime.elastic"].remesh_state(
                 state, opt_mod.state_logical(lm), None, mesh)
         step = opt_mod.make_train_step(lm, opt_mod.OptConfig(**OPT))
-        for i, b in enumerate(batches):
-            state, m = step(state, {"tokens": torch.from_numpy(b).long()})
-            mets.append({k: float(v) for k, v in m.items()})
-            if i == 0:
-                m1 = {n: whole(t).detach().clone()
-                      for n, t in state["m"].items()}
-        params = {n: whole(t).detach().clone()
-                  for n, t in state["params"].items()}
-    return mets, params, m1
+        return two_steps(step, state, [
+            {"tokens": torch.from_numpy(b).long()} for b in batches], whole)
 
 
 def _specs(lm, B, mesh):
@@ -354,6 +350,10 @@ def runs(tmp_path_factory):
         unsharded64 = {a: _steps64(a, weights64[a], [z["tokens"],
                                                      z["tokens2"]])
                        for a in ARCHS}
+        witness64 = {a: _steps64(a, weights64[a], [z["tokens"],
+                                                   z["tokens2"]],
+                                 witness=True)
+                     for a in ARCHS}
         served = {key: _serve(_lm(z, f"{key}.p", over, a), z, key)
                   for key, (a, over, _, _) in SERVE.items()}
         errs = [p.communicate(timeout=300)[1] for p in procs]
@@ -370,6 +370,7 @@ def runs(tmp_path_factory):
     load_jax_numpy(dense, {k[6:]: v for k, v in z.items()
                            if k.startswith("dense.")})
     return dict(z=z, port=port, unsharded=unsharded, unsharded64=unsharded64,
+                witness64=witness64,
                 served=served, jx=jx, js=js, indices=indices,
                 dense=_step(dense, z))
 
@@ -423,7 +424,7 @@ def test_one_step_matches_gspmd(runs, case):
                                    rtol=RTOL, err_msg=k)
     m = port[0][case]["m"]
     unsharded_m = want[3]["m"]
-    exact = runs["unsharded64"][case[0]][2]
+    exact = runs["unsharded64"][case[0]].m1
     assert m.keys() == unsharded_m.keys() == exact.keys()
     for n, t in m.items():
         f64 = exact[n].numpy()
@@ -476,31 +477,18 @@ def test_compute_copies_are_the_ranks_slices(runs, case):
     assert min(kinds.values()) > 0, kinds
 
 
-def _f64_distance(got, want):
-    """Largest relative distance of loss and grad_norm over the steps, the
-    worst leaf's relative L2 of ``m`` after step 1, the params' largest
-    absolute difference."""
-    (gm, gp, g1), (wm, wp, w1) = got, want
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-    return max(
-        max(rel(a[k], b[k]) for a, b in zip(gm, wm)
-            for k in ("loss", "grad_norm")),
-        max(_rel_l2(g1[n].numpy(), w1[n].numpy()) for n in w1),
-        max(float((gp[n] - wp[n]).abs().max()) for n in wp))
-
-
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_two_steps_are_exact_in_float64(runs, case):
     """In float64 the mesh's two steps (EP beside the split) equal the
-    unsharded float64 steps to F64_REL: loss and grad_norm at both steps,
-    ``m`` after step 1 leaf by leaf, every param; every rank alike."""
+    unsharded float64 steps to F64_REL by ``float64_steps.distance``,
+    every rank alike; the witness (the unsharded steps with their sums in
+    parts) moves no params term past it either."""
     port = runs["port"]
     want = runs["unsharded64"][case[0]]
     got = port[0][case]["f64"]
-    assert all(r[case]["f64"][0] == got[0] for r in port)
-    assert _f64_distance(got, want) <= F64_REL
+    assert all(r[case]["f64"].metrics == got.metrics for r in port)
+    assert worst(got, want) <= F64_REL, distance(got, want)
+    assert distance(runs["witness64"][case[0]], want)["params"] <= F64_REL
 
 
 @pytest.mark.parametrize("control", list(CONTROLS))
@@ -510,7 +498,7 @@ def test_the_controls_miss_the_float64_limit(runs, control):
     the float64 steps on (1, 4) miss F64_REL by far."""
     got = runs["port"][0][control]
     want = runs["unsharded64"][CONTROLS[control]]
-    assert _f64_distance(got, want) > 1e3 * F64_REL
+    assert worst(got, want) > 1e3 * F64_REL
 
 
 def _rank_of(coord):

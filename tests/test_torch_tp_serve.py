@@ -181,11 +181,11 @@ def _serve_rank(rank, world, d):
 
 
 def _relayouts(mesh):
-    """``adamw._relayout`` of a [4, 8] tensor whose dim lies on both mesh
+    """``sharding.relayout`` of a [4, 8] tensor whose dim lies on both mesh
     dims (major "data", minor "model"), each case from this rank's shard
     at ``src`` to its local tensor at ``dst``."""
     from torch.distributed.tensor import Replicate, Shard
-    from repro_torch.optim.adamw import _relayout
+    from repro_torch.sharding.relayout import relayout
     full = torch.arange(32.).reshape(4, 8)
     d, m = mesh.get_coordinate()
     i = d * MESH[1] + m
@@ -196,7 +196,7 @@ def _relayouts(mesh):
              "batch stays": (full[i:i + 1], (S0, S0), (S0, S0)),
              "beside heads": (full[2 * d:2 * d + 2, 4 * m:4 * m + 4],
                               (S0, S1), (R, R))}
-    return {k: _relayout(t, mesh, src, dst).clone()
+    return {k: relayout(t, mesh, src, dst).clone()
             for k, (t, src, dst) in cases.items()}
 
 
@@ -344,7 +344,7 @@ def test_a_rank_without_a_valid_key_adds_exactly_zero():
 
 def test_relayout_over_two_mesh_dims_on_one_tensor_dim(runs):
     """A cache's sequence over ("data", "model") is split major to minor:
-    ``adamw._relayout`` gathers it minor dim first and cuts it major dim
+    ``sharding.relayout`` gathers it minor dim first and cuts it major dim
     first (the gathered blocks' cache leaves go in and out that way), and
     leaves a dim whose mesh dims stay as it is."""
     full = torch.arange(32.).reshape(4, 8)
